@@ -1,0 +1,85 @@
+"""Fused encoding statistics: the wrapper of ``csrc/cco_stats.cu``.
+
+Replaces ``repro/kernels/cco_stats.py::cco_stats_pallas`` with
+``moments="cross"`` (the kernel body ``_stats_kernel``): mean_f, sq_f,
+mean_g, sq_g (d,) and cross = zf^T zg / n (d, d), all f32, in one pass
+over N. See the source for the design and its bound on the card.
+
+On a CUDA tensor the wrapper launches the kernel, or raises: it never
+hands a CUDA tensor to the plain version. On a CPU tensor it runs the
+plain version in :mod:`repro_torch.kernels.ref`. ``cco_stats.launches``
+counts kernel launches, so a run can show it went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+F32 = torch.float32
+
+
+def _device_type(t: torch.Tensor) -> str:
+    return t.device.type
+
+
+def _kernel():
+    fn = _build.load("cco_stats").cco_stats_cross_f32
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def cco_stats(zf: torch.Tensor, zg: torch.Tensor, num_valid=None):
+    """zf, zg: (N, d) -> dict of f32 statistics (the ``"cross"`` set).
+
+    ``num_valid`` (a scalar tensor on the inputs' device) overrides the
+    normaliser with ``1 / max(num_valid, 1)``: it is used with pre-masked
+    encodings (rows zeroed for padding samples). It is read on the device,
+    so the call never waits for the host.
+    """
+    if zf.dim() != 2 or zf.shape != zg.shape:
+        raise ValueError(f"zf and zg must be (N, d) of one shape, got "
+                         f"{tuple(zf.shape)} and {tuple(zg.shape)}")
+    if not (zf.is_floating_point() and zg.is_floating_point()):
+        raise TypeError(f"floating inputs expected, got {zf.dtype}/{zg.dtype}")
+    if zf.device != zg.device:
+        raise ValueError(f"zf on {zf.device} but zg on {zg.device}")
+    n, d = zf.shape
+    if n == 0 or d == 0:
+        raise ValueError(f"empty input of shape {(n, d)}")
+    zf, zg = zf.to(F32), zg.to(F32)      # the reference's .astype(F32)
+    if not (zf.is_contiguous() and zg.is_contiguous()):
+        raise ValueError("cco_stats needs row-major contiguous (N, d) inputs")
+    kind = _device_type(zf)
+    if kind == "cpu":
+        return ref.cco_stats_ref(zf, zg, num_valid)
+    if kind != "cuda":
+        raise ValueError(f"cco_stats runs on cuda or cpu tensors, got {kind}")
+    if num_valid is not None:
+        if not (isinstance(num_valid, torch.Tensor)
+                and num_valid.numel() == 1
+                and num_valid.device == zf.device):
+            raise ValueError("num_valid must be a one-element tensor on the "
+                             "inputs' device")
+        num_valid = num_valid.to(F32).contiguous()
+    fn = _kernel()
+    cross = torch.empty((d, d), dtype=F32, device=zf.device)
+    vecs = torch.empty((4, d), dtype=F32, device=zf.device)
+    with torch.cuda.device(zf.device):
+        stream = torch.cuda.current_stream(zf.device).cuda_stream
+        err = fn(zf.data_ptr(), zg.data_ptr(),
+                 None if num_valid is None else num_valid.data_ptr(),
+                 cross.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+                 vecs[2].data_ptr(), vecs[3].data_ptr(), n, d, stream)
+    if err != 0:
+        raise RuntimeError(f"cco_stats kernel launch failed: CUDA error {err}")
+    cco_stats.launches += 1
+    return {"mean_f": vecs[0], "sq_f": vecs[1], "mean_g": vecs[2],
+            "sq_g": vecs[3], "cross": cross}
+
+
+cco_stats.launches = 0

@@ -1,0 +1,101 @@
+"""The port's entry points: the training CLI on the CPU, its refusal to run
+on the CPU unasked, and the port's independence from JAX and the
+reference package."""
+import os
+from pathlib import Path
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.launch import train
+
+# tier-1 runs 6 pytest workers on the machine's cores: one torch thread
+# per worker keeps them from contending with each other and with JAX
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SMALL = ["--rounds", "2", "--eval-every", "2", "--dataset-size", "64",
+         "--clients-per-round", "4", "--num-classes", "3"]
+
+
+def _run(args, timeout=240):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_train_cli_runs_two_smoke_rounds_on_cpu():
+    out = _run(["-m", "repro_torch.launch.train", "--device", "cpu", *SMALL])
+    assert out.returncode == 0, out.stderr
+    assert "round     2 loss=" in out.stdout
+    assert "final loss" in out.stdout
+
+
+def test_train_raises_without_gpu_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present, so the default device is valid")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.main(SMALL)
+
+
+def test_train_main_returns_a_summary_on_cpu():
+    res = train.main(["--device", "cpu", "--stats-kernel", "off", *SMALL])
+    assert res["device"] == "cpu" and res["loss_finite"]
+    assert len(res["history"]) == 2 and len(res["round_ms"]) == 2
+    assert 0.0 <= res["probe"] <= 1.0
+
+
+def test_train_rejects_unported_choices():
+    with pytest.raises(NotImplementedError, match="Transformer families"):
+        train.main(["--device", "cpu", "--arch", "qwen3-8b", *SMALL])
+    with pytest.raises(SystemExit):
+        train.main(["--device", "cpu", "--stats-kernel", "pallas", *SMALL])
+    with pytest.raises(SystemExit):
+        train.main(["--device", "cpu", "--severity", "0.5", *SMALL])
+
+
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)",
+                     re.MULTILINE)
+
+
+def test_port_sources_import_neither_jax_nor_the_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if _IMPORT.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_port_loads_no_jax_module_at_run_time():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from repro_torch.launch import train\n"
+        f"train.main({['--device', 'cpu', *SMALL]!r})\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("clean")
+
+
+def test_profile_round_runs_on_cpu():
+    from repro_torch.launch import profile_round
+    res = profile_round.main(["--device", "cpu", "--clients-per-round", "2",
+                              "--dataset-size", "32", "--warmup", "1",
+                              "--rounds", "1"])
+    assert res["wall_ms"] > 0
+    assert res["busy_ms"] is None          # no device time on the CPU
+    assert profile_round._layer("cco_stats_cross_kernel").startswith(
+        "phase-1")
+    assert profile_round._layer("sm90_xmma_fprop_implicit_gemm").startswith(
+        "convolutions")
