@@ -20,10 +20,14 @@ F32 = torch.float32
 Stats = Dict[str, torch.Tensor]  # mean_f/sq_f/mean_g/sq_g: (d,), cross: (d,d)
 
 STAT_KEYS = ("mean_f", "sq_f", "mean_g", "sq_g", "cross")
+# the optional within-view second moments (VICReg / W-MSE moment set)
+SECOND_MOMENT_KEYS = ("cov_f", "cov_g")
 
 
-def moment_stats(zf, zg, mask=None) -> Stats:
-    """The five CCO statistics, dense or masked.
+def moment_stats(zf, zg, mask=None, *, second_moments: bool = False) -> Stats:
+    """The five CCO statistics, dense or masked; with ``second_moments``
+    also the within-view second moments cov_f = <F F^T>, cov_g = <G G^T>
+    (d, d) that the VICReg-family objectives need.
 
     ``mask`` is ``(N,)`` in {0, 1}; rows with 0 contribute nothing and the
     normalizer is the valid-sample count (floored at 1).
@@ -32,24 +36,32 @@ def moment_stats(zf, zg, mask=None) -> Stats:
     zg = at_least_f32(zg)
     if mask is None:
         n = zf.shape[0]
-        return {
+        st = {
             "mean_f": zf.mean(0),
             "sq_f": (zf * zf).mean(0),
             "mean_g": zg.mean(0),
             "sq_g": (zg * zg).mean(0),
             "cross": zf.T @ zg / n,
         }
+        if second_moments:
+            st["cov_f"] = zf.T @ zf / n
+            st["cov_g"] = zg.T @ zg / n
+        return st
     w = mask.to(F32)
     n = torch.clamp(w.sum(), min=1.0)
     zf_m = zf * w[:, None]
     zg_m = zg * w[:, None]
-    return {
+    st = {
         "mean_f": zf_m.sum(0) / n,
         "sq_f": (zf_m * zf).sum(0) / n,
         "mean_g": zg_m.sum(0) / n,
         "sq_g": (zg_m * zg).sum(0) / n,
         "cross": zf_m.T @ zg / n,
     }
+    if second_moments:
+        st["cov_f"] = zf_m.T @ zf / n
+        st["cov_g"] = zg_m.T @ zg / n
+    return st
 
 
 def encoding_stats(zf, zg) -> Stats:

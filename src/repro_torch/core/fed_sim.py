@@ -41,6 +41,7 @@ def resolve_objective(objective, lam: float = 20.0):
 class RoundMetrics(NamedTuple):
     loss: torch.Tensor
     encoding_std: torch.Tensor
+    wire_bytes: torch.Tensor        # uplink bytes of the round (0: no channel)
 
 
 def _client_masks(client_sizes, n_pad: int):
@@ -79,17 +80,31 @@ def client_local_steps(loss_fn, params, client_lr: float, local_steps: int):
 def stats_round(encoder_apply: Callable, params, opt_state, server_opt,
                 client_data, client_sizes, *, objective,
                 client_lr: float = 1.0, local_steps: int = 1,
-                agg_stats_fn: Optional[Callable] = None):
-    """One two-phase aggregated-statistics round. Returns (params,
-    opt_state, metrics).
+                agg_stats_fn: Optional[Callable] = None,
+                channel=None, channel_key: Optional[int] = None,
+                channel_draws=None):
+    """One two-phase aggregated-statistics round for any StatsObjective.
+    Returns (params, opt_state, metrics).
 
     Phase 1 is never differentiated. The cohort is encoded as one (K*n)
     batch — exact, because GroupNorm and weight standardization couple no
     two samples. ``agg_stats_fn(zf_flat, zg_flat, mask_flat) -> Stats``, if
     given, computes the aggregate statistics in one pass over the
     flattened cohort (the engine routes it through the CUDA ``cco_stats``
-    kernel); by Eq. 3 this equals the weighted average of per-client
-    statistics, which is what runs otherwise.
+    kernel, in the objective's moment set); by Eq. 3 this equals the
+    weighted average of per-client statistics, which is what runs
+    otherwise. The flat path needs a channel that ``supports_flat_stats``,
+    since per-client payloads never materialise.
+
+    ``channel`` (:mod:`repro_torch.comm`) routes both uplinks, the phase-1
+    statistics and the phase-2 deltas, through an explicit wire:
+    participation and aggregation weights come from
+    ``channel.begin_round(channel_key, ...)``, payloads go through its
+    encode/decode, and ``metrics.wire_bytes`` reports the round's uplink
+    bytes. ``channel_draws`` (a dict with optional ``"begin"``,
+    ``"stats"`` and ``"update"`` entries) replaces the channel's random
+    draws, for tests that feed the reference's. With ``channel=None`` the
+    lossless path runs; DenseChannel is bit-identical to it.
 
     ``server_opt`` may be a :class:`repro_torch.optim.Optimizer` (wrapped
     as the ``fedavg_sgd`` delegate) or a ServerUpdate.
@@ -97,7 +112,21 @@ def stats_round(encoder_apply: Callable, params, opt_state, server_opt,
     server_update = server_update_lib.as_server_update(server_opt)
     k, n_pad = utils.tree_leaves(client_data)[0].shape[:2]
     masks = _client_masks(client_sizes, n_pad)               # (K, n)
-    w = client_sizes.to(F32) / client_sizes.to(F32).sum()
+    draws = channel_draws or {}
+    if channel is None:
+        ctx = None
+        w = client_sizes.to(F32) / client_sizes.to(F32).sum()
+    else:
+        if channel_key is None:
+            raise ValueError("channel requires channel_key")
+        if agg_stats_fn is not None and not channel.supports_flat_stats:
+            raise ValueError(
+                f"agg_stats_fn needs per-client payloads, incompatible "
+                f"with {channel!r}")
+        ctx = channel.begin_round(channel_key, client_sizes,
+                                  draws.get("begin"))
+        w = ctx.weights
+    wire = torch.zeros((), dtype=F32, device=masks.device)
 
     # ---- phase 1: clients compute local stats; server aggregates (Eq. 3)
     with torch.no_grad():
@@ -106,9 +135,15 @@ def stats_round(encoder_apply: Callable, params, opt_state, server_opt,
             d = zf.shape[-1]
             st_k = vmap(objective.stats_masked)(
                 zf.reshape(k, n_pad, d), zg.reshape(k, n_pad, d), masks)
-            agg = cco.weighted_average_stats(st_k, client_sizes)
+            if ctx is None:
+                agg = cco.weighted_average_stats(st_k, client_sizes)
+            else:
+                agg = channel.aggregate(ctx, st_k, "stats",
+                                        draws.get("stats"))
         else:
             agg = agg_stats_fn(zf, zg, masks.reshape(-1))
+        if ctx is not None:
+            wire = wire + channel.round_bytes(ctx, agg)
 
     # ---- phase 2: server redistributes agg stats; clients run local steps
     def client_update(batch, mask):
@@ -122,11 +157,17 @@ def stats_round(encoder_apply: Callable, params, opt_state, server_opt,
     deltas, losses_k = vmap(client_update)(client_data, masks)
 
     # ---- server: weighted average of deltas -> FedOpt pseudo-gradient
-    avg_delta = utils.tree_map(lambda dl: torch.tensordot(w, dl, dims=1),
-                               deltas)
+    if ctx is None:
+        avg_delta = utils.tree_map(lambda dl: torch.tensordot(w, dl, dims=1),
+                                   deltas)
+    else:
+        with torch.no_grad():
+            avg_delta = channel.aggregate(ctx, deltas, "update",
+                                          draws.get("update"))
+            wire = wire + channel.round_bytes(ctx, avg_delta)
     params, opt_state = server_update.step(params, opt_state, avg_delta)
     return params, opt_state, RoundMetrics((w * losses_k).sum(),
-                                           objective.encoding_std(agg))
+                                           objective.encoding_std(agg), wire)
 
 
 def dcco_round(encoder_apply: Callable, params, opt_state, server_opt,
@@ -163,5 +204,5 @@ def centralized_step(encoder_apply: Callable, params, opt_state, server_opt,
     g, loss = grad_and_value(loss_fn)(params)
     updates, opt_state = server_opt.update(g, opt_state, params)
     params = opt_lib.apply_updates(params, updates)
-    return params, opt_state, RoundMetrics(
-        loss.detach(), torch.zeros((), dtype=F32, device=loss.device))
+    zero = torch.zeros((), dtype=F32, device=loss.device)
+    return params, opt_state, RoundMetrics(loss.detach(), zero, zero)

@@ -1,14 +1,17 @@
 """Fused encoding statistics: the wrapper of ``csrc/cco_stats.cu``.
 
-Replaces ``repro/kernels/cco_stats.py::cco_stats_pallas`` with
-``moments="cross"`` (the kernel body ``_stats_kernel``): mean_f, sq_f,
-mean_g, sq_g (d,) and cross = zf^T zg / n (d, d), all f32, in one pass
-over N. See the source for the design and its bound on the card.
+Replaces ``repro/kernels/cco_stats.py::cco_stats_pallas`` in both moment
+sets: ``moments="cross"`` (the kernel body ``_stats_kernel``) gives mean_f,
+sq_f, mean_g, sq_g (d,) and cross = zf^T zg / n (d, d); ``moments="full"``
+(``_stats_kernel_full``) adds cov_f = zf^T zf / n and cov_g = zg^T zg / n
+(d, d). All f32, in one pass over N. See the source for the design and its
+bound on the card.
 
 On a CUDA tensor the wrapper launches the kernel, or raises: it never
 hands a CUDA tensor to the plain version. On a CPU tensor it runs the
 plain version in :mod:`repro_torch.kernels.ref`. ``cco_stats.launches``
-counts kernel launches, so a run can show it went through the kernel.
+counts kernel launches by moment set (``{"cross": n, "full": n}``), so a
+run can show which kernel it went through.
 """
 from __future__ import annotations
 
@@ -25,22 +28,31 @@ def _device_type(t: torch.Tensor) -> str:
     return t.device.type
 
 
-def _kernel():
-    fn = _build.load("cco_stats").cco_stats_cross_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+def _kernel(moments: str):
+    lib = _build.load("cco_stats")
+    if moments == "cross":
+        fn, outs = lib.cco_stats_cross_f32, 5
+    else:
+        fn, outs = lib.cco_stats_full_f32, 7
+    fn.argtypes = [ctypes.c_void_p] * (3 + outs) + [ctypes.c_int, ctypes.c_int,
+                                                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def cco_stats(zf: torch.Tensor, zg: torch.Tensor, num_valid=None):
-    """zf, zg: (N, d) -> dict of f32 statistics (the ``"cross"`` set).
+def cco_stats(zf: torch.Tensor, zg: torch.Tensor, num_valid=None, *,
+              moments: str = "cross"):
+    """zf, zg: (N, d) -> dict of f32 statistics of the moment set
+    ``moments`` (``"cross"``: five statistics; ``"full"``: seven).
 
     ``num_valid`` (a scalar tensor on the inputs' device) overrides the
     normaliser with ``1 / max(num_valid, 1)``: it is used with pre-masked
     encodings (rows zeroed for padding samples). It is read on the device,
     so the call never waits for the host.
     """
+    if moments not in ref.MOMENT_SETS:
+        raise ValueError(f"unknown moment set {moments!r}; expected one of "
+                         f"{ref.MOMENT_SETS}")
     if zf.dim() != 2 or zf.shape != zg.shape:
         raise ValueError(f"zf and zg must be (N, d) of one shape, got "
                          f"{tuple(zf.shape)} and {tuple(zg.shape)}")
@@ -56,7 +68,7 @@ def cco_stats(zf: torch.Tensor, zg: torch.Tensor, num_valid=None):
         raise ValueError("cco_stats needs row-major contiguous (N, d) inputs")
     kind = _device_type(zf)
     if kind == "cpu":
-        return ref.cco_stats_ref(zf, zg, num_valid)
+        return ref.cco_stats_ref(zf, zg, num_valid, moments)
     if kind != "cuda":
         raise ValueError(f"cco_stats runs on cuda or cpu tensors, got {kind}")
     if num_valid is not None:
@@ -66,20 +78,25 @@ def cco_stats(zf: torch.Tensor, zg: torch.Tensor, num_valid=None):
             raise ValueError("num_valid must be a one-element tensor on the "
                              "inputs' device")
         num_valid = num_valid.to(F32).contiguous()
-    fn = _kernel()
-    cross = torch.empty((d, d), dtype=F32, device=zf.device)
+    fn = _kernel(moments)
+    mats = torch.empty((1 if moments == "cross" else 3, d, d), dtype=F32,
+                       device=zf.device)               # cross[, cov_f, cov_g]
     vecs = torch.empty((4, d), dtype=F32, device=zf.device)
+    ptrs = [vecs[i].data_ptr() for i in range(4)]
+    ptrs += [mats[i].data_ptr() for i in range(1, mats.shape[0])]
     with torch.cuda.device(zf.device):
         stream = torch.cuda.current_stream(zf.device).cuda_stream
         err = fn(zf.data_ptr(), zg.data_ptr(),
                  None if num_valid is None else num_valid.data_ptr(),
-                 cross.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
-                 vecs[2].data_ptr(), vecs[3].data_ptr(), n, d, stream)
+                 mats[0].data_ptr(), *ptrs, n, d, stream)
     if err != 0:
         raise RuntimeError(f"cco_stats kernel launch failed: CUDA error {err}")
-    cco_stats.launches += 1
-    return {"mean_f": vecs[0], "sq_f": vecs[1], "mean_g": vecs[2],
-            "sq_g": vecs[3], "cross": cross}
+    cco_stats.launches[moments] += 1
+    out = {"mean_f": vecs[0], "sq_f": vecs[1], "mean_g": vecs[2],
+           "sq_g": vecs[3], "cross": mats[0]}
+    if moments == "full":
+        out["cov_f"], out["cov_g"] = mats[1], mats[2]
+    return out
 
 
-cco_stats.launches = 0
+cco_stats.launches = {m: 0 for m in ref.MOMENT_SETS}

@@ -1,15 +1,22 @@
-"""Training driver: federated DCCO pretraining of the ResNet-14 dual
-encoder, rounds driven by :class:`repro_torch.core.round_engine.RoundEngine`
-(the reference CLI's ``--mode engine`` path).
+"""Training driver: federated stats-objective pretraining
+(``--objective dcco|dvicreg|dwmse``) of the ResNet-14 dual encoder, rounds
+driven by :class:`repro_torch.core.round_engine.RoundEngine` (the
+reference CLI's ``--mode engine`` path), optionally over a lossy client
+uplink (``--channel``).
 
 Runs on the GPU unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it raises. ``--full`` trains the full-width
 model (channels (64, 128, 256), 32x32 images, projection head
 (1024, 1024, 1024)); the default ``--smoke`` config is the reduced one.
 
-Example (full width, on the GPU):
+Examples (full width, on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 5 \\
       --clients-per-round 64 --dataset-size 2048 --eval-every 5
+  PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 5 \\
+      --objective dvicreg --clients-per-round 64 --dataset-size 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 5 \\
+      --channel int8 --clients-per-round 64 \\
+      --dataset-size 2048
 """
 from __future__ import annotations
 
@@ -19,13 +26,13 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import comm, objectives as objectives_lib
 from repro_torch.configs.base import (DualEncoderConfig, get_config,
                                       get_dual_encoder_config)
 from repro_torch.core import eval as eval_lib, round_engine
 from repro_torch.data import partition as partition_lib
 from repro_torch.data import pipeline, synthetic
 from repro_torch.models import dual_encoder, resnet as resnet_mod
-from repro_torch.objectives import CCOObjective
 from repro_torch.optim import optimizers as opt_lib, schedules
 from repro_torch.server import update as server_update_lib
 from repro_torch.utils import resolve_device
@@ -51,7 +58,18 @@ def build_dataset(cfg, args):
         seed=args.seed), labels
 
 
-def validate_flags(args) -> None:
+def _forbid_ignored_flags(ap, args, attrs, why: str) -> None:
+    """Exit loudly when a flag was set but the selected objective or
+    channel would silently ignore it (e.g. --quant-bits without --channel
+    quant)."""
+    flagged = ["--" + a.replace("_", "-") for a in attrs
+               if getattr(args, a) != ap.get_default(a)]
+    if flagged:
+        raise SystemExit(f"{', '.join(flagged)} would be silently ignored: "
+                         f"{why}")
+
+
+def validate_flags(ap, args) -> None:
     if args.partition is not None and args.alpha is not None:
         raise SystemExit("--alpha is the deprecated spelling of --partition "
                          "dirichlet; pass one, not both")
@@ -59,6 +77,26 @@ def validate_flags(args) -> None:
         raise SystemExit("--severity needs --partition")
     if args.severity is not None and not 0.0 <= args.severity <= 1.0:
         raise SystemExit(f"--severity {args.severity} must be in [0, 1]")
+    if args.objective != "dcco":
+        _forbid_ignored_flags(
+            ap, args, ["lam"],
+            f"--lam is the CCO off-diagonal weight; --objective "
+            f"{args.objective} has its own hyperparameters")
+    if args.channel != "quant":
+        _forbid_ignored_flags(
+            ap, args, ["quant_bits"],
+            f"--quant-bits only applies to --channel quant "
+            f"(got --channel {args.channel})")
+    if args.channel != "dp":
+        _forbid_ignored_flags(
+            ap, args, ["dp_sigma", "dp_clip", "dp_delta"],
+            f"DP flags only apply to --channel dp (got --channel "
+            f"{args.channel})")
+    if args.channel != "dropout":
+        _forbid_ignored_flags(
+            ap, args, ["dropout_p"],
+            f"--dropout-p only applies to --channel dropout (got --channel "
+            f"{args.channel})")
 
 
 def make_apply(cfg, de_cfg):
@@ -71,9 +109,12 @@ def make_apply(cfg, de_cfg):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Federated DCCO pretraining of the ResNet-14 dual "
-                    "encoder (PyTorch port)")
+        description="Federated stats-objective pretraining of the ResNet-14 "
+                    "dual encoder (PyTorch port)")
     ap.add_argument("--arch", default="resnet14-cifar")
+    ap.add_argument("--objective", default="dcco",
+                    choices=list(objectives_lib.OBJECTIVES),
+                    help="stats objective trained by the two-phase round")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--device", default=None,
@@ -98,9 +139,36 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--chunk-rounds", type=int, default=0,
                    help="rounds per metrics segment (0 = --eval-every)")
     g.add_argument("--stats-kernel", choices=list(round_engine.STATS_KERNELS),
-                   default="fused",
+                   default=None,
                    help="'fused': phase-1 aggregate statistics through the "
-                        "CUDA cco_stats kernel; 'off': per-client average")
+                        "CUDA cco_stats kernel; 'off': per-client average. "
+                        "Default: 'fused' unless --channel needs per-client "
+                        "payloads (the lossy channels), then 'off'")
+
+    g = ap.add_argument_group("communication")
+    g.add_argument("--channel", default="none",
+                   choices=["none", *comm.CHANNELS],
+                   help="client->server channel: 'none' = ideal lossless "
+                        "wire; 'dense' = f32 wire; 'int8' = 8-bit "
+                        "stochastic-rounding quantization; 'quant' = "
+                        "--quant-bits quantization; 'dp' = clipped + "
+                        "Gaussian-noised aggregation; 'dropout' = "
+                        "Bernoulli client dropout")
+    g.add_argument("--quant-bits", type=int, default=8,
+                   help="wire width for --channel quant")
+    g.add_argument("--quant-kernel", choices=["fused"], default="fused",
+                   help="quantize->dequantize through the CUDA quantize "
+                        "kernel, the only route on the card (the reference's "
+                        "'off' and 'interpret' have no counterpart)")
+    g.add_argument("--dp-sigma", type=float, default=1.0,
+                   help="DP noise multiplier (--channel dp)")
+    g.add_argument("--dp-clip", type=float, default=1.0,
+                   help="per-client L2 clip norm (--channel dp)")
+    g.add_argument("--dp-delta", type=float, default=1e-5,
+                   help="target delta for the epsilon accountant")
+    g.add_argument("--dropout-p", type=float, default=0.1,
+                   help="per-round client dropout probability "
+                        "(--channel dropout)")
 
     g = ap.add_argument_group("server & client optimization")
     g.add_argument("--server-optimizer", default="adam",
@@ -114,10 +182,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     """Train; returns a summary (losses, ms per round, probe accuracy,
-    final params) for callers that drive it in-process."""
+    uplink bytes, final params) for callers that drive it in-process."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    validate_flags(args)
+    validate_flags(ap, args)
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -144,17 +212,23 @@ def main(argv=None) -> dict:
                 z[:cut], labels_t[:cut], z[cut:], labels_t[cut:],
                 args.num_classes))
 
+    objective = objectives_lib.get_objective(
+        args.objective,
+        **({"lam": args.lam} if args.objective == "dcco" else {}))
+    channel = comm.get_channel(
+        args.channel, quant_bits=args.quant_bits, dp_sigma=args.dp_sigma,
+        dp_clip=args.dp_clip, dp_delta=args.dp_delta,
+        dropout_p=args.dropout_p)
     ecfg = round_engine.EngineConfig(
-        algorithm="dcco", objective=CCOObjective(lam=args.lam),
-        lam=args.lam, client_lr=args.client_lr,
-        local_steps=args.local_steps,
+        algorithm="dcco", objective=objective, lam=args.lam,
+        client_lr=args.client_lr, local_steps=args.local_steps,
         chunk_rounds=args.chunk_rounds or args.eval_every or 25,
-        stats_kernel=args.stats_kernel)
+        stats_kernel=args.stats_kernel, channel=channel)
     sampler = ds.make_round_sampler(args.clients_per_round, device)
     engine = round_engine.RoundEngine(make_apply(cfg, de_cfg), opt, sampler,
                                       ecfg)
 
-    history, round_ms, probes = [], [], []
+    history, round_ms, probes, wire = [], [], [], []
 
     def sync():
         if device.type == "cuda":
@@ -168,6 +242,7 @@ def main(argv=None) -> dict:
         seg_ms = (time.perf_counter() - t_seg[0]) * 1e3 / m.loss.shape[0]
         round_ms.extend([seg_ms] * m.loss.shape[0])
         history.extend(float(x) for x in m.loss.cpu())
+        wire.extend(float(x) for x in m.wire_bytes.cpu())
         acc = evaluate(carry.params)
         probes.append(acc)
         print(f"round {round_end:5d} loss={history[-1]:9.4f} "
@@ -182,8 +257,17 @@ def main(argv=None) -> dict:
     if history:
         print(f"final loss {history[-1]:.4f}; first {history[0]:.4f}; "
               f"probe {probe:.3f}")
+    wire_bytes = float(sum(wire))
+    if channel is not None:
+        line = f"channel {channel!r}: uplink {wire_bytes / 1e6:.3f} MB total"
+        acct = getattr(channel, "accountant", None)
+        if acct is not None:
+            line += (f"; DP epsilon={acct.epsilon():.2f} "
+                     f"@ delta={acct.delta:g}")
+        print(line)
     return {"history": history, "round_ms": round_ms, "probe": probe,
             "probes": probes, "params": params, "device": str(device),
+            "wire_bytes": wire_bytes,
             "loss_finite": bool(np.all(np.isfinite(history)))}
 
 

@@ -1,8 +1,14 @@
-from repro_torch.objectives.base import Stats, StatsObjective  # noqa: F401
-from repro_torch.objectives.standard import CCOObjective  # noqa: F401
+from repro_torch.objectives.base import (  # noqa: F401
+    Stats, StatsObjective, per_client_loss)
+from repro_torch.objectives.standard import (  # noqa: F401
+    CCOObjective, VicRegObjective, WMSEObjective)
 
 # CLI-facing registry; factories take the objective's hyperparameters
-_REGISTRY = {"dcco": CCOObjective}
+_REGISTRY = {
+    "dcco": CCOObjective,
+    "dvicreg": VicRegObjective,
+    "dwmse": WMSEObjective,
+}
 
 OBJECTIVES = tuple(_REGISTRY)
 
@@ -17,9 +23,5 @@ def get_objective(objective, **hyper) -> StatsObjective:
         return objective
     if objective in _REGISTRY:
         return _REGISTRY[objective](**hyper)
-    if objective in ("dvicreg", "dwmse"):
-        raise NotImplementedError(
-            f"objective {objective!r} needs the 'full' moment set, not "
-            f"ported yet (ROADMAP §1, 'The \"full\" moment set')")
     raise ValueError(f"unknown objective {objective!r}; expected one of "
                      f"{OBJECTIVES} or a StatsObjective instance")

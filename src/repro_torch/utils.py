@@ -74,3 +74,23 @@ def resolve_device(device=None) -> torch.device:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return dev
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 63-bit seed from ``seed`` and ``data`` (splitmix64 of their
+    mix): the port's counterpart of ``jax.random.fold_in``, for deriving
+    independent ``torch.Generator`` streams from one seed."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(data) + 1) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def generator(seed: int, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen

@@ -58,6 +58,43 @@ def test_train_rejects_unported_choices():
         train.main(["--device", "cpu", "--severity", "0.5", *SMALL])
 
 
+def test_train_runs_the_full_moment_objective_on_cpu():
+    res = train.main(["--device", "cpu", "--objective", "dwmse", *SMALL])
+    assert res["loss_finite"] and len(res["history"]) == 2
+    assert res["wire_bytes"] == 0.0
+
+
+def test_train_runs_a_quantized_uplink_on_cpu(capsys):
+    res = train.main(["--device", "cpu", "--channel", "quant",
+                      "--quant-bits", "4", "--stats-kernel", "off", *SMALL])
+    assert res["loss_finite"] and res["wire_bytes"] > 0
+    assert "channel QuantizedChannel(bits=4): uplink" in \
+        capsys.readouterr().out
+    # without --stats-kernel a lossy channel takes the per-client phase 1
+    res = train.main(["--device", "cpu", "--channel", "dp", "--dp-sigma",
+                      "2.0", *SMALL])
+    assert "DP epsilon=" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--objective", "dvicreg", "--lam", "3"],
+    ["--quant-bits", "4"],
+    ["--channel", "int8", "--quant-bits", "4"],
+    ["--quant-kernel", "off"],
+    ["--channel", "dense", "--dp-sigma", "2"],
+    ["--channel", "dp", "--dropout-p", "0.2"],
+])
+def test_train_refuses_flags_it_would_ignore(flags):
+    with pytest.raises(SystemExit):
+        train.main(["--device", "cpu", *flags, *SMALL])
+
+
+def test_train_refuses_a_lossy_channel_on_the_flat_kernel_path():
+    with pytest.raises(ValueError, match="per-client payloads"):
+        train.main(["--device", "cpu", "--channel", "quant",
+                    "--stats-kernel", "fused", *SMALL])
+
+
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)",
                      re.MULTILINE)
 
@@ -65,6 +102,9 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)",
 def test_port_sources_import_neither_jax_nor_the_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    names = {f.relative_to(PORT).as_posix() for f in files[:-1]}
+    assert {"comm/channel.py", "comm/quantize.py", "comm/accountant.py",
+            "core/vicreg.py", "core/wmse.py", "kernels/quantize.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT.search(f.read_text())]
     assert not offenders, offenders
