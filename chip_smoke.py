@@ -10,17 +10,26 @@ Phases (each prints its lines; any failure exits non-zero):
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at a ragged shape, and time the kernel, the
      plain version and, where one exists, a one-call PyTorch yardstick:
-     ``cco_stats`` in both moment sets (to 1e-5 x (1 + max|plain|)) and
-     ``quant_dequant`` in both scale forms (bit for bit);
+     ``cco_stats`` in both moment sets (to 1e-5 x (1 + max|plain|)),
+     ``quant_dequant`` in both scale forms (bit for bit)
+     and ``segment_sum`` (bit for bit, and the same on a second run) at
+     every (K, D, E) its paths give it, a ragged shape with padding ids
+     and empty segments, and one segment per client; then
+     ``hierarchy.fold_to_edges`` end to end at the deltas shape beside the
+     kernel alone;
   3. the Appendix-A equivalence at full width, for DCCO and for D-VICReg:
      one round against one centralized step on the same 64-client cohort;
-  4. three training paths through ``repro_torch.launch.train --full`` on
+  4. six training paths through ``repro_torch.launch.train --full`` on
      64 clients x 2 samples of 2048 synthetic 32x32 images, each with every
-     kernel launch count set to 0 just before and read just after:
+     kernel launch count set to 0 just before and read just after, and held
+     to the launches its code makes:
      DCCO (5 rounds; the "cross" statistics kernel once a round), D-VICReg
-     (3 rounds; the "full" statistics kernel once a round) and DCCO over an
+     (3 rounds; the "full" statistics kernel once a round), DCCO over an
      int8 uplink (3 rounds; the column-mapped quantize kernel twice a round,
-     no statistics kernel).
+     no statistics kernel), and, 3 rounds each, the two-level tree over 8
+     edges with an int8 client hop (segment_sum 3 a round, quantize 2),
+     clustered aggregation over 4 clusters (segment_sum 8 a round) and the
+     buffered engine (segment_sum 2 a tick).
 Then one JSON line of kernel figures, and the device line last.
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -40,16 +49,18 @@ from repro_torch.configs.base import (  # noqa: E402
     get_config, get_dual_encoder_config)
 from repro_torch.core import fed_sim, round_engine  # noqa: E402
 from repro_torch.data import partition, pipeline, synthetic  # noqa: E402
+from repro_torch.hierarchy import fold_to_edges  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.cco_stats import cco_stats  # noqa: E402
 from repro_torch.kernels.quantize import quant_dequant  # noqa: E402
+from repro_torch.kernels.segment_sum import segment_sum  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import dual_encoder  # noqa: E402
 from repro_torch.objectives import get_objective  # noqa: E402
 from repro_torch.optim import optimizers as opt_lib  # noqa: E402
 
 ROUNDS = 5            # the DCCO path
-PATH_ROUNDS = 3       # the D-VICReg and quantized-uplink paths
+PATH_ROUNDS = 3       # every other path
 K, N_PER_CLIENT, DATASET = 64, 2, 2048
 MAIN_N, MAIN_D = K * N_PER_CLIENT, 1024   # phase-1 rows, projection width
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s
@@ -226,6 +237,89 @@ def check_quant(k, n, two_d, seed, calls=50, replays=20):
     return err, ms, plain_ms
 
 
+def segment_sum_bound_ms(k_valid, d, e):
+    """Rows with an id in range read once, the (E, D) output written once,
+    ids and weights read once; one multiply and one add an element of
+    every row read."""
+    return bound_ms(4 * (k_valid * d + e * d) + 8 * k_valid,
+                    2 * k_valid * d)
+
+
+def check_segment_sum(k, d, e, ids, seed, label, time_it=True):
+    """Kernel vs plain version on (k, d) unit-normal rows, ``ids`` and
+    weights in [0, 1), bit for bit, and kernel vs kernel on a second run;
+    returns (max_abs_err, ms, plain_ms, library_ms, bound). The plain
+    version reads its ranks on the host, so it is timed eagerly (CUDA
+    events around back-to-back calls), not in a graph. The yardstick is
+    one cuBLAS product ``W @ rows`` with W (E, K) = w_k [id_k = e], built
+    outside the timed call."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randn(k, d, generator=gen, device=dev)
+    w = torch.rand(k, generator=gen, device=dev)
+    ids = ids.to(device=dev, dtype=torch.int32)
+    out = segment_sum(rows, ids, e, w)
+    again = segment_sum(rows, ids, e, w)
+    torch.cuda.synchronize()
+    plain = ref.segment_sum_ref(rows, ids, e, w)
+    if out.shape != (e, d) or not out.is_cuda:
+        fail(f"segment_sum {label}: shape {tuple(out.shape)} on {out.device}")
+    err = float((out - plain).abs().max())
+    equal, same = torch.equal(out, plain), torch.equal(out, again)
+    del out, again, plain
+    valid = (ids >= 0) & (ids < e)
+    b_ms, b_by = segment_sum_bound_ms(int(valid.sum()), d, e)
+    ms = plain_ms = lib_ms = float("nan")
+    if time_it:
+        onehot = (ids.long()[None, :] == torch.arange(e, device=dev)[:, None])
+        wmat = (onehot.to(torch.float32) * w[None, :]).contiguous()
+        ms = time_ms(lambda: segment_sum(rows, ids, e, w), 10, 5)
+        plain_ms = eager_ms(lambda: ref.segment_sum_ref(rows, ids, e, w), 10)
+        lib_ms = time_ms(lambda: torch.matmul(wmat, rows), 10, 5)
+        del wmat
+    print(f"segment_sum {label} K={k} D={d} E={e}: max_abs_err={err:.3e} "
+          f"bit-equal {equal}, run-to-run equal {same}; device ms: kernel "
+          f"{ms:.5f} plain {plain_ms:.5f} matmul(W, rows) {lib_ms:.5f} "
+          f"bound {b_ms:.5f} ({b_by})", flush=True)
+    if not (equal and same):
+        fail(f"segment_sum {label} differs from its plain version or from "
+             f"itself at K={k} D={d} E={e}")
+    del rows
+    torch.cuda.empty_cache()
+    return err, ms, plain_ms, lib_ms, (b_ms, b_by)
+
+
+def check_fold_to_edges(device, k, e):
+    """``fold_to_edges`` of a stacked (K, ...) deltas tree of the
+    full-width model, end to end (the leaf concatenation, the kernel and
+    the split), beside the kernel alone on the concatenated rows."""
+    params = dual_encoder.init_dual_encoder(
+        0, get_config("resnet14-cifar"),
+        get_dual_encoder_config("resnet14-cifar"), device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    tree = utils.tree_map(
+        lambda p: torch.randn((k,) + tuple(p.shape), generator=gen,
+                              device=device), params)
+    del params
+    w = torch.rand(k, generator=gen, device=device)
+    ids = (torch.arange(k, device=device) // (k // e)).to(torch.int32)
+    rows = torch.cat([x.reshape(k, -1) for x in utils.tree_leaves(tree)], 1)
+    folded = fold_to_edges(tree, w, ids, e)
+    flat = torch.cat([x.reshape(e, -1) for x in utils.tree_leaves(folded)],
+                     1)
+    if not torch.equal(flat, segment_sum(rows, ids, e, w)):
+        fail("fold_to_edges differs from one kernel call on its rows")
+    del folded, flat
+    ms = eager_ms(lambda: fold_to_edges(tree, w, ids, e), 10)
+    kernel = eager_ms(lambda: segment_sum(rows, ids, e, w), 10)
+    print(f"fold_to_edges deltas K={k} D={rows.shape[1]} E={e}: end to end "
+          f"{ms:.5f} ms, the kernel alone {kernel:.5f} ms (eager, CUDA "
+          f"events); the concatenation moves {2 * rows.numel() * 4 / 1e9:.3f}"
+          f" GB", flush=True)
+    del tree, rows
+    torch.cuda.empty_cache()
+
+
 def appendix_a(device, objective="dcco"):
     """One round of ``objective`` against one centralized step on the same
     cohort.
@@ -284,7 +378,8 @@ def appendix_a(device, objective="dcco"):
 
 
 def _reset_counts():
-    for counts in (cco_stats.launches, quant_dequant.launches):
+    for counts in (cco_stats.launches, quant_dequant.launches,
+                   segment_sum.launches):
         for key in counts:
             counts[key] = 0
 
@@ -293,7 +388,8 @@ def _read_counts():
     return {"cross": cco_stats.launches["cross"],
             "full": cco_stats.launches["full"],
             "per_row": quant_dequant.launches["per_row"],
-            "column": quant_dequant.launches["column"]}
+            "column": quant_dequant.launches["column"],
+            "fold": segment_sum.launches["fold"]}
 
 
 def train_path(name, flags, rounds, expected):
@@ -327,6 +423,15 @@ def train_path(name, flags, rounds, expected):
           f"; kernel launches {counts}", flush=True)
     if "--channel" in flags and not res["wire_bytes"] > 0:
         fail(f"{name}: no uplink bytes counted")
+    if "--edges" in flags:
+        print(f"{name}: uplink per hop: client->edge "
+              f"{res['wire_bytes'] - res['edge_bytes']:.6g} bytes, "
+              f"edge->server {res['edge_bytes']:.6g} bytes", flush=True)
+        if not res["edge_bytes"] > 0:
+            fail(f"{name}: no edge->server bytes counted")
+    if "--async-k" in flags:
+        print(f"{name}: server updates applied {res['updates']} in "
+              f"{rounds} ticks", flush=True)
     return counts
 
 
@@ -345,7 +450,7 @@ def main():
           f"python {sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
-    _build.build(["cco_stats", "quantize"])
+    _build.build(list(_build.KERNELS))
     print(f"build: {time.perf_counter() - t0:.2f} s wall "
           f"(nvcc seconds {_build.build_seconds})", flush=True)
     for name, log in _build.build_logs.items():
@@ -376,6 +481,30 @@ def main():
     for two_d in (False, True):
         check_quant(5, 4099, two_d, 5)
     torch.cuda.empty_cache()
+    # segment_sum at every (K, D, E) of its paths: D = the stats payload,
+    # the parameters, both plus three scalars (the buffered dispatch), or
+    # one (a mass or count); E = 8 edges or ring slots, 4 clusters
+    n_dispatch = n_stats + n_params + 3
+    seg_figures = {}
+    for i, (d, e, label) in enumerate((
+            (n_params, 8, "hierarchy deltas"),
+            (n_stats, 8, "hierarchy stats"),
+            (n_params, 4, "cluster deltas"),
+            (n_stats, 4, "cluster stats + k-means"),
+            (n_dispatch, 8, "buffered dispatch"),
+            (1, 8, "mass / count"))):
+        ids = torch.randint(0, e, (K,), generator=torch.Generator(
+            device=device).manual_seed(10 + i), device=device)
+        seg_figures[label] = check_segment_sum(K, d, e, ids, 20 + i, label)
+    ragged = torch.randint(0, 8, (37,), generator=torch.Generator(
+        device=device).manual_seed(30), device=device)
+    ragged = torch.where(ragged >= 7, 7, ragged)   # padding id E = 7
+    ragged[ragged == 3] = 7                         # segment 3 empty
+    check_segment_sum(37, 4099, 7, ragged, 31, "ragged, padding ids, "
+                      "empty segments")
+    check_segment_sum(K, n_stats, K, torch.arange(K), 32,
+                      "one segment per client")
+    check_fold_to_edges(device, K, 8)
 
     appendix_a(device, "dcco")
     appendix_a(device, "dvicreg")
@@ -388,9 +517,24 @@ def main():
         # no --stats-kernel: a lossy channel takes the per-client phase 1
         train_path("dcco over int8", ["--channel", "int8",
                                       "--quant-kernel", "fused"],
-                   PATH_ROUNDS, {"column": 2 * PATH_ROUNDS})]
+                   PATH_ROUNDS, {"column": 2 * PATH_ROUNDS}),
+        # begin_round's per-edge mass, the stats fold, the deltas fold;
+        # the int8 client hop quantizes both payloads
+        train_path("hierarchical", ["--edges", "8", "--channel", "int8",
+                                    "--edge-channel", "dense"],
+                   PATH_ROUNDS, {"fold": 3 * PATH_ROUNDS,
+                                 "column": 2 * PATH_ROUNDS}),
+        # k-means: sums and counts in each of 2 Lloyd iterations; the
+        # stats and the deltas: a fold and a mass each
+        train_path("clustered", ["--clusters", "4"], PATH_ROUNDS,
+                   {"fold": 8 * PATH_ROUNDS}),
+        # the dispatch fold and the count fold of each tick
+        train_path("buffered", ["--async-k", "32", "--latency-tail", "1.0",
+                                "--staleness", "poly"], PATH_ROUNDS,
+                   {"fold": 2 * PATH_ROUNDS})]
     # launches of each kernel on the main paths, read from their counts
     # (the per-row form runs on none of them, nor in the reference)
+    figures["fold"] = seg_figures["hierarchy deltas"]
     launches = {name: sum(c[name] for c in runs) for name in figures}
 
     rows = []
@@ -398,10 +542,12 @@ def main():
             ("cross", "cco_stats.cu", "cco_stats.py:37"),
             ("full", "cco_stats.cu", "cco_stats.py:74"),
             ("per_row", "quantize.cu", "quantize.py:29"),
-            ("column", "quantize.cu", "quantize.py:36")):
+            ("column", "quantize.cu", "quantize.py:36"),
+            ("fold", "segment_sum.cu", "segment_sum.py:35")):
         err, ms, plain_ms, lib_ms, (b_ms, b_by) = figures[name]
-        kernel = ("cco_stats_" if source == "cco_stats.cu"
-                  else "quant_dequant_") + name
+        kernel = {"cco_stats.cu": "cco_stats_" + name,
+                  "quantize.cu": "quant_dequant_" + name,
+                  "segment_sum.cu": "segment_sum"}[source]
         rows.append({
             "name": kernel, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",

@@ -26,9 +26,10 @@ and the dropout mask from one seeded with its own salt. Every method that
 draws also takes the draws themselves (``draws=``), which is how the tests
 feed the port the reference's random numbers.
 
-The sharded, streaming and hierarchy folds of the reference (``local_fold``,
-``chunk_fold``, ``HierarchicalChannel``) and the SCAFFOLD ``"variate"``
-phase are not ported yet (ROADMAP §1).
+The two-level tree is :class:`repro_torch.hierarchy.HierarchicalChannel`,
+which composes two of these as its hops. The reference's sharded and
+streaming folds (``local_fold``, ``chunk_fold``) and the SCAFFOLD
+``"variate"`` phase are not ported yet (ROADMAP §1).
 """
 from __future__ import annotations
 

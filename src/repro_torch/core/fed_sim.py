@@ -16,7 +16,7 @@ require grad themselves.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch.func import grad_and_value, vmap
@@ -42,6 +42,18 @@ class RoundMetrics(NamedTuple):
     loss: torch.Tensor
     encoding_std: torch.Tensor
     wire_bytes: torch.Tensor        # uplink bytes of the round (0: no channel)
+    edge_bytes: Any = 0.0           # of which the edge->server hop of a
+                                    # two-level tree (0: a flat channel)
+
+
+def channel_bytes(channel, ctx, payload_template):
+    """``(all hops, edge->server hop)`` uplink bytes of one payload this
+    round; the second is 0 unless the channel is a two-level tree."""
+    total = channel.round_bytes(ctx, payload_template)
+    hop_bytes = getattr(channel, "hop_bytes", None)
+    edge = 0.0 if hop_bytes is None else hop_bytes(
+        ctx, payload_template)["edge_server"]
+    return total, edge
 
 
 def _client_masks(client_sizes, n_pad: int):
@@ -101,8 +113,10 @@ def stats_round(encoder_apply: Callable, params, opt_state, server_opt,
     participation and aggregation weights come from
     ``channel.begin_round(channel_key, ...)``, payloads go through its
     encode/decode, and ``metrics.wire_bytes`` reports the round's uplink
-    bytes. ``channel_draws`` (a dict with optional ``"begin"``,
-    ``"stats"`` and ``"update"`` entries) replaces the channel's random
+    bytes (``metrics.edge_bytes`` the edge->server hop's share of them
+    through a :class:`repro_torch.hierarchy.HierarchicalChannel`).
+    ``channel_draws`` (a dict with optional ``"begin"``, ``"stats"`` and
+    ``"update"`` entries) replaces the channel's random
     draws, for tests that feed the reference's. With ``channel=None`` the
     lossless path runs; DenseChannel is bit-identical to it.
 
@@ -127,6 +141,7 @@ def stats_round(encoder_apply: Callable, params, opt_state, server_opt,
                                   draws.get("begin"))
         w = ctx.weights
     wire = torch.zeros((), dtype=F32, device=masks.device)
+    edge_wire = torch.zeros((), dtype=F32, device=masks.device)
 
     # ---- phase 1: clients compute local stats; server aggregates (Eq. 3)
     with torch.no_grad():
@@ -143,7 +158,8 @@ def stats_round(encoder_apply: Callable, params, opt_state, server_opt,
         else:
             agg = agg_stats_fn(zf, zg, masks.reshape(-1))
         if ctx is not None:
-            wire = wire + channel.round_bytes(ctx, agg)
+            total, edge = channel_bytes(channel, ctx, agg)
+            wire, edge_wire = wire + total, edge_wire + edge
 
     # ---- phase 2: server redistributes agg stats; clients run local steps
     def client_update(batch, mask):
@@ -164,10 +180,12 @@ def stats_round(encoder_apply: Callable, params, opt_state, server_opt,
         with torch.no_grad():
             avg_delta = channel.aggregate(ctx, deltas, "update",
                                           draws.get("update"))
-            wire = wire + channel.round_bytes(ctx, avg_delta)
+            total, edge = channel_bytes(channel, ctx, avg_delta)
+            wire, edge_wire = wire + total, edge_wire + edge
     params, opt_state = server_update.step(params, opt_state, avg_delta)
     return params, opt_state, RoundMetrics((w * losses_k).sum(),
-                                           objective.encoding_std(agg), wire)
+                                           objective.encoding_std(agg), wire,
+                                           edge_wire)
 
 
 def dcco_round(encoder_apply: Callable, params, opt_state, server_opt,

@@ -19,17 +19,36 @@ Phase-1 aggregate statistics go through the CUDA ``cco_stats`` kernel
 when ``EngineConfig.stats_kernel == "fused"``, in the objective's moment
 set: exact by Eq. 3, since statistics are linear in samples. The default
 (``None``) takes that route unless the channel needs per-client payloads,
-and then the per-client average; the reference makes the caller choose. ``EngineConfig.channel`` routes every client uplink through a
+and then the per-client average; the reference makes the caller choose.
+``EngineConfig.channel`` routes every client uplink through a
 :mod:`repro_torch.comm` channel, with per-round ``wire_bytes``.
+
+Two more round bodies ride the same loop, each with its state in the
+carry. ``num_clusters > 1`` runs the cluster-aware round
+(:mod:`repro_torch.cluster`, ``EngineCarry.cluster``). ``async_k > 0``
+runs the FedBuff-style buffered engine (:mod:`repro_torch.core.buffer`,
+``EngineCarry.buffer``): each tick dispatches a cohort whose
+contributions arrive after per-client delays (the sampler emits
+``(batch, sizes, delays)``, :mod:`repro_torch.data.latency`), and the
+server applies an update once ``async_k`` contributions have arrived, on
+a device condition. Both size their state from the objective's
+``stat_spec`` and shapes traced on the ``meta`` device (no arithmetic),
+at the first round. Provably-equal configurations collapse to the sync
+body: one cluster, and zero latency with unit staleness and ``async_k``
+equal to the cohort.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+from torch.func import vmap
 
+from repro_torch import cluster as cluster_lib
 from repro_torch import utils
-from repro_torch.core import fed_sim
+from repro_torch.core import buffer as buffer_lib
+from repro_torch.core import cco, fed_sim
+from repro_torch.data import latency as latency_lib
 from repro_torch.kernels.cco_stats import cco_stats
 from repro_torch.server import update as server_update_lib
 
@@ -59,18 +78,60 @@ class EngineConfig(NamedTuple):
                                     # per-client payloads
     channel: Any = None             # repro_torch.comm.Channel or None (the
                                     # lossless wire)
+    # --- cluster-aware aggregation (repro_torch.cluster) ---
+    num_clusters: int = 0           # >1: cosine k-means on the per-client
+                                    # stats assigns each cohort client a
+                                    # cluster every round; per-cluster
+                                    # targets + server slots (ClusterState
+                                    # rides the carry). 0/1 = the global
+                                    # path, bit-identical
+    cluster_iters: int = 2          # Lloyd iterations per round (warm-
+                                    # started from the carried centroids)
+    # --- semi-synchronous buffered engine (repro_torch.core.buffer) ---
+    async_k: int = 0                # >0: apply the server update when this
+                                    # many contributions have ARRIVED
+                                    # (staleness-weighted buffer); 0 =
+                                    # synchronous rounds
+    staleness_fn: Any = "unit"      # core.buffer.STALENESS_FNS name or
+                                    # callable tau -> weight
+    latency: Any = None             # data.latency model (None/"zero"/
+                                    # "uniform"/"heavytail"/LatencyModel);
+                                    # must match the async sampler's
+    async_collapse: bool = True     # K = cohort, zero latency and unit
+                                    # staleness run the sync body (bit-
+                                    # identical); False forces the buffer
 
 
 class EngineCarry(NamedTuple):
     params: Any
     opt_state: Any
+    buffer: Any = ()                # core.buffer.AsyncState when the real
+                                    # buffered path runs, else empty
+    cluster: Any = ()               # cluster.ClusterState when
+                                    # num_clusters > 1, else empty
 
 
 class EngineMetrics(NamedTuple):
-    """Stacked per-round metrics, leading axis = rounds."""
+    """Stacked per-round metrics, leading axis = rounds (= scheduler ticks
+    on the buffered engine)."""
     loss: torch.Tensor
     encoding_std: torch.Tensor
     wire_bytes: torch.Tensor        # uplink bytes/round (0: no channel)
+    edge_bytes: torch.Tensor        # of which the edge->server hop of a
+                                    # two-level tree (0: flat)
+    applied: torch.Tensor           # server updates applied this round
+                                    # (1 on sync rounds; K-triggers on the
+                                    # buffered engine)
+    staleness: torch.Tensor         # mean staleness (ticks) of the applied
+                                    # aggregate, 0 when none applied
+
+
+def _sync_metrics(m, device) -> EngineMetrics:
+    """A sync round's RoundMetrics as one row of EngineMetrics."""
+    def f32(x):
+        return torch.as_tensor(x, dtype=F32, device=device)
+    return EngineMetrics(m.loss, m.encoding_std, f32(m.wire_bytes),
+                         f32(m.edge_bytes), f32(1.0), f32(0.0))
 
 
 def make_kernel_agg_stats(second_moments: bool = False) -> Callable:
@@ -153,6 +214,159 @@ def make_round_body(encoder_apply: Callable, server_opt,
     return round_fn
 
 
+# ---------------------------------------------------------------------------
+# semi-synchronous buffered round body (repro_torch.core.buffer)
+# ---------------------------------------------------------------------------
+
+def make_async_round_body(encoder_apply: Callable, server_opt,
+                          cfg: EngineConfig) -> Callable:
+    """Build the buffered round body: ``round_fn(params, opt_state, astate,
+    batch, sizes, delays, channel_key=None, channel_draws=None) ->
+    (params, opt_state, astate, EngineMetrics row)``.
+
+    Each scheduler tick dispatches a full cohort through the two-phase
+    round's math (phase-1 stats, the dispatch cohort's aggregate, phase-2
+    deltas), but the server update is DEFERRED: per-client contributions
+    are scattered into the in-flight ring at their arrival delay with a
+    staleness weight ``s(delay)`` riding the weighted segment-sum fold,
+    this tick's arrivals fold into the server buffer, and the update
+    applies only when ``cfg.async_k`` contributions have accumulated (then
+    the buffer resets). The step is computed every tick and kept by a
+    device ``torch.where``, so no tick waits for the host.
+    """
+    if cfg.algorithm != "dcco":
+        raise ValueError(
+            f"async_k buffers the two-phase stats round only "
+            f"(algorithm 'dcco'), got {cfg.algorithm!r}")
+    if cfg.stats_kernel == "fused":
+        raise ValueError(
+            "stats_kernel='fused' aggregates phase-1 stats from the "
+            "flattened cohort; the async buffer scatters per-client "
+            "contributions by arrival delay, so it needs per-client "
+            "payloads")
+    objective = fed_sim.resolve_objective(cfg.objective, cfg.lam)
+    staleness_fn = buffer_lib.resolve_staleness(cfg.staleness_fn)
+    server_update = server_update_lib.as_server_update(server_opt)
+    channel = cfg.channel
+    if channel is not None:
+        if getattr(channel, "noise_phases", None) is not None:
+            raise ValueError(
+                f"{channel!r} with async_k: DP noise calibration across "
+                f"staleness-weighted multi-tick aggregates is undefined "
+                f"(the per-contribution weights change the sensitivity); "
+                f"run DP on the synchronous engine")
+        if hasattr(channel, "hop_bytes") and not channel.collapses:
+            raise ValueError(
+                f"{channel!r} with async_k: a lossy edge hop folds "
+                f"per-EDGE aggregates, but the buffer scatters per-CLIENT "
+                f"contributions; use a collapsing (ideal-hop) tree or a "
+                f"flat channel")
+    k_trigger = float(cfg.async_k)
+
+    def round_fn(params, opt_state, astate, batch, sizes, delays,
+                 channel_key=None, channel_draws=None):
+        k, n_pad = utils.tree_leaves(batch)[0].shape[:2]
+        masks = fed_sim._client_masks(sizes, n_pad)
+        draws = channel_draws or {}
+        dev = masks.device
+        if channel is None:
+            ctx = None
+            w = sizes.to(F32) / sizes.to(F32).sum()
+            pmask = torch.ones((k,), dtype=F32, device=dev)
+        else:
+            if channel_key is None:
+                raise ValueError("channel requires channel_key")
+            ctx = channel.begin_round(channel_key, sizes, draws.get("begin"))
+            w, pmask = ctx.weights, ctx.mask
+        wire = torch.zeros((), dtype=F32, device=dev)
+        edge_wire = torch.zeros((), dtype=F32, device=dev)
+
+        # ---- phase 1 (dispatch-synchronous): cohort stats -> aggregate.
+        # The dispatch cohort's OWN aggregate drives phase 2: the stop-grad
+        # combine needs the round's population estimate at dispatch time.
+        with torch.no_grad():
+            zf, zg = encoder_apply(params, fed_sim._flatten_clients(batch))
+            d = zf.shape[-1]
+            st_k = vmap(objective.stats_masked)(
+                zf.reshape(k, n_pad, d), zg.reshape(k, n_pad, d), masks)
+            if ctx is None:
+                st_wire = st_k
+                agg = cco.weighted_average_stats(st_k, sizes)
+            else:
+                # channel.aggregate's math, keeping the decoded per-client
+                # payloads: they are what the ring scatters
+                st_wire = channel.encode_decode(ctx, st_k, "stats",
+                                                draws.get("stats"))
+                agg = utils.tree_map(
+                    lambda v: torch.tensordot(w, v, dims=1), st_wire)
+                agg = channel.post_aggregate(ctx, agg, "stats")
+                total, edge = fed_sim.channel_bytes(channel, ctx, agg)
+                wire, edge_wire = wire + total, edge_wire + edge
+
+        # ---- phase 2: local steps against the dispatch aggregate
+        def client_update(b, m):
+            def loss_fn(p):
+                zf_k, zg_k = encoder_apply(p, b)
+                local = objective.stats_masked(zf_k, zg_k, m)
+                return objective.loss_from_stats(
+                    objective.combine(local, agg))
+
+            return fed_sim.client_local_steps(loss_fn, params, cfg.client_lr,
+                                              cfg.local_steps)
+
+        deltas, losses_k = vmap(client_update)(batch, masks)
+
+        with torch.no_grad():
+            if ctx is None:
+                d_wire = deltas
+            else:
+                d_wire = channel.encode_decode(ctx, deltas, "update",
+                                               draws.get("update"))
+                total, edge = fed_sim.channel_bytes(
+                    channel, ctx, utils.tree_map(lambda x: x[0], deltas))
+                wire, edge_wire = wire + total, edge_wire + edge
+
+            # ---- staleness-weighted scatter into the in-flight ring
+            s_w = staleness_fn(delays.to(F32))
+            w_eff = w * s_w * pmask
+            pending = buffer_lib.dispatch_fold(
+                astate.pending, st_wire, d_wire, losses_k, w_eff, pmask,
+                delays)
+            del d_wire, deltas
+            arrived, pending = buffer_lib.ring_pop(pending)
+            buf = buffer_lib.buffer_add(astate.buffer, arrived)
+
+            # ---- apply the server update once K contributions arrived
+            do_apply = buf.count >= k_trigger
+            _, avg_delta, mean_tau = buffer_lib.buffer_aggregate(buf)
+            p_new, o_new = server_update.step(params, opt_state, avg_delta)
+
+            def sel(new, old):
+                return utils.tree_map(
+                    lambda a, b: torch.where(do_apply, a, b), new, old)
+
+            params2, opt2 = sel(p_new, params), sel(o_new, opt_state)
+            buf = buffer_lib.buffer_reset_where(buf, do_apply)
+            astate2 = buffer_lib.AsyncState(
+                buf, pending,
+                astate.applied_total + do_apply.to(torch.int32))
+        metrics = EngineMetrics(
+            (w * losses_k).sum(), objective.encoding_std(agg), wire,
+            edge_wire, do_apply.to(F32),
+            torch.where(do_apply, mean_tau, torch.zeros_like(mean_tau)))
+        return params2, opt2, astate2, metrics
+
+    return round_fn
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+def _meta(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
 class RoundEngine:
     """Drives rounds of ``cfg.algorithm``; see the module docstring."""
 
@@ -161,18 +375,97 @@ class RoundEngine:
         if config.chunk_rounds < 1:
             raise ValueError(
                 f"chunk_rounds must be >= 1, got {config.chunk_rounds}")
+        if config.num_clusters < 0:
+            raise ValueError(
+                f"num_clusters must be >= 0, got {config.num_clusters}")
         self.config = config
         self.sampler = sampler
-        self.round_fn = make_round_body(encoder_apply, server_opt, config)
+        self._encoder_apply = encoder_apply
+        self._objective = fed_sim.resolve_objective(config.objective,
+                                                    config.lam)
+        self.buffer_state = None     # final AsyncState of the last run()
+        self.cluster_state = None    # final ClusterState of the last run()
+        self._async = config.async_k > 0
+        self._async_real = False     # True when the buffered path runs
+        # num_clusters <= 1: ONE cluster is the global aggregate, so the
+        # global body runs (bit-identical)
+        self._clustered = config.num_clusters > 1
+        if self._clustered and self._async:
+            raise ValueError(
+                "num_clusters and async_k are not composed: the buffered "
+                "scheduler re-associates contributions across ticks, but "
+                "cluster targets and slots are per-dispatch; cluster the "
+                "synchronous engine")
+        if self._async:
+            if not hasattr(sampler, "latency"):
+                raise ValueError(
+                    "async_k needs a latency-aware sampler emitting "
+                    "(batch, sizes, delays): use FederatedDataset."
+                    "make_async_round_sampler or repro_torch.data.latency."
+                    "make_async_sampler, got a plain round sampler")
+            lat = latency_lib.resolve_latency(config.latency)
+            if sampler.latency != lat:
+                raise ValueError(
+                    f"sampler draws delays from {sampler.latency} but "
+                    f"EngineConfig.latency resolves to {lat}: the ring "
+                    f"horizon and the delay stream must agree")
+            k_cohort = sampler.clients_per_round
+            if not 1 <= config.async_k <= k_cohort:
+                raise ValueError(
+                    f"async_k={config.async_k} must be in [1, "
+                    f"clients_per_round={k_cohort}]: fewer than one "
+                    f"contribution never triggers, more than one cohort "
+                    f"can never accumulate before the first apply")
+            buffer_lib.resolve_staleness(config.staleness_fn)
+            collapsed = (config.async_collapse and lat.kind == "zero"
+                         and config.staleness_fn in (None, "unit")
+                         and config.async_k == k_cohort)
+            if not collapsed:
+                # K = cohort, zero latency and unit staleness: every
+                # dispatch arrives at once and triggers one apply, so the
+                # buffered round IS the sync round and runs as one
+                self.round_fn = make_async_round_body(encoder_apply,
+                                                      server_opt, config)
+                self._async_real = True
+                self._horizon = lat.horizon
+                return
+        if self._clustered:
+            self.round_fn = cluster_lib.make_cluster_round_body(
+                encoder_apply, server_opt, config)
+        else:
+            self.round_fn = make_round_body(encoder_apply, server_opt,
+                                            config)
+
+    def _stat_spec(self, params, batch):
+        """The objective's stat spec at the encoder's output width, which
+        a trace on the ``meta`` device gives without arithmetic."""
+        client0 = utils.tree_map(lambda x: _meta(x[0]), batch)
+        zf, _ = self._encoder_apply(utils.tree_map(_meta, params), client0)
+        return self._objective.stat_spec(zf.shape[-1])
+
+    def _init_async_state(self, params, batch):
+        return buffer_lib.init_state(self._stat_spec(params, batch), params,
+                                     self._horizon)
+
+    def _init_cluster_state(self, params, opt_state, batch):
+        dim = cluster_lib.stats_dim(self._stat_spec(params, batch))
+        return cluster_lib.init_cluster_state(
+            params, opt_state, self.config.num_clusters, dim)
 
     def run(self, params, opt_state, seed: int, rounds: int, *,
-            start_round: int = 0, on_segment: Optional[Callable] = None):
+            start_round: int = 0, on_segment: Optional[Callable] = None,
+            buffer_state=None, cluster_state=None):
         """Run ``rounds`` rounds; returns (params, opt_state, EngineMetrics).
 
         ``on_segment(round_end, carry, seg_metrics)`` fires after each
-        segment of ``chunk_rounds`` rounds, with an :class:`EngineCarry`."""
+        segment of ``chunk_rounds`` rounds, with an :class:`EngineCarry`.
+        The buffered and clustered paths carry their state from round to
+        round: pass ``buffer_state=`` / ``cluster_state=`` to resume it
+        (fresh state otherwise) and read the final one from
+        ``self.buffer_state`` / ``self.cluster_state``."""
         device = utils.tree_leaves(params)[0].device
         channel = self.config.channel
+        buffer, cluster = buffer_state, cluster_state
         cols = tuple([] for _ in EngineMetrics._fields)
         done = 0
         while done < rounds:
@@ -180,12 +473,28 @@ class RoundEngine:
             per_round = tuple([] for _ in EngineMetrics._fields)
             for r in range(start_round + done, start_round + done + seg):
                 round_seed = seed * _ROUND_SEED_STRIDE + r
-                batch, sizes = self.sampler(utils.generator(round_seed,
-                                                            device))
+                out = self.sampler(utils.generator(round_seed, device))
+                batch, sizes = out[:2]
                 key = (None if channel is None
                        else utils.fold_in(round_seed, _CHANNEL_SALT))
-                params, opt_state, m = self.round_fn(params, opt_state,
-                                                     batch, sizes, key)
+                if self._async_real:
+                    if buffer is None:
+                        buffer = self._init_async_state(params, batch)
+                    params, opt_state, buffer, m = self.round_fn(
+                        params, opt_state, buffer, batch, sizes, out[2], key)
+                elif self._clustered:
+                    if cluster is None:
+                        cluster = self._init_cluster_state(params, opt_state,
+                                                           batch)
+                    params, opt_state, cluster, m = self.round_fn(
+                        params, opt_state, cluster, batch, sizes, key)
+                    m = _sync_metrics(m, device)
+                else:
+                    # a collapsed async config draws its delays and
+                    # ignores them: same cohorts, the sync body
+                    params, opt_state, m = self.round_fn(params, opt_state,
+                                                         batch, sizes, key)
+                    m = _sync_metrics(m, device)
                 for col, x in zip(per_round, m):
                     col.append(x)
             done += seg
@@ -193,11 +502,16 @@ class RoundEngine:
             for col, x in zip(cols, m):
                 col.append(x)
             if on_segment is not None:
-                on_segment(start_round + done, EngineCarry(params, opt_state),
+                on_segment(start_round + done,
+                           EngineCarry(params, opt_state,
+                                       () if buffer is None else buffer,
+                                       () if cluster is None else cluster),
                            m)
         if channel is not None:
             # host-side bookkeeping (the DP epsilon accountant)
             channel.finalize_rounds(done)
+        self.buffer_state = buffer if self._async_real else None
+        self.cluster_state = cluster if self._clustered else None
         metrics = EngineMetrics(*(torch.cat(c) if c else torch.zeros((0,))
                                   for c in cols))
         return params, opt_state, metrics

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.data import augment
+from repro_torch.data import latency as latency_lib
 from repro_torch.data import partition as partition_lib
 
 
@@ -108,14 +109,42 @@ class FederatedDataset:
         the cohort, gathers and augments on the device, with ``gen`` (a
         generator on that device) supplying every draw.
         """
+        return self._sampler(clients_per_round, device, None)
+
+    def make_async_round_sampler(self, clients_per_round: int, device,
+                                 latency=None):
+        """``make_round_sampler``'s semi-synchronous twin: ``sampler(gen)
+        -> (batch, sizes, delays)`` for the buffered engine
+        (``EngineConfig.async_k``).
+
+        ``delays`` (K,) int32 are per-contribution arrival delays in
+        scheduler ticks, drawn from the ``latency`` model
+        (:mod:`repro_torch.data.latency`) on the TRUE sampled client ids,
+        so a heavy-tail model's stragglers persist across rounds. The
+        delays come from a stream of their own (``latency.delay_seed``),
+        so cohort selection and augmentation are ``make_round_sampler``'s
+        for the same generator: zero-latency async runs see exactly the
+        sync engine's batches.
+        """
+        sampler = self._sampler(clients_per_round, device,
+                                latency_lib.resolve_latency(latency))
+        sampler.clients_per_round = clients_per_round
+        return sampler
+
+    def _sampler(self, k: int, device, latency):
         device = torch.device(device)
         images, cindex, csizes = self._stage(device)
         n = self.samples_per_client
-        k = clients_per_round
 
         def sampler(gen: torch.Generator):
             sel = self._select(gen, k)
             gathered = images[cindex[sel].reshape(-1)]        # (K*n, ...)
-            return self._two_views(gen, gathered, k, n), csizes[sel]
+            out = (self._two_views(gen, gathered, k, n), csizes[sel])
+            if latency is None:
+                return out
+            return out + (latency_lib.sample_delays(
+                latency, latency_lib.delay_seed(gen), sel),)
 
+        if latency is not None:
+            sampler.latency = latency
         return sampler

@@ -1,0 +1,261 @@
+"""Two-level aggregation topology: clients -> edge aggregators -> server.
+
+Cross-device federated populations do not report to one server socket:
+clients upload to regional *edge aggregators*, which forward partial
+aggregates upstream. Every payload the stats protocol ships is linear in
+samples (paper Eq. 3), so aggregation is exact under ANY summation tree:
+the edge hop changes the wire, not the math.
+
+:class:`HierarchicalChannel` makes that tree a drop-in
+:class:`repro_torch.comm.Channel` composing two hop channels,
+
+    clients --client_channel--> edges --edge_channel--> server
+
+so the client uplink may run int8 while the edge backbone stays dense, an
+edge-hop ``DropoutChannel`` models a regional outage (every client behind
+the edge vanishes at once), and ``round_bytes`` accounts both hops.
+
+Exactness contract:
+
+  * **ideal hops collapse**: when both hops are ideal identity wires the
+    tree equals the flat weighted sum in math, so the aggregate is
+    computed AS the flat sum, bit-identical (``== 0.0``) to the
+    un-channeled and DenseChannel paths. ``collapse_ideal=False`` forces
+    the real tree.
+  * **lossy hops run the real tree**: per-client encode on the client
+    hop, one segment-sum fold of w_k * payload_k into per-edge partials
+    (the CUDA kernel of :mod:`repro_torch.kernels.segment_sum`), per-edge
+    encode on the edge hop, then the server sum.
+
+Every segment sum here, the per-edge mass included, goes through that
+kernel's wrapper: on the card it is the kernel, deterministic and without
+atomics; the plain version runs only on CPU tensors. The reference's
+``fold_impl`` has no counterpart.
+
+Randomness: the round's channel seed (an int) gives each hop its own seed
+through ``utils.fold_in`` with the salts below. Methods that draw take the
+draws themselves: ``begin_round`` and ``aggregate`` a dict with optional
+``"client"`` and ``"edge"`` entries (each hop's own draws, as that hop's
+methods take them), ``encode_decode`` the client hop's, ``post_aggregate``
+and ``with_edge_ids`` the edge hop's.
+
+DP hops are refused: calibrating per-hop Gaussian noise and keeping the
+epsilon accountant honest across a two-level tree is its own design
+problem, and a silently mis-calibrated epsilon is worse than no DP.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch import utils
+from repro_torch.comm.channel import Channel, ChannelContext, DenseChannel
+from repro_torch.kernels.segment_sum import segment_sum
+
+F32 = torch.float32
+
+# fold_in salts of each hop's seed off the round's channel seed
+_CLIENT_HOP_SALT = 0xC11E
+_EDGE_HOP_SALT = 0xED6E
+
+
+def contiguous_edge_ids(num_clients: int, num_edges: int,
+                        device=None) -> torch.Tensor:
+    """Edge assignment: client k reports to edge k // (K/E), contiguous
+    equal-size groups. Requires K % E == 0."""
+    if num_clients % num_edges:
+        raise ValueError(
+            f"cohort of {num_clients} clients does not divide into "
+            f"{num_edges} equal edges")
+    return torch.arange(num_clients, dtype=torch.int32, device=device) // (
+        num_clients // num_edges)
+
+
+def _flat_rows(leaves, k: int) -> torch.Tensor:
+    flats = [leaf.to(F32).reshape(k, -1) for leaf in leaves]
+    return (torch.cat(flats, dim=1) if len(flats) > 1
+            else flats[0]).contiguous()
+
+
+def fold_to_edges(tree_k, weights, seg_ids, num_edges: int):
+    """Fold stacked per-client payloads (leading axis K) into per-edge
+    partial sums (leading axis E): out[e] = sum_{k in e} w_k * leaf[k].
+
+    The leaves are flattened and concatenated into ONE (K, D) row matrix,
+    so the whole payload folds in a single kernel launch."""
+    leaves = utils.tree_leaves(tree_k)
+    k = leaves[0].shape[0]
+    rows = _flat_rows(leaves, k)
+    folded = segment_sum(rows, seg_ids.to(torch.int32).contiguous(),
+                         num_edges, weights.to(F32).contiguous())
+    parts = iter(torch.split(
+        folded, [leaf[0].numel() for leaf in leaves], dim=1))
+    return utils.tree_map(
+        lambda leaf: next(parts).reshape((num_edges,) + tuple(leaf.shape[1:])),
+        tree_k)
+
+
+def segment_mass(values, seg_ids, num_segments: int) -> torch.Tensor:
+    """(E,) per-segment sums of the (K,) ``values``: one kernel launch."""
+    return segment_sum(values.to(F32).reshape(-1, 1).contiguous(),
+                       seg_ids.to(torch.int32).contiguous(),
+                       num_segments)[:, 0]
+
+
+class HierarchicalContext(NamedTuple):
+    """Composite per-round context. The first four fields mirror
+    :class:`repro_torch.comm.ChannelContext` (mask and weights are the
+    *effective* per-client values with the edge hop folded in), so every
+    consumer of a plain context works unchanged."""
+    key: int
+    mask: torch.Tensor                 # (K,) client mask x edge mask
+    weights: torch.Tensor              # (K,) edge-masked, renormalized
+    num_participants: torch.Tensor     # f32, surviving clients
+    client_ctx: ChannelContext
+    edge_ctx: ChannelContext
+    edge_ids: torch.Tensor             # (K,) int32, client -> edge
+
+
+class HierarchicalChannel(Channel):
+    """Two-level aggregation tree as a pluggable comm Channel."""
+
+    name = "hierarchical"
+
+    def __init__(self, num_edges: int,
+                 client_channel: Optional[Channel] = None,
+                 edge_channel: Optional[Channel] = None,
+                 collapse_ideal: bool = True):
+        if num_edges < 1:
+            raise ValueError(f"num_edges must be >= 1, got {num_edges}")
+        self.num_edges = int(num_edges)
+        self.client_channel = client_channel or DenseChannel()
+        self.edge_channel = edge_channel or DenseChannel()
+        for hop_name, hop in (("client", self.client_channel),
+                              ("edge", self.edge_channel)):
+            if isinstance(hop, HierarchicalChannel):
+                raise ValueError(
+                    f"nested hierarchical {hop_name} hop: flatten the tree "
+                    f"into one client->edge->server topology instead")
+            if getattr(hop, "noise_phases", None) is not None:
+                raise ValueError(
+                    f"{hop!r} as the {hop_name} hop: DP noise calibration "
+                    f"and epsilon accounting across a two-level tree are "
+                    f"not defined here; run the DP channel flat")
+        # both hops ideal: the tree is the flat sum in math; compute it as
+        # the flat sum, bit-identical to the un-channeled paths
+        self.collapses = bool(collapse_ideal and self.client_channel.ideal
+                              and self.edge_channel.ideal)
+        self.supports_flat_stats = self.collapses
+        self.full_participation = (self.client_channel.full_participation
+                                   and self.edge_channel.full_participation)
+
+    # ------------------------------------------------------------ round --
+    def _compose(self, cctx, ectx, edge_ids):
+        """Effective (mask, weights, participants) of the two hops."""
+        if self.edge_channel.full_participation:
+            # an all-ones edge mask: the client hop's weights are already
+            # the effective ones, reused untouched (so the ideal-ideal
+            # collapse stays == the flat dense path)
+            return cctx.mask, cctx.weights, cctx.num_participants
+        keep = ectx.mask[edge_ids.long()]                        # (K,)
+        mask = cctx.mask * keep
+        w_raw = cctx.weights * keep
+        return mask, w_raw / torch.clamp(w_raw.sum(), min=1e-12), mask.sum()
+
+    def begin_round(self, key: int, client_sizes,
+                    draws=None) -> HierarchicalContext:
+        draws = draws or {}
+        k = client_sizes.shape[0]
+        edge_ids = contiguous_edge_ids(k, self.num_edges,
+                                       client_sizes.device)
+        cctx = self.client_channel.begin_round(
+            utils.fold_in(key, _CLIENT_HOP_SALT), client_sizes,
+            draws.get("client"))
+        # per-edge mass of *reporting* clients drives the edge hop's sizes
+        edge_mass = segment_mass(client_sizes.to(F32) * cctx.mask, edge_ids,
+                                 self.num_edges)
+        ectx = self.edge_channel.begin_round(
+            utils.fold_in(key, _EDGE_HOP_SALT), edge_mass,
+            draws.get("edge"))
+        mask, weights, num = self._compose(cctx, ectx, edge_ids)
+        return HierarchicalContext(int(key), mask, weights, num, cctx, ectx,
+                                   edge_ids)
+
+    def with_edge_ids(self, ctx: HierarchicalContext, edge_ids,
+                      draws=None) -> HierarchicalContext:
+        """Re-route the round through a SEMANTIC edge assignment (the
+        clustered round's cluster ids) instead of the contiguous one: the
+        edge hop re-runs ``begin_round`` on the new per-edge mass with the
+        same edge seed, and the effective mask and weights are recomposed
+        as ``begin_round`` composes them. No K % E divisibility is
+        assumed: an edge may be empty this round. ``draws``: the edge
+        hop's begin draws."""
+        cctx = ctx.client_ctx
+        # the client hop's masked weights stand in for sizes (proportional:
+        # the edge hop only normalizes its per-edge mass)
+        mass = segment_mass(cctx.weights * cctx.mask, edge_ids,
+                            self.num_edges)
+        ectx = self.edge_channel.begin_round(
+            utils.fold_in(ctx.key, _EDGE_HOP_SALT), mass, draws)
+        mask, weights, num = self._compose(cctx, ectx, edge_ids)
+        return ctx._replace(mask=mask, weights=weights, num_participants=num,
+                            edge_ctx=ectx,
+                            edge_ids=edge_ids.to(torch.int32))
+
+    # ------------------------------------------------------------- wire --
+    def _client_view(self, ctx: HierarchicalContext) -> ChannelContext:
+        return ctx.client_ctx._replace(mask=ctx.mask, weights=ctx.weights)
+
+    def encode_decode(self, ctx, tree_k, phase: str, draws=None):
+        return self.client_channel.encode_decode(self._client_view(ctx),
+                                                 tree_k, phase, draws)
+
+    def post_aggregate(self, ctx, tree, phase: str, draws=None):
+        return self.edge_channel.post_aggregate(ctx.edge_ctx, tree, phase,
+                                                draws)
+
+    def aggregate(self, ctx: HierarchicalContext, tree_k, phase: str,
+                  draws=None):
+        draws = draws or {}
+        if self.collapses:
+            return self.client_channel.aggregate(
+                self._client_view(ctx), tree_k, phase, draws.get("client"))
+        dec = self.client_channel.encode_decode(ctx.client_ctx, tree_k,
+                                                phase, draws.get("client"))
+        partials = fold_to_edges(dec, ctx.weights, ctx.edge_ids,
+                                 self.num_edges)
+        enc = self.edge_channel.encode_decode(ctx.edge_ctx, partials, phase,
+                                              draws.get("edge"))
+        agg = utils.tree_map(
+            lambda v: torch.tensordot(ctx.edge_ctx.mask, v, dims=1), enc)
+        return self.edge_channel.post_aggregate(ctx.edge_ctx, agg, phase,
+                                                draws.get("edge"))
+
+    # ------------------------------------------------------- accounting --
+    def round_bytes(self, ctx: HierarchicalContext, payload_template):
+        per_hop = self.hop_bytes(ctx, payload_template)
+        return per_hop["client_edge"] + per_hop["edge_server"]
+
+    def hop_bytes(self, ctx: HierarchicalContext, payload_template):
+        """Per-hop uplink bytes this round: surviving clients x the client
+        hop's payload width, surviving edges x the edge hop's width."""
+        return {
+            "client_edge": ctx.num_participants *
+            self.client_channel.payload_bytes(payload_template),
+            "edge_server": ctx.edge_ctx.num_participants *
+            self.edge_channel.payload_bytes(payload_template),
+        }
+
+    def payload_bytes(self, tree) -> float:
+        # per-client wire width = the client hop's encoding
+        return self.client_channel.payload_bytes(tree)
+
+    def finalize_rounds(self, num_rounds: int) -> None:
+        self.client_channel.finalize_rounds(num_rounds)
+        self.edge_channel.finalize_rounds(num_rounds)
+
+    def __repr__(self) -> str:
+        return (f"HierarchicalChannel(edges={self.num_edges}, "
+                f"client={self.client_channel!r}, "
+                f"edge={self.edge_channel!r})")

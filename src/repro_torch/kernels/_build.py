@@ -23,6 +23,9 @@ NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"   # where the CUDA toolkit puts it
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# every kernel source of the port, csrc/<name>.cu
+KERNELS = ("cco_stats", "quantize", "segment_sum")
+
 _libs: dict = {}          # name -> ctypes.CDLL, loaded once per process
 build_logs: dict = {}     # name -> nvcc's output (ptxas register/smem use)
 build_seconds: dict = {}  # name -> wall seconds of its nvcc

@@ -59,3 +59,33 @@ def quant_dequant_ref(flat, u, scales, qmax: float):
     s = scales[:, None] if scales.dim() == 1 else scales
     q = torch.clamp(torch.floor(flat / s + u), -qmax, qmax)
     return q * s
+
+
+def segment_sum_ref(rows, ids, num_segments: int, weights=None):
+    """Weighted segment sum: ``out[e] = sum_{k: ids[k] == e} w_k * rows[k]``
+    for e in [0, num_segments); ids outside that range (the padding id
+    ``num_segments``) contribute nothing, an empty segment is zeros.
+
+    rows: (K, D), ids: (K,) int, weights: (K,) or None (w = 1) -> (E, D)
+    f32. Each element is summed over k in ascending order as
+    ``acc + (w_k * x)`` from ``acc = 0``, two separate roundings with no
+    fused multiply-add, which is what the kernel does: the two are equal
+    bit for bit. One vectorised step per rank within a segment (the
+    largest segment's size), so no index repeats inside a step."""
+    rows = rows.to(F32)
+    k, d = rows.shape
+    out = torch.zeros((num_segments, d), dtype=F32, device=rows.device)
+    ids = ids.to(torch.int64)
+    valid = (ids >= 0) & (ids < num_segments)
+    if k == 0 or not bool(valid.any()):
+        return out
+    w = (torch.ones((k,), dtype=F32, device=rows.device) if weights is None
+         else weights.to(F32))
+    safe = torch.where(valid, ids, 0)
+    onehot = torch.nn.functional.one_hot(safe, num_segments) * valid[:, None]
+    rank = onehot.cumsum(0).gather(1, safe[:, None])[:, 0] - 1
+    for r in range(int(rank[valid].max()) + 1):
+        sel = valid & (rank == r)
+        e = ids[sel]
+        out[e] = out[e] + w[sel][:, None] * rows[sel]
+    return out

@@ -1,6 +1,9 @@
 """Where the time of a DCCO training round goes.
 
-Builds the same run as :mod:`repro_torch.launch.train`, runs ``--warmup``
+Builds the same run as :mod:`repro_torch.launch.train` on one of its
+paths (``--path``: the plain DCCO round; the two-level tree over 8 edges
+with an int8 client hop; clustered aggregation over 4 clusters; the
+buffered engine with async_k 32 and heavy-tail delays), runs ``--warmup``
 rounds, times ``--rounds`` more on the host clock (synchronised, no
 profiler), then profiles as many again with ``torch.profiler`` and prints
 the device's busy share of the profiled wall time and the kernels that
@@ -9,7 +12,7 @@ copies) are summed, so a kernel is not counted again under the operator
 that launched it.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_round --full \\
-      --clients-per-round 64 --dataset-size 2048
+      --clients-per-round 64 --dataset-size 2048 [--path clustered]
 
 On the CPU (``--device cpu``) there is no device time to read; the
 profile then lists host operator times only.
@@ -23,9 +26,11 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch import comm, hierarchy
 from repro_torch.configs.base import (DualEncoderConfig, get_config,
                                       get_dual_encoder_config)
 from repro_torch.core import round_engine
+from repro_torch.data import latency as latency_lib
 from repro_torch.launch import train
 from repro_torch.models import dual_encoder
 from repro_torch.optim import optimizers as opt_lib
@@ -35,6 +40,8 @@ from repro_torch.utils import resolve_device
 # kernel-name fragments -> layer (first match wins)
 LAYERS = (
     ("cco_stats", "phase-1 statistics kernel (cco_stats)"),
+    ("segment_sum", "segment-sum kernel (segment_sum)"),
+    ("qdq_kernel", "quantize kernel (quant_dequant)"),
     ("conv", "convolutions (cuDNN)"), ("xmma", "convolutions (cuDNN)"),
     ("cudnn", "convolutions (cuDNN)"), ("dgrad", "convolutions (cuDNN)"),
     ("wgrad", "convolutions (cuDNN)"),
@@ -60,6 +67,25 @@ def _device_us(evt) -> float:
     return float(evt.device_time_total)
 
 
+PATHS = ("dcco", "hierarchical", "clustered", "buffered")
+
+
+def _path_config(path: str, seed: int) -> dict:
+    """EngineConfig fields of ``path``, as ``chip_smoke.py``'s training
+    paths set them through train's flags."""
+    if path == "hierarchical":
+        return {"channel": hierarchy.HierarchicalChannel(
+            8, client_channel=comm.QuantizedChannel(8),
+            edge_channel=comm.DenseChannel())}
+    if path == "clustered":
+        return {"num_clusters": 4}
+    if path == "buffered":
+        return {"async_k": 32, "staleness_fn": "poly",
+                "latency": latency_lib.LatencyModel(
+                    "heavytail", horizon=8, tail=1.0, seed=seed)}
+    return {}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--smoke", action="store_true", default=True)
@@ -69,8 +95,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--samples-per-client", type=int, default=2)
     ap.add_argument("--dataset-size", type=int, default=2048)
     ap.add_argument("--num-classes", type=int, default=5)
-    ap.add_argument("--stats-kernel", default="fused",
-                    choices=list(round_engine.STATS_KERNELS))
+    ap.add_argument("--path", default="dcco", choices=list(PATHS))
+    ap.add_argument("--stats-kernel", default=None,
+                    choices=list(round_engine.STATS_KERNELS),
+                    help="as train's flag; default: 'fused' where the "
+                         "path allows it")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -94,30 +123,39 @@ def main(argv=None) -> dict:
         seed=args.seed, samples_per_client=args.samples_per_client,
         partition=None, severity=None, alpha=None)
     ds, _ = train.build_dataset(cfg, data_args)
-    engine = round_engine.RoundEngine(
-        train.make_apply(cfg, de_cfg), opt,
-        ds.make_round_sampler(args.clients_per_round, device),
-        round_engine.EngineConfig(lam=5.0, chunk_rounds=1,
-                                  stats_kernel=args.stats_kernel))
+    ecfg = round_engine.EngineConfig(lam=5.0, chunk_rounds=1,
+                                     stats_kernel=args.stats_kernel,
+                                     **_path_config(args.path, args.seed))
+    if ecfg.async_k:
+        sampler = ds.make_async_round_sampler(args.clients_per_round, device,
+                                              ecfg.latency)
+    else:
+        sampler = ds.make_round_sampler(args.clients_per_round, device)
+    engine = round_engine.RoundEngine(train.make_apply(cfg, de_cfg), opt,
+                                      sampler, ecfg)
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    def rounds(n):
+        # the buffered and clustered paths carry their state on
+        engine.run(params, opt_state, args.seed, n, start_round=args.warmup,
+                   buffer_state=engine.buffer_state,
+                   cluster_state=engine.cluster_state)
+
     params, opt_state, _ = engine.run(params, opt_state, args.seed,
                                       args.warmup)
     sync()
     t0 = time.perf_counter()
-    engine.run(params, opt_state, args.seed, args.rounds,
-               start_round=args.warmup)
+    rounds(args.rounds)
     sync()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.rounds
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device.type == "cuda" else [])
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        engine.run(params, opt_state, args.seed, args.rounds,
-                   start_round=args.warmup)
+        rounds(args.rounds)
         sync()
         prof_ms = (time.perf_counter() - t0) * 1e3 / args.rounds
     events = prof.key_averages()
@@ -125,7 +163,8 @@ def main(argv=None) -> dict:
                       for e in events if _device_us(e) > 0),
                      key=lambda x: -x[2])
     busy_ms = sum(ms for _, _, ms in kernels)
-    print(f"device {device}; {args.clients_per_round} clients x "
+    print(f"path {args.path}; device {device}; {args.clients_per_round} "
+          f"clients x "
           f"{args.samples_per_client}; wall {wall_ms:.3f} ms/round over "
           f"{args.rounds} rounds ({prof_ms:.3f} ms/round under the "
           f"profiler)")

@@ -2,7 +2,10 @@
 (``--objective dcco|dvicreg|dwmse``) of the ResNet-14 dual encoder, rounds
 driven by :class:`repro_torch.core.round_engine.RoundEngine` (the
 reference CLI's ``--mode engine`` path), optionally over a lossy client
-uplink (``--channel``).
+uplink (``--channel``), through a two-level client -> edge -> server tree
+(``--edges``, ``--edge-channel``), with cluster-aware aggregation
+(``--clusters``) or on the FedBuff-style buffered engine (``--async-k``,
+``--staleness``, ``--latency-tail``).
 
 Runs on the GPU unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it raises. ``--full`` trains the full-width
@@ -17,6 +20,14 @@ Examples (full width, on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 5 \\
       --channel int8 --clients-per-round 64 \\
       --dataset-size 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
+      --edges 8 --channel int8 --edge-channel dense \\
+      --clients-per-round 64 --dataset-size 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
+      --clusters 4 --clients-per-round 64 --dataset-size 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
+      --async-k 32 --latency-tail 1.0 --staleness poly \\
+      --clients-per-round 64 --dataset-size 2048
 """
 from __future__ import annotations
 
@@ -27,9 +38,12 @@ import numpy as np
 import torch
 
 from repro_torch import comm, objectives as objectives_lib
+from repro_torch import hierarchy
 from repro_torch.configs.base import (DualEncoderConfig, get_config,
                                       get_dual_encoder_config)
+from repro_torch.core import buffer as buffer_lib
 from repro_torch.core import eval as eval_lib, round_engine
+from repro_torch.data import latency as latency_lib
 from repro_torch.data import partition as partition_lib
 from repro_torch.data import pipeline, synthetic
 from repro_torch.models import dual_encoder, resnet as resnet_mod
@@ -92,11 +106,82 @@ def validate_flags(ap, args) -> None:
             ap, args, ["dp_sigma", "dp_clip", "dp_delta"],
             f"DP flags only apply to --channel dp (got --channel "
             f"{args.channel})")
-    if args.channel != "dropout":
+    if args.channel != "dropout" and not (args.edges
+                                          and args.edge_channel == "dropout"):
         _forbid_ignored_flags(
             ap, args, ["dropout_p"],
-            f"--dropout-p only applies to --channel dropout (got --channel "
-            f"{args.channel})")
+            f"--dropout-p only applies to --channel dropout or an "
+            f"--edge-channel dropout hop (got --channel {args.channel})")
+    if args.clusters:
+        if args.async_k:
+            raise SystemExit(
+                "--clusters with --async-k: the staleness buffer folds "
+                "contributions into ONE server aggregate as they arrive; "
+                "per-cluster aggregation needs the materialized "
+                "synchronous cohort; drop one")
+        if args.stats_kernel == "fused":
+            raise SystemExit(
+                "--clusters needs PER-CLIENT phase-1 stats for the "
+                "k-means assignment; --stats-kernel fused aggregates the "
+                "flattened cohort and never materializes them; drop one")
+        if args.channel == "dp":
+            raise SystemExit(
+                "--clusters refuses --channel dp: per-cluster aggregates "
+                "change the DP sensitivity, the accountant's epsilon "
+                "would not cover the release; run DP on the global path")
+        if args.edges and args.edges != args.clusters:
+            raise SystemExit(
+                f"--clusters {args.clusters} with --edges {args.edges}: "
+                f"cluster ids route clients through their own edge, so "
+                f"the tree needs exactly one edge per cluster "
+                f"(--edges == --clusters)")
+        if args.clusters > args.clients_per_round:
+            raise SystemExit(
+                f"--clusters {args.clusters} exceeds --clients-per-round "
+                f"{args.clients_per_round}: every cluster needs a chance "
+                f"of cohort members")
+    else:
+        _forbid_ignored_flags(
+            ap, args, ["cluster_iters"],
+            "--cluster-iters tunes the k-means of --clusters")
+    if args.async_k:
+        if args.channel == "dp":
+            raise SystemExit(
+                "--async-k refuses --channel dp: DP noise calibration "
+                "across staleness-weighted multi-tick aggregates is "
+                "undefined; run DP on the synchronous engine")
+        if args.stats_kernel == "fused":
+            raise SystemExit(
+                "--async-k scatters per-client contributions by arrival "
+                "delay; --stats-kernel fused aggregates the flattened "
+                "cohort and never materializes them; drop one")
+        if not 1 <= args.async_k <= args.clients_per_round:
+            raise SystemExit(
+                f"--async-k {args.async_k} must be in [1, "
+                f"--clients-per-round {args.clients_per_round}]")
+    else:
+        _forbid_ignored_flags(
+            ap, args, ["staleness", "latency_tail"],
+            "--staleness / --latency-tail shape the buffered "
+            "(--async-k) engine's arrival model; the synchronous engine "
+            "ignores them")
+    if args.edges:
+        if args.clients_per_round % args.edges and not args.clusters:
+            raise SystemExit(
+                f"--edges {args.edges} does not divide --clients-per-round "
+                f"{args.clients_per_round}: edges are contiguous "
+                f"equal-size client groups (unless --clusters routes "
+                f"clients to edges by cluster id)")
+        if args.channel == "dp":
+            raise SystemExit(
+                "--edges refuses a DP client hop: noise calibration and "
+                "epsilon accounting across a two-level tree are undefined "
+                "(repro_torch.hierarchy); drop --edges or use a flat "
+                "--channel dp")
+    else:
+        _forbid_ignored_flags(
+            ap, args, ["edge_channel"],
+            "--edge-channel configures the edge->server hop of --edges")
 
 
 def make_apply(cfg, de_cfg):
@@ -143,7 +228,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'fused': phase-1 aggregate statistics through the "
                         "CUDA cco_stats kernel; 'off': per-client average. "
                         "Default: 'fused' unless --channel needs per-client "
-                        "payloads (the lossy channels), then 'off'")
+                        "payloads (the lossy channels), then 'off'; "
+                        "--clusters and --async-k always take per-client "
+                        "payloads")
 
     g = ap.add_argument_group("communication")
     g.add_argument("--channel", default="none",
@@ -168,7 +255,50 @@ def build_parser() -> argparse.ArgumentParser:
                    help="target delta for the epsilon accountant")
     g.add_argument("--dropout-p", type=float, default=0.1,
                    help="per-round client dropout probability "
-                        "(--channel dropout)")
+                        "(--channel dropout or --edge-channel dropout)")
+    g.add_argument("--edges", type=int, default=0,
+                   help="fan the cohort in through this many edge "
+                        "aggregators (repro_torch.hierarchy): clients -> "
+                        "edges -> server, --channel on the client->edge "
+                        "hop and --edge-channel on the edge->server hop, "
+                        "both hops' bytes accounted (0 = flat)")
+    g.add_argument("--edge-channel", default="dense",
+                   choices=["dense", "int8", "dropout"],
+                   help="edge->server hop channel for --edges ('dropout' "
+                        "models a regional edge outage taking all its "
+                        "clients down at once, p = --dropout-p)")
+
+    g = ap.add_argument_group("clustered aggregation")
+    g.add_argument("--clusters", type=int, default=0,
+                   help="number of server-side client clusters: cosine "
+                        "k-means on the phase-1 stats assigns cohort "
+                        "clients to clusters every round, each with its "
+                        "own correlation target and server slot (0/1 = "
+                        "the global path, --clusters 1 bit-identical to "
+                        "0). With --edges, each cluster routes through "
+                        "its own edge (--edges == --clusters)")
+    g.add_argument("--cluster-iters", type=int, default=2,
+                   help="Lloyd iterations per round of the k-means "
+                        "(warm-started from the previous round's "
+                        "centroids)")
+
+    g = ap.add_argument_group("asynchrony")
+    g.add_argument("--async-k", type=int, default=0,
+                   help="FedBuff-style buffered engine "
+                        "(repro_torch.core.buffer): apply the server "
+                        "update once this many client contributions have "
+                        "ARRIVED, staleness-weighted (0 = synchronous "
+                        "rounds)")
+    g.add_argument("--staleness", default="unit",
+                   choices=list(buffer_lib.STALENESS_FNS),
+                   help="down-weight s(tau) of a contribution arriving tau "
+                        "ticks after dispatch: 'unit' = none, 'poly' = "
+                        "(1+tau)^-1/2 (FedBuff's), 'inv' = 1/(1+tau)")
+    g.add_argument("--latency-tail", type=float, default=0.0,
+                   help="heavy-tail straggler severity (Pareto exponent "
+                        "of the persistent per-client arrival delay, ring "
+                        "horizon 8, repro_torch.data.latency); 0 = every "
+                        "contribution arrives the tick it was dispatched")
 
     g = ap.add_argument_group("server & client optimization")
     g.add_argument("--server-optimizer", default="adam",
@@ -219,16 +349,33 @@ def main(argv=None) -> dict:
         args.channel, quant_bits=args.quant_bits, dp_sigma=args.dp_sigma,
         dp_clip=args.dp_clip, dp_delta=args.dp_delta,
         dropout_p=args.dropout_p)
+    if args.edges:
+        # two-level topology: --channel becomes the client->edge hop
+        channel = hierarchy.HierarchicalChannel(
+            args.edges, client_channel=channel,
+            edge_channel=comm.get_channel(args.edge_channel,
+                                          dropout_p=args.dropout_p))
+    latency = None
+    if args.async_k and args.latency_tail > 0:
+        latency = latency_lib.LatencyModel(
+            "heavytail", horizon=8, tail=args.latency_tail, seed=args.seed)
     ecfg = round_engine.EngineConfig(
         algorithm="dcco", objective=objective, lam=args.lam,
         client_lr=args.client_lr, local_steps=args.local_steps,
         chunk_rounds=args.chunk_rounds or args.eval_every or 25,
-        stats_kernel=args.stats_kernel, channel=channel)
-    sampler = ds.make_round_sampler(args.clients_per_round, device)
+        stats_kernel=args.stats_kernel, channel=channel,
+        num_clusters=args.clusters, cluster_iters=args.cluster_iters,
+        async_k=args.async_k, staleness_fn=args.staleness, latency=latency)
+    if args.async_k:
+        sampler = ds.make_async_round_sampler(args.clients_per_round, device,
+                                              latency)
+    else:
+        sampler = ds.make_round_sampler(args.clients_per_round, device)
     engine = round_engine.RoundEngine(make_apply(cfg, de_cfg), opt, sampler,
                                       ecfg)
 
-    history, round_ms, probes, wire = [], [], [], []
+    history, round_ms, probes, wire, edge_wire = [], [], [], [], []
+    applied = []
 
     def sync():
         if device.type == "cuda":
@@ -243,11 +390,18 @@ def main(argv=None) -> dict:
         round_ms.extend([seg_ms] * m.loss.shape[0])
         history.extend(float(x) for x in m.loss.cpu())
         wire.extend(float(x) for x in m.wire_bytes.cpu())
+        edge_wire.extend(float(x) for x in m.edge_bytes.cpu())
+        applied.extend(float(x) for x in m.applied.cpu())
         acc = evaluate(carry.params)
         probes.append(acc)
+        extra = ""
+        if args.async_k:
+            extra = (f" updates={int(sum(applied[-m.loss.shape[0]:]))}"
+                     f"/{m.loss.shape[0]}t")
         print(f"round {round_end:5d} loss={history[-1]:9.4f} "
               f"enc_std={float(m.encoding_std[-1]):.4f} "
-              f"probe_acc={acc:.3f} ({seg_ms:.1f} ms/round)", flush=True)
+              f"probe_acc={acc:.3f}{extra} ({seg_ms:.1f} ms/round)",
+              flush=True)
         sync()
         t_seg[0] = time.perf_counter()
 
@@ -265,9 +419,15 @@ def main(argv=None) -> dict:
             line += (f"; DP epsilon={acct.epsilon():.2f} "
                      f"@ delta={acct.delta:g}")
         print(line)
+    edge_bytes = float(sum(edge_wire))
+    if args.edges:
+        print(f"uplink per hop: client->edge "
+              f"{(wire_bytes - edge_bytes) / 1e6:.3f} MB, edge->server "
+              f"{edge_bytes / 1e6:.3f} MB")
     return {"history": history, "round_ms": round_ms, "probe": probe,
             "probes": probes, "params": params, "device": str(device),
-            "wire_bytes": wire_bytes,
+            "wire_bytes": wire_bytes, "edge_bytes": edge_bytes,
+            "updates": int(sum(applied)),
             "loss_finite": bool(np.all(np.isfinite(history)))}
 
 

@@ -9,7 +9,9 @@ Tolerance: the statistics kernel sums f32 products with FFMA in its own
 order and the plain version goes through cuBLAS in f32 (TF32 off); for
 N <= 128 rows of unit-normal data the sums differ by a few f32 ulps, so
 rtol/atol 1e-5. The quantize kernel is one IEEE division, add, floor,
-clip and multiply an element, like its plain version: bit equality."""
+clip and multiply an element, like its plain version: bit equality. So is
+the segment-sum kernel, which adds ``w_k * x`` over ascending k exactly
+as its plain version does."""
 import pytest
 import torch
 
@@ -17,6 +19,7 @@ from repro_torch.core.round_engine import make_kernel_agg_stats
 from repro_torch.kernels import ref
 from repro_torch.kernels.cco_stats import cco_stats
 from repro_torch.kernels.quantize import quant_dequant
+from repro_torch.kernels.segment_sum import segment_sum
 
 KEYS = ("mean_f", "sq_f", "mean_g", "sq_g", "cross")
 FULL_KEYS = KEYS + ("cov_f", "cov_g")
@@ -135,3 +138,58 @@ def test_quant_kernel_bit_equal_to_plain_version(cuda_device, k, n, two_d):
     assert xs.data_ptr() % 16 != 0
     assert torch.equal(quant_dequant(xs, us, ss, 7.0),
                        ref.quant_dequant_ref(xs, us, ss, 7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d,e", [
+    (64, 4099, 8),        # odd D: the scalar path
+    (600, 1024, 5),       # K past one 256-entry staging chunk
+    (37, 4099, 7),        # ragged, with padding ids
+    (5, 3, 70000),        # more segments than grid rows
+    (64, 1, 8)])          # a mass or count
+@pytest.mark.parametrize("weighted", [True, False])
+def test_segment_sum_kernel_bit_equal_to_plain_version(cuda_device, k, d, e,
+                                                       weighted):
+    gen = torch.Generator(device=cuda_device).manual_seed(k + d + e)
+    rows = torch.randn(k, d, generator=gen, device=cuda_device)
+    ids = torch.randint(-1, e + 1, (k,), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    w = (torch.rand(k, generator=gen, device=cuda_device) if weighted
+         else None)
+    before = segment_sum.launches["fold"]
+    out = segment_sum(rows, ids, e, w)
+    torch.cuda.synchronize()
+    assert segment_sum.launches["fold"] == before + 1
+    assert torch.equal(out, ref.segment_sum_ref(rows, ids, e, w))
+    # rows 4 bytes off a 16-byte boundary take the scalar path, exactly
+    buf = torch.empty(rows.numel() + 1, device=cuda_device)[1:]
+    shifted = buf.view(rows.shape).copy_(rows)
+    assert torch.equal(segment_sum(shifted, ids, e, w), out)
+
+
+@pytest.mark.cuda
+def test_segment_sum_kernel_is_deterministic(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    rows = torch.randn(64, 1 << 20, generator=gen, device=cuda_device)
+    ids = torch.randint(0, 8, (64,), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    w = torch.rand(64, generator=gen, device=cuda_device)
+    first = segment_sum(rows, ids, 8, w)
+    for _ in range(3):
+        assert torch.equal(segment_sum(rows, ids, 8, w), first)
+
+
+@pytest.mark.cuda
+def test_fold_to_edges_is_one_kernel_launch_on_card(cuda_device):
+    from repro_torch.hierarchy import fold_to_edges
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    tree = {"a": torch.randn(12, 3, 5, generator=gen, device=cuda_device),
+            "b": torch.randn(12, 7, generator=gen, device=cuda_device)}
+    w = torch.rand(12, generator=gen, device=cuda_device)
+    ids = torch.arange(12, device=cuda_device) // 3
+    before = segment_sum.launches["fold"]
+    out = fold_to_edges(tree, w, ids, 4)
+    assert segment_sum.launches["fold"] == before + 1
+    for key, x in tree.items():
+        plain = ref.segment_sum_ref(x.reshape(12, -1), ids, 4, w)
+        assert torch.equal(out[key].reshape(4, -1), plain), key

@@ -95,6 +95,59 @@ def test_train_refuses_a_lossy_channel_on_the_flat_kernel_path():
                     "--stats-kernel", "fused", *SMALL])
 
 
+@pytest.mark.parametrize("flags,line", [
+    (["--edges", "2", "--channel", "int8", "--edge-channel", "dense"],
+     "uplink per hop: client->edge"),
+    (["--edges", "2", "--edge-channel", "dropout", "--dropout-p", "0.3"],
+     "uplink per hop: client->edge"),
+    (["--clusters", "2", "--cluster-iters", "3"], "final loss"),
+    (["--async-k", "2", "--latency-tail", "1.0", "--staleness", "poly"],
+     "updates="),
+])
+def test_train_runs_the_tree_clustered_and_buffered_paths_on_cpu(
+        capsys, flags, line):
+    from repro_torch.kernels.segment_sum import segment_sum
+    before = dict(segment_sum.launches)
+    res = train.main(["--device", "cpu", *flags, *SMALL])
+    assert res["loss_finite"] and len(res["history"]) == 2
+    assert line in capsys.readouterr().out
+    assert segment_sum.launches == before     # the plain version on CPU
+    if "--edges" in flags:
+        assert res["wire_bytes"] > res["edge_bytes"] > 0
+    else:
+        assert res["wire_bytes"] == res["edge_bytes"] == 0.0
+    if "--async-k" in flags:
+        assert 0 <= res["updates"] <= 2
+
+
+@pytest.mark.parametrize("flags", [
+    ["--clusters", "2", "--async-k", "2"],
+    ["--clusters", "2", "--stats-kernel", "fused"],
+    ["--clusters", "2", "--channel", "dp"],
+    ["--clusters", "2", "--edges", "4"],
+    ["--clusters", "5"],
+    ["--cluster-iters", "3"],
+    ["--async-k", "2", "--channel", "dp"],
+    ["--async-k", "2", "--stats-kernel", "fused"],
+    ["--async-k", "5"],
+    ["--staleness", "poly"],
+    ["--latency-tail", "1.0"],
+    ["--edges", "3"],
+    ["--edges", "2", "--channel", "dp"],
+    ["--edge-channel", "int8"],
+    ["--edges", "2", "--dropout-p", "0.2"],
+])
+def test_train_refuses_bad_tree_cluster_and_buffer_flags(flags):
+    with pytest.raises(SystemExit):
+        train.main(["--device", "cpu", *flags, *SMALL])
+
+
+def test_train_refuses_a_lossy_tree_under_the_buffer():
+    with pytest.raises(ValueError, match="lossy edge hop"):
+        train.main(["--device", "cpu", "--async-k", "2", "--edges", "2",
+                    "--channel", "int8", *SMALL])
+
+
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)",
                      re.MULTILINE)
 
@@ -104,7 +157,10 @@ def test_port_sources_import_neither_jax_nor_the_reference():
     assert len(files) > 20
     names = {f.relative_to(PORT).as_posix() for f in files[:-1]}
     assert {"comm/channel.py", "comm/quantize.py", "comm/accountant.py",
-            "core/vicreg.py", "core/wmse.py", "kernels/quantize.py"} <= names
+            "core/vicreg.py", "core/wmse.py", "kernels/quantize.py",
+            "kernels/segment_sum.py", "hierarchy/aggregation.py",
+            "cluster/kmeans.py", "cluster/round.py", "core/buffer.py",
+            "data/latency.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT.search(f.read_text())]
     assert not offenders, offenders

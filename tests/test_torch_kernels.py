@@ -1,6 +1,6 @@
-"""The port's ``cco_stats`` (both moment sets) and ``quant_dequant``
-against the reference's Pallas kernels (run in interpret mode, as
-tests/test_kernels.py runs them) and their jnp oracles.
+"""The port's ``cco_stats`` (both moment sets), ``quant_dequant`` and
+``segment_sum`` against the reference's Pallas kernels (run in interpret
+mode, as tests/test_kernels.py runs them) and their jnp oracles.
 
 On the CPU the wrapper runs its plain version; the kernel itself is
 compared with it on the card by tests/test_torch_cuda.py (marked ``cuda``)
@@ -10,7 +10,12 @@ Tolerance: both sides sum the same f32 products in other orders (blocked
 over N and d in the Pallas kernel); for N <= 64 rows of unit-scale data
 the sums differ by a few f32 ulps of their magnitude, so rtol 1e-5 /
 atol 1e-6. ``quant_dequant`` is one IEEE division, add, floor, clip and
-multiply an element on both sides, so it is held to bit equality."""
+multiply an element on both sides, so it is held to bit equality.
+``segment_sum`` adds at most K = 64 products an element: the Pallas kernel
+as a one-hot matrix product, the oracle as a scatter-add, the port in
+ascending k; for unit-scale rows they differ by a few ulps, so rtol 1e-5 /
+atol 1e-6, and the port's plain version is held bit for bit to the
+ascending sum it documents."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,11 +25,14 @@ from repro.core.round_engine import make_kernel_agg_stats as j_agg_stats
 from repro.kernels import ref as j_ref
 from repro.kernels.cco_stats import cco_stats_pallas
 from repro.kernels.quantize import quant_dequant_pallas
+from repro.kernels.segment_sum import segment_sum_pallas
 from repro_torch.core.round_engine import make_kernel_agg_stats
 from repro_torch.kernels import _build, cco_stats as cco_stats_mod, ref
 from repro_torch.kernels import quantize as quantize_mod
 from repro_torch.kernels.cco_stats import cco_stats
 from repro_torch.kernels.quantize import quant_dequant
+from repro_torch.kernels import segment_sum as segment_sum_mod
+from repro_torch.kernels.segment_sum import segment_sum
 
 # tier-1 runs 6 pytest workers on the machine's cores: one torch thread
 # per worker keeps them from contending with each other and with JAX
@@ -249,9 +257,95 @@ def test_cpu_path_counts_no_launch():
     assert quant_dequant.launches == before
 
 
-@pytest.mark.parametrize("name", ["cco_stats", "quantize"])
+@pytest.mark.parametrize("name", ["cco_stats", "quantize", "segment_sum"])
 def test_library_name_tracks_the_source(name):
     path = _build.library_path(name)
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
     assert (_build.CSRC / f"{name}.cu").exists()
+
+
+def _seg_inputs(k, d, e, seed, pad=True, empty=None):
+    rng = np.random.RandomState(seed)
+    rows = rng.randn(k, d).astype(np.float32)
+    ids = rng.randint(0, e + 1 if pad else e, k).astype(np.int32)
+    if empty is not None:
+        ids[ids == empty] = e                  # segment `empty` gets nobody
+    w = rng.rand(k).astype(np.float32)
+    return rows, ids, w
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("k,d,e,pad,empty", [
+    (64, 300, 8, False, None), (37, 129, 7, True, 3), (5, 1, 3, True, None),
+    (600, 17, 4, True, 0), (64, 40, 64, False, None)])
+def test_segment_sum_matches_pallas_interpret_and_oracle(k, d, e, pad, empty,
+                                                         weighted):
+    rows, ids, w = _seg_inputs(k, d, e, k * d + e, pad, empty)
+    wj = jnp.asarray(w) if weighted else None
+    port = segment_sum(torch.from_numpy(rows), torch.from_numpy(ids), e,
+                       torch.from_numpy(w) if weighted else None)
+    assert port.dtype == torch.float32 and port.shape == (e, d)
+    pallas = segment_sum_pallas(jnp.asarray(rows), jnp.asarray(ids), e, wj,
+                                block_k=16, block_d=128, interpret=True)
+    oracle = j_ref.segment_sum_ref(jnp.asarray(rows), jnp.asarray(ids), e, wj)
+    for expected in (pallas, oracle):
+        np.testing.assert_allclose(port.numpy(), np.asarray(expected),
+                                   rtol=RTOL, atol=ATOL)
+    if empty is not None:
+        assert not port[empty].any()
+
+
+def test_segment_sum_plain_version_is_the_ascending_sum():
+    """acc + (w_k * x) over ascending k from acc = 0, two roundings, no
+    fused multiply-add: the order the kernel sums in, so the two are held
+    bit for bit on the card; ids outside [0, E) add nothing."""
+    rows, ids, w = _seg_inputs(50, 33, 5, 9)
+    ids[:3] = [-1, 5, 99]
+    r, i, ww = map(torch.from_numpy, (rows, ids, w))
+    expected = torch.zeros(5, 33)
+    for k in range(50):
+        if 0 <= ids[k] < 5:
+            expected[ids[k]] = expected[ids[k]] + ww[k] * r[k]
+    assert torch.equal(segment_sum(r, i, 5, ww), expected)
+    assert torch.equal(ref.segment_sum_ref(r, i, 5, ww), expected)
+    none = torch.full((4,), 9, dtype=torch.int32)
+    assert not segment_sum(r[:4], none, 5).any()
+
+
+def test_segment_sum_rejects_bad_input():
+    rows, ids, w = map(torch.from_numpy, _seg_inputs(6, 4, 3, 1))
+    with pytest.raises(ValueError):
+        segment_sum(rows, ids[:5], 3, w)
+    with pytest.raises(ValueError):
+        segment_sum(rows, ids, 3, w[:5])
+    with pytest.raises(TypeError):
+        segment_sum(rows.double(), ids, 3, w)
+    with pytest.raises(TypeError):
+        segment_sum(rows, ids.long(), 3, w)
+    with pytest.raises(ValueError):
+        segment_sum(rows.T.contiguous().T, ids, 3, w)
+    with pytest.raises(ValueError):
+        segment_sum(rows, ids, 0, w)
+    with pytest.raises(ValueError):
+        segment_sum(rows.to("meta"), ids.to("meta"), 3, w.to("meta"))
+
+
+def test_segment_sum_cuda_tensor_never_reaches_the_plain_version(
+        monkeypatch, tmp_path):
+    monkeypatch.setattr(ref, "segment_sum_ref", _no_plain)
+    monkeypatch.setattr(segment_sum_mod, "_device_type", lambda t: "cuda")
+    _no_nvcc(monkeypatch, tmp_path)
+    before = dict(segment_sum.launches)
+    rows, ids, w = map(torch.from_numpy, _seg_inputs(6, 4, 3, 2))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        segment_sum(rows, ids, 3, w)
+    assert segment_sum.launches == before
+
+
+def test_segment_sum_cpu_path_counts_no_launch():
+    before = dict(segment_sum.launches)
+    rows, ids, w = map(torch.from_numpy, _seg_inputs(6, 4, 3, 3))
+    segment_sum(rows, ids, 3, w)
+    segment_sum(rows, ids, 3)
+    assert segment_sum.launches == before == {"fold": before["fold"]}
