@@ -29,7 +29,25 @@ Phases (each prints its lines; any failure exits non-zero):
      no statistics kernel), and, 3 rounds each, the two-level tree over 8
      edges with an int8 client hop (segment_sum 3 a round, quantize 2),
      clustered aggregation over 4 clusters (segment_sum 8 a round) and the
-     buffered engine (segment_sum 2 a tick).
+     buffered engine (segment_sum 2 a tick);
+  5. ``mips_topk`` in both forms against its plain version (scores to
+     1e-5, indices equal but for near ties, a second run bit-equal) at the
+     training eval's shape (512, 1536), the serving shape (64, 16384) in
+     f32 and bf16, a deployed index of 2^20 rows (Q = 16 and 64), a large
+     batch (1024, 65536, k = 32) and a ragged 1,000,003-row corpus, whose
+     4 zero-padded shards through the offset form merge to the unsharded
+     result bit for bit; duplicated rows must tie to the lowest index;
+  6. a seventh training path, DCCO with the retrieval eval after every
+     round (3 rounds; cco_stats and one mips_topk search a round, recall
+     and MRR in [0, 1]), and the serving surface on the encoder it
+     trained: CorpusIndex over 16,384 images in f32 and bf16, QueryServer
+     (batch 64, k 10) over 32 batches equal to index.search,
+     ShardedCorpusIndex x 4 equal bit for bit, and IVFIndex over 128 lists
+     (k-means on segment_sum; every list probed equals the exact tier);
+     then the serving rate: QueryServer over a deployed index of 2^20
+     random unit rows (f32 and bf16), 512 batches back to back, p50, p99
+     and qps. Each surface's launches are read in a window of its own,
+     with the comparisons outside it, and held exact.
 Then one JSON line of kernel figures, and the device line last.
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -53,11 +71,13 @@ from repro_torch.hierarchy import fold_to_edges  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.cco_stats import cco_stats  # noqa: E402
 from repro_torch.kernels.quantize import quant_dequant  # noqa: E402
+from repro_torch.kernels.mips_topk import mips_topk  # noqa: E402
 from repro_torch.kernels.segment_sum import segment_sum  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import dual_encoder  # noqa: E402
 from repro_torch.objectives import get_objective  # noqa: E402
 from repro_torch.optim import optimizers as opt_lib  # noqa: E402
+from repro_torch import retrieval  # noqa: E402
 
 ROUNDS = 5            # the DCCO path
 PATH_ROUNDS = 3       # every other path
@@ -69,6 +89,15 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # sum <= 128 f32 products of unit-normal data, in other orders
 TOL = 1e-5
 QMAX = 127.0          # the int8 channel
+# MIPS kernel vs plain version: |score - plain score| <= MIPS_TOL; both sum
+# d = 1024 f32 products of unit vectors in other orders (a typical error is
+# sqrt(d) 2^-24 = 2e-6). An index may differ only where the plain scores
+# of the two picks lie within MIPS_TOL of each other (a near tie).
+MIPS_TOL = 1e-5
+MIPS_K = 10                       # the training eval's and the server's k
+SERVE_N, SERVE_BATCH, SERVE_BATCHES = 16384, 64, 32
+RATE_N, RATE_BATCHES = 1 << 20, 512   # the serving rate's deployed index
+IVF_C, IVF_NPROBE = 128, 8
 
 
 def fail(msg):
@@ -102,10 +131,10 @@ def time_ms(fn, calls=50, replays=20):
     return start.elapsed_time(end) / (calls * replays)
 
 
-def eager_ms(fn, iters=200):
+def eager_ms(fn, iters=200, warmup=20):
     """Mean time of one eager call, host issue included: CUDA events
-    around ``iters`` back-to-back calls."""
-    for _ in range(20):
+    around ``iters`` back-to-back calls, after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -289,6 +318,154 @@ def check_segment_sum(k, d, e, ids, seed, label, time_it=True):
     return err, ms, plain_ms, lib_ms, (b_ms, b_by)
 
 
+def unit_rows(n, d, gen, dtype=torch.float32):
+    """(n, d) random unit rows on the card, drawn from ``gen``."""
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+def mips_bound_ms(qn, n_valid, d, k, corpus_bytes):
+    """The corpus rows read once, the queries read once, the (Q, k) scores
+    and indices written once; 2 Q N d operations at the f32 peak (the
+    scores are f32 sums, no tensor cores)."""
+    return bound_ms(n_valid * d * corpus_bytes + qn * d * 4 + 8 * qn * k,
+                    2 * qn * n_valid * d)
+
+
+def mips_agree(q, corpus, out, plain, off=0):
+    """(max |score - plain score|, index mismatches, all of them near
+    ties): a mismatch is a near tie when the plain scores of the two picks
+    (one sum over d each, the same order for both) lie within MIPS_TOL."""
+    (v, i), (pv, pi) = out, plain
+    err = float((v - pv).abs().max())
+    bad = i != pi
+    ties = True
+    if bool(bad.any()):
+        rows = bad.nonzero()[:, 0]
+        c = corpus.float()
+
+        def score(idx):
+            return (q[rows].float() * c[idx[bad].long() - off]).sum(-1)
+        ties = bool(((score(i) - score(pi)).abs() <= MIPS_TOL).all())
+    return err, int(bad.sum()), ties
+
+
+def check_mips(q, corpus, k, label, *, off=None, n_total=None, time_it=True,
+               graph=(50, 20)):
+    """Kernel vs plain version at one shape (scores to MIPS_TOL, indices
+    equal but for near ties) and kernel vs kernel on a second run (bit for
+    bit); returns (max_abs_err, ms, plain_ms, library_ms, bound) and the
+    kernel's result. The kernel is timed in a CUDA graph, the plain
+    version (thousands of small launches a call) with CUDA events around
+    two eager calls after one, and the yardstick
+    ``torch.topk(q @ c.T, k)`` (TF32 off; a bf16 corpus upcast in the call;
+    for the offset form it gives local indices, one addition short of the
+    kernel's) in a graph."""
+    qn, d = q.shape
+    n = corpus.shape[0]
+    kw = {} if off is None else {"index_offset": off, "n_total": n_total}
+    out = mips_topk(q, corpus, k, **kw)
+    again = mips_topk(q, corpus, k, **kw)
+    torch.cuda.synchronize()
+    plain = ref.mips_topk_ref(q, corpus, k, **kw)
+    if out[0].shape != (qn, k) or out[1].dtype != torch.int32 \
+            or not out[0].is_cuda:
+        fail(f"mips_topk {label}: {tuple(out[0].shape)} {out[1].dtype} on "
+             f"{out[0].device}")
+    err, mismatches, ties = mips_agree(q, corpus, out, plain, off or 0)
+    same = torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])
+    del again, plain
+    valid = n if off is None else max(0, min(n, n_total - off))
+    b = mips_bound_ms(qn, valid, d, k, corpus.element_size())
+    ms = plain_ms = lib_ms = float("nan")
+    if time_it:
+        ms = time_ms(lambda: mips_topk(q, corpus, k, **kw), *graph)
+        plain_ms = eager_ms(lambda: ref.mips_topk_ref(q, corpus, k, **kw),
+                            2, 1)
+        lib_ms = time_ms(lambda: torch.topk(q @ corpus.float().T, k),
+                         *graph)
+    print(f"mips_topk {label} Q={qn} N={n} d={d} k={k} "
+          f"{str(corpus.dtype).replace('torch.', '')}"
+          f"{'' if off is None else f' offset={off} n_total={n_total}'}: "
+          f"max_abs_err={err:.3e} (tol {MIPS_TOL:g}), index mismatches "
+          f"{mismatches} (all near ties: {ties}), run-to-run equal {same}; "
+          f"device ms: kernel {ms:.5f} plain {plain_ms:.5f} topk(q @ c.T) "
+          f"{lib_ms:.5f} bound {b[0]:.5f} ({b[1]})", flush=True)
+    if not (err <= MIPS_TOL and ties and same):
+        fail(f"mips_topk {label} disagrees with its plain version or with "
+             f"itself")
+    return (err, ms, plain_ms, lib_ms, b), out
+
+
+def check_mips_laws(device):
+    """Kernel vs plain version at every listed shape, then the exact laws
+    inside the port: the offset form on 4 shards of a ragged corpus
+    merged equals the unsharded search bit for bit, and duplicated rows go
+    to the lowest index. Returns the figures of the training eval's
+    shape (the search form) and of one shard (the offset form)."""
+    gen = torch.Generator(device=device).manual_seed(40)
+    figures = {}
+    for qn, n, k, dtype, label, graph in (
+            (512, 1536, MIPS_K, torch.float32, "training eval", (50, 20)),
+            (64, SERVE_N, MIPS_K, torch.float32, "serving", (50, 20)),
+            (64, SERVE_N, MIPS_K, torch.bfloat16, "serving", (50, 20)),
+            (16, 1 << 20, MIPS_K, torch.float32, "deployed index", (5, 4)),
+            (64, 1 << 20, MIPS_K, torch.float32, "deployed index", (5, 4)),
+            (64, 1 << 20, MIPS_K, torch.bfloat16, "deployed index", (5, 4)),
+            (1024, 65536, 32, torch.float32, "large batch", (5, 4))):
+        corpus = unit_rows(n, MAIN_D, gen, dtype)
+        q = unit_rows(qn, MAIN_D, gen)
+        fig, _ = check_mips(q, corpus, k, label, graph=graph)
+        figures.setdefault(label, fig)
+        del corpus, q
+        torch.cuda.empty_cache()
+
+    # a ragged corpus: the search form at k = 1, then 4 shards of it
+    n = 1_000_003
+    corpus = unit_rows(n, MAIN_D, gen)
+    check_mips(unit_rows(7, MAIN_D, gen), corpus, 1, "ragged", graph=(5, 4))
+    q = unit_rows(16, MAIN_D, gen)
+    whole = mips_topk(q, corpus, MIPS_K)
+    shards = retrieval.sharded.stack_shards(corpus, 4)
+    size = shards.shape[1]
+    parts = []
+    for s in range(4):
+        fig, out = check_mips(q, shards[s], MIPS_K, f"shard {s} of 4",
+                              off=s * size, n_total=n, time_it=s == 0,
+                              graph=(5, 4))
+        if s == 0:
+            figures["shard"] = fig
+        parts.append(out)
+    merged = retrieval.sharded.merge_topk(
+        torch.stack([v for v, _ in parts]), torch.stack([i for _, i in parts]),
+        MIPS_K)
+    equal = torch.equal(merged[0], whole[0]) and torch.equal(merged[1],
+                                                             whole[1])
+    print(f"mips_topk 4 shards of N={n} (shard_size {size}, last zero-padded)"
+          f" merged vs unsharded: bit-equal {equal}", flush=True)
+    if not equal:
+        fail("the sharded search differs from the unsharded one")
+    del corpus, shards, parts
+    torch.cuda.empty_cache()
+
+    # duplicated rows: rows [8192, 8292) repeat rows [0, 100), and each
+    # query is one of them, so its best two are a tie of equal bits
+    corpus = unit_rows(SERVE_N, MAIN_D, gen)
+    corpus[8192:8292] = corpus[:100]
+    q = corpus[:100:7].clone()
+    (_, _, _, _, _), (v, i) = check_mips(q, corpus, MIPS_K, "duplicated rows",
+                                         time_it=False)
+    rows = torch.arange(0, 100, 7, device=device, dtype=torch.int32)
+    lowest = (torch.equal(i[:, 0], rows) and torch.equal(i[:, 1], rows + 8192)
+              and torch.equal(v[:, 0], v[:, 1]))
+    print(f"mips_topk duplicated rows: the tie goes to the lowest index "
+          f"{lowest}", flush=True)
+    if not lowest:
+        fail("a tie between duplicated rows did not go to the lowest index")
+    return figures
+
+
 def check_fold_to_edges(device, k, e):
     """``fold_to_edges`` of a stacked (K, ...) deltas tree of the
     full-width model, end to end (the leaf concatenation, the kernel and
@@ -379,7 +556,7 @@ def appendix_a(device, objective="dcco"):
 
 def _reset_counts():
     for counts in (cco_stats.launches, quant_dequant.launches,
-                   segment_sum.launches):
+                   segment_sum.launches, mips_topk.launches):
         for key in counts:
             counts[key] = 0
 
@@ -389,13 +566,16 @@ def _read_counts():
             "full": cco_stats.launches["full"],
             "per_row": quant_dequant.launches["per_row"],
             "column": quant_dequant.launches["column"],
-            "fold": segment_sum.launches["fold"]}
+            "fold": segment_sum.launches["fold"],
+            "search": mips_topk.launches["search"],
+            "offset": mips_topk.launches["offset"]}
 
 
 def train_path(name, flags, rounds, expected):
     """``train --full`` through its entry point, with every launch count
     set to 0 just before and read just after; fails unless the counts are
-    ``expected`` (kernel -> launches, the others 0). Returns the counts."""
+    ``expected`` (kernel -> launches, the others 0). Returns the counts
+    and the summary ``train.main`` returns."""
     _reset_counts()
     res = train.main(["--full", "--clients-per-round", str(K),
                       "--samples-per-client", str(N_PER_CLIENT),
@@ -432,6 +612,184 @@ def train_path(name, flags, rounds, expected):
     if "--async-k" in flags:
         print(f"{name}: server updates applied {res['updates']} in "
               f"{rounds} ticks", flush=True)
+    if "--retrieval-eval" in flags:
+        got = res["retrieval"]
+        print(f"{name}: per round recall@1 {got.get('recall_at_1')}, "
+              f"recall@10 {got.get('recall_at_10')}, mrr {got.get('mrr')}",
+              flush=True)
+        for key in ("recall_at_1", "recall_at_5", "recall_at_10", "mrr"):
+            vals = got.get(key, [])
+            if len(vals) != rounds or not all(0.0 <= v <= 1.0 for v in vals):
+                fail(f"{name}: {key} per round {vals}, expected {rounds} "
+                     f"values in [0, 1]")
+    return counts, res
+
+
+def _window(label, fn, expected):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after; fails unless the counts are ``expected`` (kernel -> launches,
+    the others 0). Returns fn's result and the counts."""
+    _reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    want = {k: expected.get(k, 0) for k in counts}
+    if counts != want:
+        fail(f"{label}: kernel launches {counts}, expected {want}")
+    return out, counts
+
+
+def serve(server, reqs):
+    """One warm-up search, then each request through ``server``."""
+    server.warmup()
+    return [server.query(r) for r in reqs]
+
+
+def serving_phase(device, params):
+    """The library's serving surface on the encoder the retrieval path
+    trained: ``CorpusIndex`` over SERVE_N synthetic 32x32 images (f32 and
+    bf16 storage), ``QueryServer`` over SERVE_BATCHES batches of encoded
+    query images (equal to ``index.search``), ``ShardedCorpusIndex`` x 4
+    (equal bit for bit to the unsharded index), and ``IVFIndex`` with
+    IVF_C lists (every list probed equals the exact tier but for near
+    ties; recall@10 against the exact tier at IVF_NPROBE). Each surface's
+    launch counts are read in a window of its own, with the comparisons
+    outside it, and held exact. Returns the windows' counts."""
+    cfg = get_config("resnet14-cifar")
+    de_cfg = get_dual_encoder_config("resnet14-cifar")
+
+    def embed(p, batch):
+        z, _ = dual_encoder.encode(cfg, de_cfg, p, batch)
+        return z
+
+    imgs, _ = synthetic.synthetic_labeled_images(
+        SERVE_N, 5, image_size=cfg.image_size, noise=0.5, seed=1)
+    qimgs, _ = synthetic.synthetic_labeled_images(
+        SERVE_BATCH * SERVE_BATCHES, 5, image_size=cfg.image_size,
+        noise=0.5, seed=2)
+    corpus = {"images": torch.as_tensor(imgs, device=device)}
+    queries = retrieval.encode_corpus_chunked(
+        embed, params, {"images": torch.as_tensor(qimgs, device=device)})
+    del imgs, qimgs
+    windows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        t0 = time.perf_counter()
+        index, counts = _window(
+            f"CorpusIndex.build ({name})",
+            lambda: retrieval.CorpusIndex.build(embed, params, corpus,
+                                                chunk=256, dtype=dtype), {})
+        build_s = time.perf_counter() - t0
+        server = retrieval.QueryServer(index, k=MIPS_K, batch=SERVE_BATCH)
+        # odd batches are ragged: the server pads them to its batch
+        reqs = [queries[b * SERVE_BATCH:(b + 1) * SERVE_BATCH - 5 * (b % 2)]
+                for b in range(SERVE_BATCHES)]
+        got, counts = _window(
+            f"QueryServer ({name})",
+            lambda: serve(server, reqs),
+            {"search": 1 + SERVE_BATCHES})
+        windows.append(counts)
+        want = index.search(queries, MIPS_K)
+        same = all(torch.equal(v, want[0][b * SERVE_BATCH:][:v.shape[0]])
+                   and torch.equal(i, want[1][b * SERVE_BATCH:][:i.shape[0]])
+                   for b, (v, i) in enumerate(got))
+        st = server.stats()
+        print(f"serving {name} index N={index.num_items} d={index.dim}: "
+              f"build {build_s:.3f} s; QueryServer(batch={SERVE_BATCH}, "
+              f"k={MIPS_K}) {st['batches']} batches (odd ones ragged, "
+              f"{SERVE_BATCH - 5} queries), smoke reading p50 "
+              f"{st['p50_us']:.1f} us; launches {counts}; equal to "
+              f"index.search {same}", flush=True)
+        if not same:
+            fail(f"QueryServer differs from index.search ({name})")
+        sharded = retrieval.ShardedCorpusIndex.from_index(index, 4)
+        a, counts = _window(f"ShardedCorpusIndex x 4 ({name})",
+                            lambda: sharded.search(queries, MIPS_K),
+                            {"offset": 4})
+        windows.append(counts)
+        equal = torch.equal(a[0], want[0]) and torch.equal(a[1], want[1])
+        print(f"serving {name}: ShardedCorpusIndex x 4 (shard_size "
+              f"{sharded.shard_size}) equals the unsharded index bit for bit "
+              f"over {queries.shape[0]} queries: {equal}; launches {counts}",
+              flush=True)
+        if not equal:
+            fail(f"ShardedCorpusIndex differs from CorpusIndex ({name})")
+        if dtype == torch.float32:
+            windows.append(check_ivf(index, queries))
+        del index, sharded, server, want, a
+    return windows
+
+
+def serving_rate(device):
+    """``QueryServer(batch=SERVE_BATCH, k=MIPS_K)`` over a deployed index
+    of RATE_N random unit rows from the seed (f32 and bf16 storage):
+    RATE_BATCHES full batches of random unit queries back to back, with
+    nothing but the server inside the window, then the served results
+    held to one ``index.search`` of every query. Prints p50, p99, qps and
+    qps_serial; returns the windows' counts."""
+    gen = torch.Generator(device=device).manual_seed(50)
+    queries = unit_rows(SERVE_BATCH * RATE_BATCHES, MAIN_D, gen)
+    reqs = queries.split(SERVE_BATCH)
+    windows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        index = retrieval.CorpusIndex(unit_rows(RATE_N, MAIN_D, gen, dtype))
+        server = retrieval.QueryServer(index, k=MIPS_K, batch=SERVE_BATCH)
+        got, counts = _window(
+            f"QueryServer over {RATE_N} rows ({name})",
+            lambda: serve(server, reqs),
+            {"search": 1 + RATE_BATCHES})
+        windows.append(counts)
+        want = index.search(queries, MIPS_K)
+        same = (torch.equal(torch.cat([v for v, _ in got]), want[0])
+                and torch.equal(torch.cat([i for _, i in got]), want[1]))
+        st = server.stats()
+        print(f"serving rate {name} index N={index.num_items} "
+              f"d={index.dim}: QueryServer(batch={SERVE_BATCH}, k={MIPS_K}) "
+              f"{st['batches']} batches back to back: p50 "
+              f"{st['p50_us']:.1f} us, p99 {st['p99_us']:.1f} us, qps "
+              f"{st['qps']:.1f}, qps_serial {st['qps_serial']:.1f}; "
+              f"launches {counts}; equal to index.search {same}", flush=True)
+        if not same:
+            fail(f"QueryServer over {RATE_N} rows differs from index.search "
+                 f"({name})")
+        del index, server, got, want
+        torch.cuda.empty_cache()
+    return windows
+
+
+def check_ivf(index, queries):
+    """``IVFIndex`` with IVF_C lists over ``index``: k-means through the
+    segment-sum kernel (sums and counts in each of 8 iterations, read in
+    a window around the build alone), every list probed against the exact
+    tier, and recall@10 at IVF_NPROBE. Returns the build's counts."""
+    t0 = time.perf_counter()
+    ivf, counts = _window(
+        "IVFIndex.from_index",
+        lambda: retrieval.IVFIndex.from_index(index, num_centroids=IVF_C,
+                                              nprobe=IVF_NPROBE),
+        {"fold": 2 * 8})
+    build_s = time.perf_counter() - t0
+    mismatches, ties, hits = 0, True, 0
+    batches = queries.split(SERVE_BATCH)
+    for qb in batches[:4]:
+        exact = ivf.search_exact(qb, MIPS_K)
+        full = ivf.search(qb, MIPS_K, nprobe=IVF_C)
+        _, bad, near = mips_agree(qb, index.embeddings, full, exact)
+        mismatches, ties = mismatches + bad, ties and near
+    for qb in batches[:8]:
+        exact = ivf.search_exact(qb, MIPS_K)[1]
+        approx = ivf.search(qb, MIPS_K)[1]
+        hits += int((approx[:, :, None] == exact[:, None, :]).any(-1).sum())
+    recall = hits / (8 * SERVE_BATCH * MIPS_K)
+    print(f"IVF C={IVF_C} (list length {ivf.list_len}, fill {ivf.fill:.3f}) "
+          f"built in {build_s:.3f} s with launches {counts}; "
+          f"nprobe=C vs the exact tier on {4 * SERVE_BATCH} queries: index "
+          f"mismatches {mismatches} (all near ties: {ties}); recall@10 "
+          f"against the exact tier at nprobe={IVF_NPROBE}: {recall:.4f}",
+          flush=True)
+    if not ties:
+        fail("IVF with every list probed differs from the exact tier")
     return counts
 
 
@@ -531,10 +889,22 @@ def main():
         # the dispatch fold and the count fold of each tick
         train_path("buffered", ["--async-k", "32", "--latency-tail", "1.0",
                                 "--staleness", "poly"], PATH_ROUNDS,
-                   {"fold": 2 * PATH_ROUNDS})]
+                   {"fold": 2 * PATH_ROUNDS}),
+        # the retrieval eval after every round: one search of 512 queries
+        # over a 1536-item corpus
+        train_path("retrieval", ["--retrieval-eval", "--retrieval-every",
+                                 "1", "--retrieval-corpus", "1536",
+                                 "--retrieval-queries", "512"], PATH_ROUNDS,
+                   {"cross": PATH_ROUNDS, "search": PATH_ROUNDS})]
+    mips_figures = check_mips_laws(device)
+    served = serving_phase(device, runs[-1][1]["params"])
+    served += serving_rate(device)
+    runs = [counts for counts, _ in runs] + served
     # launches of each kernel on the main paths, read from their counts
     # (the per-row form runs on none of them, nor in the reference)
     figures["fold"] = seg_figures["hierarchy deltas"]
+    figures["search"] = mips_figures["training eval"]
+    figures["offset"] = mips_figures["shard"]
     launches = {name: sum(c[name] for c in runs) for name in figures}
 
     rows = []
@@ -543,11 +913,16 @@ def main():
             ("full", "cco_stats.cu", "cco_stats.py:74"),
             ("per_row", "quantize.cu", "quantize.py:29"),
             ("column", "quantize.cu", "quantize.py:36"),
-            ("fold", "segment_sum.cu", "segment_sum.py:35")):
+            ("fold", "segment_sum.cu", "segment_sum.py:35"),
+            ("search", "mips_topk.cu", "mips_topk.py:66"),
+            ("offset", "mips_topk.cu", "mips_topk.py:97")):
         err, ms, plain_ms, lib_ms, (b_ms, b_by) = figures[name]
         kernel = {"cco_stats.cu": "cco_stats_" + name,
                   "quantize.cu": "quant_dequant_" + name,
-                  "segment_sum.cu": "segment_sum"}[source]
+                  "segment_sum.cu": "segment_sum",
+                  "mips_topk.cu": {"search": "mips_topk",
+                                   "offset": "mips_topk_offset"}.get(name)
+                  }[source]
         rows.append({
             "name": kernel, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",

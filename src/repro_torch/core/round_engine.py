@@ -36,6 +36,12 @@ a device condition. Both size their state from the objective's
 at the first round. Provably-equal configurations collapse to the sync
 body: one cluster, and zero latency with unit staleness and ``async_k``
 equal to the cohort.
+
+``EngineConfig.retrieval_eval`` (:mod:`repro_torch.retrieval`) scores
+retrieval after each round on the cadence ``retrieval_every``, on the
+round's updated params, into ``EngineMetrics.retrieval`` (NaN off the
+cadence). It only observes: the parameters and losses are the same bits
+with and without it.
 """
 from __future__ import annotations
 
@@ -100,6 +106,19 @@ class EngineConfig(NamedTuple):
     async_collapse: bool = True     # K = cohort, zero latency and unit
                                     # staleness run the sync body (bit-
                                     # identical); False forces the buffer
+    # --- periodic retrieval eval (repro_torch.retrieval) ---
+    retrieval_eval: Any = None      # params -> {metric: scalar}
+                                    # (retrieval.make_retrieval_eval:
+                                    # recall@k / MRR on a held-out corpus),
+                                    # run after the round on its updated
+                                    # params. A stateful eval (.stateful,
+                                    # called as (params, state) ->
+                                    # (metrics, state), with
+                                    # .init_state(params)) threads its
+                                    # index state through the carry
+    retrieval_every: int = 1        # evaluate on rounds where
+                                    # round % retrieval_every == 0; other
+                                    # rounds record NaN and run no eval
 
 
 class EngineCarry(NamedTuple):
@@ -109,6 +128,9 @@ class EngineCarry(NamedTuple):
                                     # buffered path runs, else empty
     cluster: Any = ()               # cluster.ClusterState when
                                     # num_clusters > 1, else empty
+    reval: Any = ()                 # a stateful retrieval eval's state
+                                    # (the refreshing eval's encoded
+                                    # corpus), else empty
 
 
 class EngineMetrics(NamedTuple):
@@ -124,6 +146,10 @@ class EngineMetrics(NamedTuple):
                                     # buffered engine)
     staleness: torch.Tensor         # mean staleness (ticks) of the applied
                                     # aggregate, 0 when none applied
+    retrieval: Any = ()             # {"recall_at_k": (rounds,), "mrr":
+                                    # (rounds,), ...} f32 when
+                                    # retrieval_eval is set (NaN on rounds
+                                    # off the cadence), else {}
 
 
 def _sync_metrics(m, device) -> EngineMetrics:
@@ -131,7 +157,7 @@ def _sync_metrics(m, device) -> EngineMetrics:
     def f32(x):
         return torch.as_tensor(x, dtype=F32, device=device)
     return EngineMetrics(m.loss, m.encoding_std, f32(m.wire_bytes),
-                         f32(m.edge_bytes), f32(1.0), f32(0.0))
+                         f32(m.edge_bytes), f32(1.0), f32(0.0), {})
 
 
 def make_kernel_agg_stats(second_moments: bool = False) -> Callable:
@@ -353,7 +379,7 @@ def make_async_round_body(encoder_apply: Callable, server_opt,
         metrics = EngineMetrics(
             (w * losses_k).sum(), objective.encoding_std(agg), wire,
             edge_wire, do_apply.to(F32),
-            torch.where(do_apply, mean_tau, torch.zeros_like(mean_tau)))
+            torch.where(do_apply, mean_tau, torch.zeros_like(mean_tau)), {})
         return params2, opt2, astate2, metrics
 
     return round_fn
@@ -378,6 +404,26 @@ class RoundEngine:
         if config.num_clusters < 0:
             raise ValueError(
                 f"num_clusters must be >= 0, got {config.num_clusters}")
+        if config.retrieval_every < 1:
+            raise ValueError(
+                f"retrieval_every must be >= 1, got {config.retrieval_every}")
+        if config.retrieval_eval is not None and \
+                not callable(config.retrieval_eval):
+            raise ValueError(
+                "retrieval_eval must be a params -> {metric: scalar} "
+                "callable (repro_torch.retrieval.make_retrieval_eval) or a "
+                "stateful (params, state) -> (metrics, state) one "
+                "(repro_torch.retrieval.make_refreshing_retrieval_eval)")
+        self._retrieval_stateful = bool(
+            getattr(config.retrieval_eval, "stateful", False))
+        if self._retrieval_stateful and \
+                not callable(getattr(config.retrieval_eval, "init_state",
+                                     None)):
+            raise ValueError(
+                "a stateful retrieval_eval must expose init_state(params) "
+                "to seed its index state "
+                "(repro_torch.retrieval.make_refreshing_retrieval_eval does)")
+        self._retrieval_keys = None  # metric names, from the first eval
         self.config = config
         self.sampler = sampler
         self._encoder_apply = encoder_apply
@@ -452,6 +498,35 @@ class RoundEngine:
         return cluster_lib.init_cluster_state(
             params, opt_state, self.config.num_clusters, dim)
 
+    def _retrieval_metrics(self, params, r, state):
+        """The periodic retrieval eval on round ``r``'s updated params:
+        (metrics dict or None off the cadence, state). It only observes:
+        no gradient, no randomness, nothing written to ``params``."""
+        eval_fn = self.config.retrieval_eval
+        if eval_fn is None or r % self.config.retrieval_every != 0:
+            return None, state
+        with torch.no_grad():
+            if self._retrieval_stateful:
+                m, state = eval_fn(params, state)
+            else:
+                m = eval_fn(params)
+        m = {k: torch.as_tensor(v, dtype=F32) for k, v in m.items()}
+        if self._retrieval_keys is None:
+            self._retrieval_keys = tuple(m)
+        return m, state
+
+    def _stack_retrieval(self, rows, device) -> dict:
+        """Per-round retrieval dicts (None off the cadence) -> {metric:
+        (rounds,) f32}, NaN where no eval ran; {} with no eval set, no
+        rounds, or before any eval has named the metrics."""
+        if not (self.config.retrieval_eval and self._retrieval_keys
+                and rows):
+            return {}
+        nan = torch.tensor(float("nan"), dtype=F32, device=device)
+        return {k: torch.stack([nan if m is None else m[k].to(device)
+                                for m in rows])
+                for k in self._retrieval_keys}
+
     def run(self, params, opt_state, seed: int, rounds: int, *,
             start_round: int = 0, on_segment: Optional[Callable] = None,
             buffer_state=None, cluster_state=None):
@@ -462,15 +537,27 @@ class RoundEngine:
         The buffered and clustered paths carry their state from round to
         round: pass ``buffer_state=`` / ``cluster_state=`` to resume it
         (fresh state otherwise) and read the final one from
-        ``self.buffer_state`` / ``self.cluster_state``."""
+        ``self.buffer_state`` / ``self.cluster_state``.
+
+        With ``EngineConfig.retrieval_eval`` the ``retrieval`` field of
+        the metrics carries per-round recall@k / MRR (NaN on rounds the
+        ``retrieval_every`` cadence skips), evaluated after each round on
+        its updated params; a stateful eval's state is seeded from the
+        initial params and rides the carry (``EngineCarry.reval``)."""
         device = utils.tree_leaves(params)[0].device
         channel = self.config.channel
         buffer, cluster = buffer_state, cluster_state
-        cols = tuple([] for _ in EngineMetrics._fields)
+        reval = ()
+        if self._retrieval_stateful:
+            with torch.no_grad():
+                reval = self.config.retrieval_eval.init_state(params)
+        cols = tuple([] for _ in EngineMetrics._fields[:-1])
+        retrieval_rows = []
         done = 0
         while done < rounds:
             seg = min(self.config.chunk_rounds, rounds - done)
-            per_round = tuple([] for _ in EngineMetrics._fields)
+            per_round = tuple([] for _ in EngineMetrics._fields[:-1])
+            seg_retrieval = []
             for r in range(start_round + done, start_round + done + seg):
                 round_seed = seed * _ROUND_SEED_STRIDE + r
                 out = self.sampler(utils.generator(round_seed, device))
@@ -495,17 +582,22 @@ class RoundEngine:
                     params, opt_state, m = self.round_fn(params, opt_state,
                                                          batch, sizes, key)
                     m = _sync_metrics(m, device)
-                for col, x in zip(per_round, m):
+                for col, x in zip(per_round, m[:-1]):
                     col.append(x)
+                rm, reval = self._retrieval_metrics(params, r, reval)
+                seg_retrieval.append(rm)
             done += seg
-            m = EngineMetrics(*(torch.stack(c) for c in per_round))
-            for col, x in zip(cols, m):
+            retrieval_rows.extend(seg_retrieval)
+            m = EngineMetrics(*(torch.stack(c) for c in per_round),
+                              self._stack_retrieval(seg_retrieval, device))
+            for col, x in zip(cols, m[:-1]):
                 col.append(x)
             if on_segment is not None:
                 on_segment(start_round + done,
                            EngineCarry(params, opt_state,
                                        () if buffer is None else buffer,
-                                       () if cluster is None else cluster),
+                                       () if cluster is None else cluster,
+                                       reval),
                            m)
         if channel is not None:
             # host-side bookkeeping (the DP epsilon accountant)
@@ -513,5 +605,6 @@ class RoundEngine:
         self.buffer_state = buffer if self._async_real else None
         self.cluster_state = cluster if self._clustered else None
         metrics = EngineMetrics(*(torch.cat(c) if c else torch.zeros((0,))
-                                  for c in cols))
+                                  for c in cols),
+                                self._stack_retrieval(retrieval_rows, device))
         return params, opt_state, metrics

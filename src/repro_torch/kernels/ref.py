@@ -89,3 +89,90 @@ def segment_sum_ref(rows, ids, num_segments: int, weights=None):
         e = ids[sel]
         out[e] = out[e] + w[sel][:, None] * rows[sel]
     return out
+
+
+NEG_INF = -1e30       # sentinel score of a masked row or an empty slot
+BIG_IDX = 2 ** 30     # sentinel index (beats any real corpus index in min)
+
+
+def select_topk(cand_v, cand_i, k: int):
+    """k rounds of (max, lowest-index pick, mask) over candidate rows: the
+    counterpart of ``repro/kernels/mips_topk.py::_select_topk``.
+
+    cand_v, cand_i: (m, c) f32 scores and int32 indices -> ((m, k) f32,
+    (m, k) int32), by value descending, ties by ascending index. Each round
+    masks every position holding the picked (value, index) pair, so a
+    candidate listed twice is emitted once. Comparisons only, so it equals
+    the reference exactly, sentinels and short lists included (where the
+    reference re-emits a taken index at ``NEG_INF``). ``torch.topk`` does
+    not promise an order for ties, hence the explicit rounds."""
+    cand_v = cand_v.to(F32).clone()
+    cand_i = cand_i.to(torch.int32)
+    big = torch.tensor(BIG_IDX, dtype=torch.int32, device=cand_i.device)
+    outs_v, outs_i = [], []
+    for _ in range(k):
+        m = cand_v.amax(dim=1)
+        at_max = cand_v == m[:, None]
+        pick = torch.where(at_max, cand_i, big).amin(dim=1)
+        taken = at_max & (cand_i == pick[:, None])
+        cand_v = cand_v.masked_fill(taken, NEG_INF)
+        outs_v.append(m)
+        outs_i.append(pick)
+    return torch.stack(outs_v, dim=1), torch.stack(outs_i, dim=1)
+
+
+def _ordered_topk(cand_v, cand_i, k: int):
+    """The best k of candidate rows with distinct indices (sentinels
+    aside), value descending, ties by ascending index: two stable sorts,
+    by index and then by value."""
+    by_idx, perm = torch.sort(cand_i, dim=1, stable=True)
+    v = torch.gather(cand_v, 1, perm)
+    v, perm2 = torch.sort(v, dim=1, descending=True, stable=True)
+    return v[:, :k], torch.gather(by_idx, 1, perm2[:, :k])
+
+
+def mips_topk_ref(q, corpus, k: int, index_offset=None, n_total=None,
+                  chunk: int = 512):
+    """Top-k maximum inner product search: the counterpart of
+    ``repro/kernels/mips_topk.py::mips_topk_chunked``, a scan over corpus
+    chunks carrying the running top-k, so the (Q, N) score matrix never
+    exists.
+
+    q: (Q, d), corpus: (N, d) f32 or bf16 (upcast to f32 a chunk at a
+    time) -> ((Q, k) f32 scores, (Q, k) int32 indices), value descending,
+    ties by ascending index. With ``index_offset`` the corpus is rows
+    [offset, offset + N) of an ``n_total``-row corpus: indices come out
+    global, and a row is valid when its local position is below N and its
+    global position below ``n_total``; invalid rows never enter, and slots
+    left empty hold (``NEG_INF``, ``BIG_IDX``).
+
+    Each score is an elementwise product summed over d in one reduction of
+    the last axis, whose order depends on d alone: a score is the same
+    bits whatever chunk or shard its row lies in, which is what makes the
+    sharded search equal the unsharded one here."""
+    qn, d = q.shape
+    n, d2 = corpus.shape
+    if d != d2:
+        raise ValueError(f"query dim {d} != corpus dim {d2}")
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} must be in [1, corpus size {n}]")
+    nt = n if n_total is None else int(n_total)
+    off = 0 if index_offset is None else int(index_offset)
+    q = q.to(F32)
+    dev = q.device
+    vals = torch.full((qn, k), NEG_INF, dtype=F32, device=dev)
+    idxs = torch.full((qn, k), BIG_IDX, dtype=torch.int32, device=dev)
+    ch = min(chunk, n)
+    for start in range(0, n, ch):
+        block = corpus[start:start + ch].to(F32)
+        s = (q[:, None, :] * block[None, :, :]).sum(-1)         # (Q, ch)
+        local = torch.arange(start, start + block.shape[0], device=dev)
+        pos = local + off
+        valid = pos < nt
+        s = torch.where(valid[None, :], s, torch.full_like(s, NEG_INF))
+        pos = torch.where(valid, pos, torch.full_like(pos, BIG_IDX))
+        cand_v = torch.cat([vals, s], dim=1)
+        cand_i = torch.cat([idxs, pos.to(torch.int32)[None, :].expand(
+            qn, -1)], dim=1)
+        vals, idxs = _ordered_topk(cand_v, cand_i, k)
+    return vals, idxs

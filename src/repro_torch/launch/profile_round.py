@@ -3,7 +3,9 @@
 Builds the same run as :mod:`repro_torch.launch.train` on one of its
 paths (``--path``: the plain DCCO round; the two-level tree over 8 edges
 with an int8 client hop; clustered aggregation over 4 clusters; the
-buffered engine with async_k 32 and heavy-tail delays), runs ``--warmup``
+buffered engine with async_k 32 and heavy-tail delays; the plain round
+with the retrieval eval after it, corpus the first three quarters of the
+dataset and queries the rest), runs ``--warmup``
 rounds, times ``--rounds`` more on the host clock (synchronised, no
 profiler), then profiles as many again with ``torch.profiler`` and prints
 the device's busy share of the profiled wall time and the kernels that
@@ -26,7 +28,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch import comm, hierarchy
+from repro_torch import comm, hierarchy, retrieval
 from repro_torch.configs.base import (DualEncoderConfig, get_config,
                                       get_dual_encoder_config)
 from repro_torch.core import round_engine
@@ -40,6 +42,7 @@ from repro_torch.utils import resolve_device
 # kernel-name fragments -> layer (first match wins)
 LAYERS = (
     ("cco_stats", "phase-1 statistics kernel (cco_stats)"),
+    ("mips", "MIPS top-k kernel (mips_topk)"),
     ("segment_sum", "segment-sum kernel (segment_sum)"),
     ("qdq_kernel", "quantize kernel (quant_dequant)"),
     ("conv", "convolutions (cuDNN)"), ("xmma", "convolutions (cuDNN)"),
@@ -67,7 +70,7 @@ def _device_us(evt) -> float:
     return float(evt.device_time_total)
 
 
-PATHS = ("dcco", "hierarchical", "clustered", "buffered")
+PATHS = ("dcco", "hierarchical", "clustered", "buffered", "retrieval")
 
 
 def _path_config(path: str, seed: int) -> dict:
@@ -84,6 +87,22 @@ def _path_config(path: str, seed: int) -> dict:
                 "latency": latency_lib.LatencyModel(
                     "heavytail", horizon=8, tail=1.0, seed=seed)}
     return {}
+
+
+def _retrieval_eval(cfg, de_cfg, ds, labels, device):
+    """The retrieval path's eval, as train's ``--retrieval-eval`` builds
+    it: the first three quarters of the dataset indexed, the rest
+    queried."""
+    images = torch.as_tensor(ds.data["images"], device=device)
+    labels = torch.as_tensor(labels, device=device)
+    nc = len(labels) * 3 // 4
+
+    def embed(p, batch):
+        return dual_encoder.encode(cfg, de_cfg, p, batch)[0]
+
+    return retrieval.make_retrieval_eval(
+        embed, {"images": images[:nc]}, labels[:nc],
+        {"images": images[nc:]}, labels[nc:], chunk=min(256, nc))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -122,10 +141,13 @@ def main(argv=None) -> dict:
         dataset_size=args.dataset_size, num_classes=args.num_classes,
         seed=args.seed, samples_per_client=args.samples_per_client,
         partition=None, severity=None, alpha=None)
-    ds, _ = train.build_dataset(cfg, data_args)
+    ds, labels = train.build_dataset(cfg, data_args)
+    fields = _path_config(args.path, args.seed)
+    if args.path == "retrieval":
+        fields["retrieval_eval"] = _retrieval_eval(cfg, de_cfg, ds, labels,
+                                                   device)
     ecfg = round_engine.EngineConfig(lam=5.0, chunk_rounds=1,
-                                     stats_kernel=args.stats_kernel,
-                                     **_path_config(args.path, args.seed))
+                                     stats_kernel=args.stats_kernel, **fields)
     if ecfg.async_k:
         sampler = ds.make_async_round_sampler(args.clients_per_round, device,
                                               ecfg.latency)

@@ -5,7 +5,9 @@ reference CLI's ``--mode engine`` path), optionally over a lossy client
 uplink (``--channel``), through a two-level client -> edge -> server tree
 (``--edges``, ``--edge-channel``), with cluster-aware aggregation
 (``--clusters``) or on the FedBuff-style buffered engine (``--async-k``,
-``--staleness``, ``--latency-tail``).
+``--staleness``, ``--latency-tail``), optionally scoring retrieval of a
+held-out split every few rounds (``--retrieval-eval``: recall@1/5/10 and
+MRR, searched by the MIPS top-k kernel).
 
 Runs on the GPU unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it raises. ``--full`` trains the full-width
@@ -28,6 +30,9 @@ Examples (full width, on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
       --async-k 32 --latency-tail 1.0 --staleness poly \\
       --clients-per-round 64 --dataset-size 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
+      --retrieval-eval --retrieval-every 1 --retrieval-corpus 1536 \\
+      --retrieval-queries 512 --clients-per-round 64 --dataset-size 2048
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch import comm, objectives as objectives_lib
-from repro_torch import hierarchy
+from repro_torch import hierarchy, retrieval as retrieval_lib
 from repro_torch.configs.base import (DualEncoderConfig, get_config,
                                       get_dual_encoder_config)
 from repro_torch.core import buffer as buffer_lib
@@ -165,6 +170,25 @@ def validate_flags(ap, args) -> None:
             "--staleness / --latency-tail shape the buffered "
             "(--async-k) engine's arrival model; the synchronous engine "
             "ignores them")
+    if args.retrieval_eval:
+        if args.retrieval_every < 1:
+            raise SystemExit(f"--retrieval-every {args.retrieval_every} "
+                             f"must be >= 1")
+        if args.retrieval_corpus < 10:
+            raise SystemExit(
+                f"--retrieval-corpus {args.retrieval_corpus} is smaller "
+                f"than the largest reported cutoff (recall@10)")
+        held_out = args.retrieval_corpus + args.retrieval_queries
+        if held_out > args.dataset_size:
+            raise SystemExit(
+                f"--retrieval-corpus {args.retrieval_corpus} + "
+                f"--retrieval-queries {args.retrieval_queries} = "
+                f"{held_out} exceeds --dataset-size {args.dataset_size}")
+    else:
+        _forbid_ignored_flags(
+            ap, args, ["retrieval_every", "retrieval_corpus",
+                       "retrieval_queries", "retrieval_dtype"],
+            "retrieval flags configure the --retrieval-eval loop")
     if args.edges:
         if args.clients_per_round % args.edges and not args.clusters:
             raise SystemExit(
@@ -300,6 +324,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "horizon 8, repro_torch.data.latency); 0 = every "
                         "contribution arrives the tick it was dispatched")
 
+    g = ap.add_argument_group(
+        "retrieval eval", "periodic in-training retrieval eval "
+        "(repro_torch.retrieval)")
+    g.add_argument("--retrieval-eval", action="store_true",
+                   help="encode a held-out corpus and query split with the "
+                        "current params every --retrieval-every rounds, "
+                        "search it with the MIPS top-k kernel and report "
+                        "recall@{1,5,10} / MRR beside the probe")
+    g.add_argument("--retrieval-every", type=int, default=5,
+                   help="rounds between retrieval evals (--retrieval-eval); "
+                        "skipped rounds record NaN")
+    g.add_argument("--retrieval-corpus", type=int, default=256,
+                   help="held-out items indexed as the retrieval corpus")
+    g.add_argument("--retrieval-queries", type=int, default=64,
+                   help="held-out query items scored against the corpus")
+    g.add_argument("--retrieval-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="storage type of the corpus embeddings (bfloat16 "
+                        "halves the index; scores still sum in f32)")
+
     g = ap.add_argument_group("server & client optimization")
     g.add_argument("--server-optimizer", default="adam",
                    choices=["sgd", "adam", "lars"])
@@ -359,13 +403,31 @@ def main(argv=None) -> dict:
     if args.async_k and args.latency_tail > 0:
         latency = latency_lib.LatencyModel(
             "heavytail", horizon=8, tail=args.latency_tail, seed=args.seed)
+    retrieval_eval = None
+    if args.retrieval_eval:
+        # held-out split: the first nc items are indexed as the corpus,
+        # the next nq serve as queries (label-match relevance)
+        nc, nq = args.retrieval_corpus, args.retrieval_queries
+
+        def embed(p, batch):
+            z, _ = dual_encoder.encode(cfg, de_cfg, p, batch)
+            return z
+
+        retrieval_eval = retrieval_lib.make_retrieval_eval(
+            embed, {"images": images[:nc]}, labels_t[:nc],
+            {"images": images[nc:nc + nq]}, labels_t[nc:nc + nq],
+            chunk=min(256, nc),
+            index_dtype=(torch.bfloat16 if args.retrieval_dtype
+                         == "bfloat16" else torch.float32))
     ecfg = round_engine.EngineConfig(
         algorithm="dcco", objective=objective, lam=args.lam,
         client_lr=args.client_lr, local_steps=args.local_steps,
         chunk_rounds=args.chunk_rounds or args.eval_every or 25,
         stats_kernel=args.stats_kernel, channel=channel,
         num_clusters=args.clusters, cluster_iters=args.cluster_iters,
-        async_k=args.async_k, staleness_fn=args.staleness, latency=latency)
+        async_k=args.async_k, staleness_fn=args.staleness, latency=latency,
+        retrieval_eval=retrieval_eval,
+        retrieval_every=args.retrieval_every)
     if args.async_k:
         sampler = ds.make_async_round_sampler(args.clients_per_round, device,
                                               latency)
@@ -376,6 +438,7 @@ def main(argv=None) -> dict:
 
     history, round_ms, probes, wire, edge_wire = [], [], [], [], []
     applied = []
+    retrieval = {}
 
     def sync():
         if device.type == "cuda":
@@ -398,6 +461,18 @@ def main(argv=None) -> dict:
         if args.async_k:
             extra = (f" updates={int(sum(applied[-m.loss.shape[0]:]))}"
                      f"/{m.loss.shape[0]}t")
+        for key, x in m.retrieval.items():
+            retrieval.setdefault(key, []).extend(float(v) for v in x.cpu())
+        if m.retrieval:
+            # latest evaluated round in this segment (skipped = NaN)
+            r1 = m.retrieval["recall_at_1"].cpu().numpy()
+            live = np.flatnonzero(~np.isnan(r1))
+            if live.size:
+                i = live[-1]
+                extra += (
+                    f" recall@1={r1[i]:.3f}"
+                    f" recall@10={float(m.retrieval['recall_at_10'][i]):.3f}"
+                    f" mrr={float(m.retrieval['mrr'][i]):.3f}")
         print(f"round {round_end:5d} loss={history[-1]:9.4f} "
               f"enc_std={float(m.encoding_std[-1]):.4f} "
               f"probe_acc={acc:.3f}{extra} ({seg_ms:.1f} ms/round)",
@@ -427,7 +502,7 @@ def main(argv=None) -> dict:
     return {"history": history, "round_ms": round_ms, "probe": probe,
             "probes": probes, "params": params, "device": str(device),
             "wire_bytes": wire_bytes, "edge_bytes": edge_bytes,
-            "updates": int(sum(applied)),
+            "updates": int(sum(applied)), "retrieval": retrieval,
             "loss_finite": bool(np.all(np.isfinite(history)))}
 
 

@@ -11,13 +11,18 @@ N <= 128 rows of unit-normal data the sums differ by a few f32 ulps, so
 rtol/atol 1e-5. The quantize kernel is one IEEE division, add, floor,
 clip and multiply an element, like its plain version: bit equality. So is
 the segment-sum kernel, which adds ``w_k * x`` over ascending k exactly
-as its plain version does."""
+as its plain version does. The MIPS top-k kernel sums each score over d
+with fused multiply-adds, its plain version in a reduction of its own
+order: scores to 1e-5 on unit vectors, indices equal except at near ties
+(plain scores of the two picks within 1e-5); inside the kernel, sharded
+equals unsharded and one run equals the next, bit for bit."""
 import pytest
 import torch
 
 from repro_torch.core.round_engine import make_kernel_agg_stats
 from repro_torch.kernels import ref
 from repro_torch.kernels.cco_stats import cco_stats
+from repro_torch.kernels.mips_topk import mips_topk
 from repro_torch.kernels.quantize import quant_dequant
 from repro_torch.kernels.segment_sum import segment_sum
 
@@ -193,3 +198,77 @@ def test_fold_to_edges_is_one_kernel_launch_on_card(cuda_device):
     for key, x in tree.items():
         plain = ref.segment_sum_ref(x.reshape(12, -1), ids, 4, w)
         assert torch.equal(out[key].reshape(4, -1), plain), key
+
+
+def _unit_rows(dev, n, d, seed, dtype=torch.float32):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, d, generator=gen, device=dev)
+    return (x / torch.linalg.vector_norm(x, dim=1, keepdim=True)).to(dtype)
+
+
+def _assert_mips_close(q, corpus, out, plain, off=0):
+    torch.testing.assert_close(out[0], plain[0], rtol=0, atol=1e-5)
+    bad = out[1] != plain[1]
+    if bool(bad.any()):
+        rows = bad.nonzero()[:, 0]
+        c = corpus.float()
+        s1 = (q[rows] * c[out[1][bad].long() - off]).sum(-1)
+        s2 = (q[rows] * c[plain[1][bad].long() - off]).sum(-1)
+        assert bool(((s1 - s2).abs() <= 1e-5).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qn,n,d,k,dtype", [
+    (8, 256, 32, 5, torch.float32),
+    (7, 1003, 36, 1, torch.float32),         # d % 32 != 0
+    (5, 777, 33, 3, torch.bfloat16),         # odd d: scalar loads
+    (64, 4096, 128, 10, torch.bfloat16),     # 16-byte bf16 loads
+    (3, 5000, 64, 256, torch.float32),       # the largest k
+    (33, 2000, 1024, 10, torch.float32)])    # two query tiles, ragged
+def test_mips_kernel_matches_plain_version(cuda_device, qn, n, d, k, dtype):
+    q = _unit_rows(cuda_device, qn, d, qn + n)
+    corpus = _unit_rows(cuda_device, n, d, n + d, dtype)
+    before = dict(mips_topk.launches)
+    out = mips_topk(q, corpus, k)
+    torch.cuda.synchronize()
+    assert mips_topk.launches == dict(before, search=before["search"] + 1)
+    assert out[0].is_cuda and out[1].dtype == torch.int32
+    _assert_mips_close(q, corpus, out, ref.mips_topk_ref(q, corpus, k))
+    again = mips_topk(q, corpus, k)
+    assert torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 3, 4])
+def test_mips_offset_form_shards_equal_unsharded(cuda_device, shards):
+    from repro_torch.retrieval.sharded import sharded_mips_topk, stack_shards
+    n = 5003
+    corpus = _unit_rows(cuda_device, n, 256, 1)
+    corpus[4000:4050] = corpus[10:60]           # duplicates across shards
+    q = torch.cat([corpus[10:13], _unit_rows(cuda_device, 6, 256, 2)])
+    whole = mips_topk(q, corpus, 10)
+    stacked = stack_shards(corpus, shards)
+    size = stacked.shape[1]
+    for s in range(shards):
+        before = mips_topk.launches["offset"]
+        out = mips_topk(q, stacked[s], 10, index_offset=s * size,
+                        n_total=n)
+        assert mips_topk.launches["offset"] == before + 1
+        _assert_mips_close(q, stacked[s], out, ref.mips_topk_ref(
+            q, stacked[s], 10, index_offset=s * size, n_total=n), s * size)
+    got = sharded_mips_topk(q, stacked, 10, n_total=n)
+    assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
+    assert whole[1][:3, :2].tolist() == [[10, 4000], [11, 4001], [12, 4002]]
+    assert torch.equal(whole[0][:3, 0], whole[0][:3, 1])
+
+
+@pytest.mark.cuda
+def test_mips_kernel_pads_short_lists_with_sentinels(cuda_device):
+    q = _unit_rows(cuda_device, 4, 64, 3)
+    corpus = _unit_rows(cuda_device, 300, 64, 4)
+    # only 3 rows of this shard lie below n_total
+    v, i = mips_topk(q, corpus, 5, index_offset=1000, n_total=1003)
+    assert (i[:, :3] >= 1000).all() and (i[:, :3] < 1003).all()
+    assert (i[:, 3:] == ref.BIG_IDX).all() and (v[:, 3:] == ref.NEG_INF).all()
+    pv, pi = ref.mips_topk_ref(q, corpus, 5, index_offset=1000, n_total=1003)
+    assert torch.equal(i, pi)
