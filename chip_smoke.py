@@ -47,10 +47,27 @@ Phases (each prints its lines; any failure exits non-zero):
      then the serving rate: QueryServer over a deployed index of 2^20
      random unit rows (f32 and bf16), 512 batches back to back, p50, p99
      and qps. Each surface's launches are read in a window of its own,
-     with the comparisons outside it, and held exact.
+     with the comparisons outside it, and held exact;
+  7. ``flash_attention`` against its plain version (f32 to 2e-5, bf16 to
+     3e-2, the row log-sum-exp to 2e-5 (1 + |lse|)) at the TinyLlama
+     path's shape (phase 1 and phase 2 both give B = K * n), Dh 128 in
+     groups of 2, the smoke configs' Dh 32 in f32, windows 32 and 96,
+     non-causal, Sq 64 of Skv 128 and a ragged S of 100, each timed beside
+     its plain version and ``scaled_dot_product_attention`` (a yardstick
+     the port never calls); the gradient of its autograd Function against
+     autograd of the plain version at the path's shape in f32; then, after
+     the serving phase's memory is released, D-CCO training of the
+     full-width TinyLlama-1.1B token dual encoder (3 rounds, TOK_K clients
+     x 2 sequences of 128 tokens, bf16 weights from seed 0): losses
+     finite, peak device memory printed, launches exactly 88 flash
+     attention forwards a round (2 views x 22 layers in the no-grad phase
+     1, the same again in phase 2, where vmap folds the K clients into
+     one launch; the backward recomputes in plain torch) and one "cross"
+     statistics kernel.
 Then one JSON line of kernel figures, and the device line last.
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
+import gc
 import json
 from pathlib import Path
 import subprocess
@@ -70,6 +87,8 @@ from repro_torch.data import partition, pipeline, synthetic  # noqa: E402
 from repro_torch.hierarchy import fold_to_edges  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.cco_stats import cco_stats  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    FlashAttention, flash_attention)
 from repro_torch.kernels.quantize import quant_dequant  # noqa: E402
 from repro_torch.kernels.mips_topk import mips_topk  # noqa: E402
 from repro_torch.kernels.segment_sum import segment_sum  # noqa: E402
@@ -98,6 +117,14 @@ MIPS_K = 10                       # the training eval's and the server's k
 SERVE_N, SERVE_BATCH, SERVE_BATCHES = 16384, 64, 32
 RATE_N, RATE_BATCHES = 1 << 20, 512   # the serving rate's deployed index
 IVF_C, IVF_NPROBE = 128, 8
+# the token path: TinyLlama-1.1B at full width (22 layers, H 32, KVH 4,
+# Dh 64, bf16), TOK_K clients x TOK_N sequences of TOK_S tokens
+TOK_ARCH, TOK_LAYERS, TOK_K, TOK_N, TOK_S = "tinyllama-1.1b", 22, 4, 2, 128
+PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
+# flash attention vs plain: both compute in f32 from the same inputs, in
+# other orders; a bf16 output is rounded once on each side (1 bf16 ulp of
+# an output below 4 is under 3e-2), as tests/test_kernels.py holds it
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 
 def fail(msg):
@@ -554,9 +581,130 @@ def appendix_a(device, objective="dcco"):
              f"f32 loss 1e-4)")
 
 
+def flash_bound_ms(q, k, valid):
+    """q, k, v read once, the output and the f32 row log-sum-exp written
+    once; 4 Dh operations (two products) for each score the mask keeps,
+    at the peak of the inputs' type (the bf16 tensor rate, or the f32
+    non-tensor rate)."""
+    b, h, sq, dh = q.shape
+    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 4 * b * h * sq
+    ops = 4 * b * h * dh * int(valid.sum())
+    peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_F32
+    t_bytes, t_ops = moved / PEAK_BYTES, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_flash(b, h, kvh, sq, skv, dh, dtype, label, *, causal=True,
+                window=0, seed=0):
+    """Kernel vs plain version at one shape: the output to FLASH_TOL of its
+    type and the row log-sum-exp to 2e-5 (1 + |lse|); returns (max_abs_err,
+    ms, plain_ms, library_ms, bound). The kernel and the plain version are
+    timed in CUDA graphs; the yardstick is one
+    ``scaled_dot_product_attention(..., enable_gqa=True)``, causal where
+    its top-left causal mask is the kernel's (Sq == Skv, no window), else
+    with the kernel's mask passed in."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, sq, dh, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, kvh, skv, dh, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, kvh, skv, dh, generator=gen, device=dev).to(dtype)
+    kw = {"causal": causal, "window": window, "scale": 1.0 / dh ** 0.5}
+    out, lse = FlashAttention.apply(q, k, v, causal, window, kw["scale"])
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    plain, plain_lse = ref.flash_attention_ref(q, k, v, return_lse=True,
+                                               **kw)
+    if out.shape != q.shape or out.dtype != dtype or not out.is_cuda:
+        fail(f"flash_attention {label}: {tuple(out.shape)} {out.dtype} on "
+             f"{out.device}")
+    err = float((out.float() - plain.float()).abs().max())
+    lse_err = float(((lse - plain_lse).abs() / (1 + plain_lse.abs())).max())
+    same = torch.equal(out, again)
+    del again, plain, plain_lse, lse
+    valid = ref.flash_attention_mask(sq, skv, causal, window, dev)
+    bnd = flash_bound_ms(q, k, valid)
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                         window=window), 20, 10)
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 5, 4)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if causal and window == 0 and sq == skv:
+        lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                      enable_gqa=True), 20, 10)
+    else:
+        lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=valid,
+                                      enable_gqa=True), 20, 10)
+    tol = FLASH_TOL[dtype]
+    print(f"flash_attention {label} B={b} H={h} KVH={kvh} Sq={sq} Skv={skv} "
+          f"Dh={dh} {str(dtype).replace('torch.', '')} causal={causal} "
+          f"window={window}: max_abs_err={err:.3e} (tol {tol:g}), lse "
+          f"rel err {lse_err:.3e} (tol 2e-5), run-to-run equal {same}; "
+          f"device ms: kernel {ms:.5f} plain {plain_ms:.5f} sdpa "
+          f"{lib_ms:.5f} bound {bnd[0]:.5f} ({bnd[1]})", flush=True)
+    if not (err <= tol and lse_err <= 2e-5 and same):
+        fail(f"flash_attention {label} disagrees with its plain version or "
+             f"with itself")
+    del q, k, v, out, valid
+    torch.cuda.empty_cache()
+    return err, ms, plain_ms, lib_ms, bnd
+
+
+def check_flash_shapes():
+    """Every shape of phase 7; returns the path shape's figures."""
+    b = TOK_K * TOK_N
+    figures = check_flash(b, 32, 4, TOK_S, TOK_S, 64, torch.bfloat16,
+                          "TinyLlama path (phase 1 = phase 2 folded)")
+    if b != 16:
+        check_flash(16, 32, 4, TOK_S, TOK_S, 64, torch.bfloat16,
+                    "TinyLlama, 8 clients x 2", seed=1)
+    check_flash(b, 16, 8, TOK_S, TOK_S, 128, torch.bfloat16,
+                "qwen3-1.7b heads (Dh 128, groups of 2)", seed=2)
+    check_flash(b, 8, 2, TOK_S, TOK_S, 32, torch.float32,
+                "smoke heads (Dh 32, f32)", seed=3)
+    for i, window in enumerate((32, 96)):
+        check_flash(b, 32, 4, 256, 256, 64, torch.bfloat16,
+                    f"window {window}", window=window, seed=4 + i)
+    check_flash(b, 32, 4, TOK_S, TOK_S, 64, torch.bfloat16, "non-causal",
+                causal=False, seed=6)
+    check_flash(b, 32, 4, 64, 128, 64, torch.bfloat16, "Sq 64 of Skv 128",
+                seed=7)
+    check_flash(b, 32, 4, 100, 100, 64, torch.bfloat16, "ragged S 100",
+                seed=8)
+    check_flash(3, 8, 2, 100, 300, 32, torch.float32,
+                "ragged Sq 100 of Skv 300, window 70", window=70, seed=9)
+    return figures
+
+
+def check_flash_gradient():
+    """The autograd Function's backward (plain torch from the kernel's row
+    log-sum-exp) against autograd of the plain version, at the path's
+    shape in f32, through a weighted sum of the output; held to 1e-4 of
+    each gradient's largest magnitude (the two sum in other orders)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    b, h, kvh, s, dh = TOK_K * TOK_N, 32, 4, TOK_S, 64
+    leaves = [torch.randn(shape, generator=gen, device=dev)
+              for shape in ((b, h, s, dh), (b, kvh, s, dh), (b, kvh, s, dh))]
+    w = torch.randn(b, h, s, dh, generator=gen, device=dev)
+    grads = []
+    for fn in (flash_attention, ref.flash_attention_ref):
+        xs = [x.clone().requires_grad_() for x in leaves]
+        (fn(*xs) * w).sum().backward()
+        grads.append([x.grad for x in xs])
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(*grads)]
+    print(f"flash_attention gradient B={b} H={h} KVH={kvh} S={s} Dh={dh} "
+          f"f32: max |Function - autograd of plain| / max |grad| for q, k, "
+          f"v: {', '.join(f'{e:.3e}' for e in errs)} (tol 1e-4)", flush=True)
+    if not max(errs) <= 1e-4:
+        fail("flash_attention's backward disagrees with autograd of its "
+             "plain version")
+
+
 def _reset_counts():
     for counts in (cco_stats.launches, quant_dequant.launches,
-                   segment_sum.launches, mips_topk.launches):
+                   segment_sum.launches, mips_topk.launches,
+                   flash_attention.launches):
         for key in counts:
             counts[key] = 0
 
@@ -568,7 +716,8 @@ def _read_counts():
             "column": quant_dequant.launches["column"],
             "fold": segment_sum.launches["fold"],
             "search": mips_topk.launches["search"],
-            "offset": mips_topk.launches["offset"]}
+            "offset": mips_topk.launches["offset"],
+            "flash": flash_attention.launches["forward"]}
 
 
 def train_path(name, flags, rounds, expected):
@@ -576,12 +725,14 @@ def train_path(name, flags, rounds, expected):
     set to 0 just before and read just after; fails unless the counts are
     ``expected`` (kernel -> launches, the others 0). Returns the counts
     and the summary ``train.main`` returns."""
+    torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     res = train.main(["--full", "--clients-per-round", str(K),
                       "--samples-per-client", str(N_PER_CLIENT),
                       "--dataset-size", str(DATASET), "--rounds", str(rounds),
                       "--eval-every", "1", *flags])
     counts = _read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     leaves = utils.tree_leaves(res["params"])
     if len(res["history"]) != rounds or not res["loss_finite"]:
         fail(f"{name}: training losses {res['history']}")
@@ -600,7 +751,8 @@ def train_path(name, flags, rounds, expected):
           f"{res['round_ms'][0]:.1f}, median of the rest "
           f"{steady[len(steady) // 2]:.1f}; probe acc {res['probe']:.3f} "
           f"(per round {res['probes']}); uplink bytes {res['wire_bytes']:.6g}"
-          f"; kernel launches {counts}", flush=True)
+          f"; kernel launches {counts}; peak device memory {peak_gib:.2f} GiB",
+          flush=True)
     if "--channel" in flags and not res["wire_bytes"] > 0:
         fail(f"{name}: no uplink bytes counted")
     if "--edges" in flags:
@@ -900,6 +1052,18 @@ def main():
     served = serving_phase(device, runs[-1][1]["params"])
     served += serving_rate(device)
     runs = [counts for counts, _ in runs] + served
+    # the token path, with the serving phase's corpora released
+    gc.collect()
+    torch.cuda.empty_cache()
+    figures["flash"] = check_flash_shapes()
+    check_flash_gradient()
+    runs.append(train_path(
+        "tinyllama dcco", ["--arch", TOK_ARCH, "--seq-len", str(TOK_S),
+                           "--clients-per-round", str(TOK_K),
+                           "--samples-per-client", str(TOK_N),
+                           "--stats-kernel", "fused"], PATH_ROUNDS,
+        {"flash": 2 * 2 * TOK_LAYERS * PATH_ROUNDS,
+         "cross": PATH_ROUNDS})[0])
     # launches of each kernel on the main paths, read from their counts
     # (the per-row form runs on none of them, nor in the reference)
     figures["fold"] = seg_figures["hierarchy deltas"]
@@ -915,14 +1079,15 @@ def main():
             ("column", "quantize.cu", "quantize.py:36"),
             ("fold", "segment_sum.cu", "segment_sum.py:35"),
             ("search", "mips_topk.cu", "mips_topk.py:66"),
-            ("offset", "mips_topk.cu", "mips_topk.py:97")):
+            ("offset", "mips_topk.cu", "mips_topk.py:97"),
+            ("flash", "flash_attention.cu", "flash_attention.py:29")):
         err, ms, plain_ms, lib_ms, (b_ms, b_by) = figures[name]
         kernel = {"cco_stats.cu": "cco_stats_" + name,
                   "quantize.cu": "quant_dequant_" + name,
                   "segment_sum.cu": "segment_sum",
                   "mips_topk.cu": {"search": "mips_topk",
-                                   "offset": "mips_topk_offset"}.get(name)
-                  }[source]
+                                   "offset": "mips_topk_offset"}.get(name),
+                  "flash_attention.cu": "flash_attention"}[source]
         rows.append({
             "name": kernel, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",

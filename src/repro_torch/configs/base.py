@@ -1,7 +1,14 @@
 """Model configuration dataclasses and the architecture registry.
 
-Only the ResNet family is ported; the fields kept are the ones the ResNet
-dual encoder reads, with the reference's names and defaults.
+The ResNet family and the dense GQA transformers are ported; the fields
+kept are the ones their dual encoders read, with the reference's names
+and defaults. The reference's mesh-only fields (``act_shard_axes``,
+``fsdp_model_size``), its layer-scan options (``scan_layers``,
+``layer_chunks``, ``remat``), ``attn_block``, ``parallel_block``,
+``tie_embeddings`` (every dense config ties), the decode cache's
+``kv_cache_dtype``, the dual encoder's ``pool`` (always the mean) and the
+MLA, MoE, SSM and xLSTM sub-configs have no counterpart: no ported config
+sets them away from the default.
 """
 from __future__ import annotations
 
@@ -22,13 +29,38 @@ class ModelConfig:
     num_kv_heads: int = 4
     d_ff: int = 1024
     vocab_size: int = 1024
+    head_dim: int = 0               # 0 -> d_model // num_heads
+    # block pattern, cycled over layers; the port runs "attn" blocks only
+    block_pattern: Tuple[str, ...] = ("attn",)
+    # attention details
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: int = 0         # 0 = full attention
+    # modality ("text" only in the port)
+    modality: str = "text"
     # resnet (paper's own encoder; family == "resnet")
     resnet_stages: Tuple[int, ...] = ()
     resnet_channels: Tuple[int, ...] = ()
     resnet_groups: int = 32
     resnet_in_channels: int = 3
     image_size: int = 32
+    # norm / numerics
+    norm_eps: float = 1e-6
     dtype: str = "bfloat16"
+    # attention impl: "blockwise" (the CUDA flash-attention kernel for
+    # Sq > 1) or "naive" (materialized scores, plain torch)
+    attn_impl: str = "blockwise"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def num_superblocks(self) -> int:
+        assert self.num_layers % len(self.block_pattern) == 0, (
+            f"{self.name}: layers {self.num_layers} not divisible by "
+            f"pattern len {len(self.block_pattern)}")
+        return self.num_layers // len(self.block_pattern)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -49,7 +81,8 @@ ARCH_IDS = (
     "tinyllama-1.1b", "xlstm-350m", "deepseek-moe-16b",
     "resnet14-cifar",
 )
-PORTED_ARCHS = ("resnet14-cifar",)
+PORTED_ARCHS = ("resnet14-cifar", "tinyllama-1.1b", "qwen3-1.7b",
+                "qwen3-8b", "granite-3-8b")
 
 
 def _module(arch_id: str):
@@ -57,9 +90,9 @@ def _module(arch_id: str):
         raise KeyError(f"unknown arch '{arch_id}'; known: {ARCH_IDS}")
     if arch_id not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"arch '{arch_id}' is a transformer-family model; the PyTorch "
-            f"port has only {PORTED_ARCHS} so far (ROADMAP §1, 'Transformer "
-            f"families')")
+            f"arch '{arch_id}' is an MLA, MoE, hybrid, SSM, vision-text or "
+            f"audio model; the PyTorch port has only {PORTED_ARCHS} so far "
+            f"(ROADMAP §1, 'Transformer families')")
     return importlib.import_module(
         "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
 

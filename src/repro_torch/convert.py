@@ -7,8 +7,11 @@ is what these functions take and give back. Layouts:
 * convolution weights (every 4-D leaf named ``"w"``): the reference's HWIO
   <-> the port's OIHW;
 * linear weights keep the reference's ``(d_in, d_out)`` layout in the port
-  (``models.common.linear`` is ``x @ w + b``), so they carry across as is;
-* every other leaf (GroupNorm scale/bias, biases) is copied unchanged.
+  (``models.common.linear`` is ``x @ w + b``), so they carry across as is,
+  also stacked on the transformer's leading layer axis (``(L, d_in,
+  d_out)`` leaves under ``"layers"``);
+* every other leaf (GroupNorm and RMSNorm scales, biases, the embedding
+  table) is copied unchanged, in its own type (bf16 included).
 """
 from __future__ import annotations
 
@@ -30,14 +33,23 @@ def params_from_jax(tree, device="cpu"):
         x = np.asarray(x)
         if name == "w" and x.ndim == 4:
             x = x.transpose(3, 2, 0, 1)                  # HWIO -> OIHW
-        return torch.tensor(np.ascontiguousarray(x), device=device)  # a copy
+        x = np.ascontiguousarray(x)
+        if x.dtype.name == "bfloat16":                   # bits as they are
+            return torch.tensor(x.view(np.uint16), device=device).view(
+                torch.bfloat16)
+        return torch.tensor(x, device=device)            # a copy
     return _walk(tree, leaf)
 
 
 def params_to_jax(state):
     """Port parameters -> reference parameter tree (numpy leaves)."""
     def leaf(t, name):
-        x = t.detach().cpu().numpy()
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:                    # bits as they are
+            import ml_dtypes
+            x = t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        else:
+            x = t.numpy()
         if name == "w" and x.ndim == 4:
             x = x.transpose(2, 3, 1, 0)                  # OIHW -> HWIO
         return np.ascontiguousarray(x)

@@ -70,7 +70,11 @@ def _flatten_clients(tree):
 def client_local_steps(loss_fn, params, client_lr: float, local_steps: int):
     """Run a client's local plain-GD steps (paper: lr 1.0, 1 step).
 
-    Returns (delta in f32, first-step loss). Works under ``vmap``."""
+    Returns (delta in f32, first-step loss). Works under ``vmap``. Under
+    ``vmap`` over K clients every tree here holds K copies of the model,
+    so the gradient is dropped once it is applied and the delta is formed
+    leaf by leaf: no f32 copy of the whole stepped tree is held (at
+    TinyLlama-1.1B's full width that copy is 4.1 GB a client)."""
     p_local = params
     loss0 = None
     for step in range(local_steps):
@@ -80,8 +84,9 @@ def client_local_steps(loss_fn, params, client_lr: float, local_steps: int):
         p_local = utils.tree_map(
             lambda p_, g_: (p_.to(F32) - client_lr * g_.to(F32)).to(p_.dtype),
             p_local, g)
-    delta = utils.tree_sub(utils.tree_cast(p_local, F32),
-                           utils.tree_cast(params, F32))
+        del g
+    delta = utils.tree_map(lambda a, b: a.to(F32) - b.to(F32), p_local,
+                           params)
     return delta, loss0
 
 

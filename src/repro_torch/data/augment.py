@@ -1,10 +1,13 @@
-"""Two-view image augmentations (paper App. B: BYOL augmentations minus
-blur): random crop-and-resize (nearest), flip, brightness and contrast.
+"""Two-view augmentations: for images, paper App. B's BYOL augmentations
+minus blur (random crop-and-resize (nearest), flip, brightness and
+contrast); for tokens, their analogue (random masking and a random
+circular shift).
 
-The random draws are explicit (:class:`AugmentDraws`), made from a
-``torch.Generator`` by :func:`draw_augment`, so a test can hand the port
-the reference's draws. Everything is batched over a leading axis and runs
-on the device the images live on.
+The random draws are explicit (:class:`AugmentDraws`,
+:class:`TokenAugmentDraws`), made from a ``torch.Generator`` by
+:func:`draw_augment` and :func:`draw_augment_tokens`, so a test can hand
+the port the reference's draws. Everything is batched over a leading axis
+and runs on the device the data live on.
 """
 from __future__ import annotations
 
@@ -68,3 +71,49 @@ def two_views_image(gen: torch.Generator, imgs: torch.Tensor):
     b, h, w, _ = imgs.shape
     return (augment_images(imgs, draw_augment(gen, b, h, w)),
             augment_images(imgs, draw_augment(gen, b, h, w)))
+
+
+# ------------------------------------------------------------------ tokens --
+
+class TokenAugmentDraws(NamedTuple):
+    """Per-sequence draws: which positions are masked (B, S), whether the
+    sequence is rolled (B,), and by how much (B,)."""
+    mask: torch.Tensor           # bool
+    do_crop: torch.Tensor        # bool
+    shift: torch.Tensor          # int64 in [0, max(1, int(S * max_crop_frac)))
+
+
+def draw_augment_tokens(gen: torch.Generator, batch: int, seq_len: int,
+                        mask_prob: float = 0.15, crop_prob: float = 0.5,
+                        max_crop_frac: float = 0.25) -> TokenAugmentDraws:
+    """Draws for ``batch`` sequences of ``seq_len`` on the generator's
+    device (the reference's bernoulli draws are ``uniform < p``)."""
+    dev = gen.device
+    mask = torch.rand((batch, seq_len), generator=gen, device=dev) < mask_prob
+    do_crop = torch.rand(batch, generator=gen, device=dev) < crop_prob
+    shift = torch.randint(0, max(1, int(seq_len * max_crop_frac)), (batch,),
+                          generator=gen, device=dev)
+    return TokenAugmentDraws(mask, do_crop, shift)
+
+
+def augment_tokens(tokens: torch.Tensor, draws: TokenAugmentDraws,
+                   mask_token: int = 0) -> torch.Tensor:
+    """Span-mask + random-crop-with-roll: the token analogue of crop and
+    jitter. tokens: (B, S) -> (B, S); a rolled row is ``roll(masked,
+    shift)``, ``out[i] = masked[(i - shift) mod S]``."""
+    s = tokens.shape[-1]
+    dev = tokens.device
+    masked = torch.where(draws.mask.to(dev),
+                         torch.full_like(tokens, mask_token), tokens)
+    idx = (torch.arange(s, device=dev)[None, :]
+           - draws.shift.to(dev)[:, None]) % s
+    rolled = torch.gather(masked, 1, idx)
+    return torch.where(draws.do_crop.to(dev)[:, None], rolled, masked)
+
+
+def two_views_tokens(gen: torch.Generator, tokens: torch.Tensor, **kw):
+    """Two independently augmented views of each sequence in (B, S). The
+    reference's ``vocab`` argument is dropped: no draw depends on it."""
+    b, s = tokens.shape
+    return (augment_tokens(tokens, draw_augment_tokens(gen, b, s, **kw)),
+            augment_tokens(tokens, draw_augment_tokens(gen, b, s, **kw)))

@@ -19,19 +19,22 @@ from repro_torch.data import partition as partition_lib
 class FederatedDataset:
     """Wraps (data, labels) + a client partition.
 
-    data: dict with ``"images"`` (N,H,W,C) float32 numpy; client_index:
-    (num_clients, samples_per_client) int; client_sizes: (num_clients,)
-    valid-sample counts — rows of client_index beyond a client's size are
-    padding, masked out of every stats/loss computation downstream.
+    data: dict with ``"images"`` (N,H,W,C) float32 numpy or ``"tokens"``
+    (N,S) int numpy; client_index: (num_clients, samples_per_client) int; client_sizes:
+    (num_clients,) valid-sample counts — rows of client_index beyond a
+    client's size are padding, masked out of every stats/loss computation
+    downstream.
     """
 
     def __init__(self, data: Dict[str, np.ndarray], labels: np.ndarray,
                  client_index: np.ndarray,
                  client_sizes: Optional[np.ndarray] = None):
-        if set(data) != {"images"}:
+        if set(data) not in ({"images"}, {"tokens"}):
             raise NotImplementedError(
-                f"only image data is ported, got {sorted(data)} (token "
-                f"data comes with ROADMAP §1, 'Transformer families')")
+                f"the port takes one leaf, 'images' or 'tokens', got "
+                f"{sorted(data)} (patch embeddings come with ROADMAP §1, "
+                f"'Transformer families')")
+        self.leaf = next(iter(data))
         self.data = data
         self.labels = labels
         self.client_index = client_index
@@ -64,8 +67,11 @@ class FederatedDataset:
 
     # ------------------------------------------------------------- rounds --
 
-    def _two_views(self, gen, images, k: int, n: int):
-        v1, v2 = augment.two_views_image(gen, images)
+    def _two_views(self, gen, raw, k: int, n: int):
+        if self.leaf == "tokens":
+            v1, v2 = augment.two_views_tokens(gen, raw)
+        else:
+            v1, v2 = augment.two_views_image(gen, raw)
         return {"v1": v1.reshape(k, n, *v1.shape[1:]),
                 "v2": v2.reshape(k, n, *v2.shape[1:])}
 
@@ -84,18 +90,18 @@ class FederatedDataset:
         sel = self._select(gen, clients_per_round).cpu().numpy()
         idx = self.client_index[sel]                          # (K, n)
         k, n = idx.shape
-        images = torch.as_tensor(self.data["images"][idx.reshape(-1)],
-                                 device=device)
+        raw = torch.as_tensor(self.data[self.leaf][idx.reshape(-1)],
+                              device=device)
         sizes = torch.as_tensor(self.client_sizes[sel], dtype=torch.int32,
                                 device=device)
-        return self._two_views(gen, images, k, n), sizes
+        return self._two_views(gen, raw, k, n), sizes
 
     def _stage(self, device: torch.device):
-        """Device-resident (images, client_index, client_sizes), staged once
+        """Device-resident (data, client_index, client_sizes), staged once
         per device and shared by every sampler."""
         if device not in self._staged:
             self._staged[device] = (
-                torch.as_tensor(self.data["images"], device=device),
+                torch.as_tensor(self.data[self.leaf], device=device),
                 torch.as_tensor(self.client_index, device=device),
                 torch.as_tensor(self.client_sizes, dtype=torch.int32,
                                 device=device))
@@ -133,12 +139,12 @@ class FederatedDataset:
 
     def _sampler(self, k: int, device, latency):
         device = torch.device(device)
-        images, cindex, csizes = self._stage(device)
+        raw, cindex, csizes = self._stage(device)
         n = self.samples_per_client
 
         def sampler(gen: torch.Generator):
             sel = self._select(gen, k)
-            gathered = images[cindex[sel].reshape(-1)]        # (K*n, ...)
+            gathered = raw[cindex[sel].reshape(-1)]           # (K*n, ...)
             out = (self._two_views(gen, gathered, k, n), csizes[sel])
             if latency is None:
                 return out

@@ -24,7 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every kernel source of the port, csrc/<name>.cu
-KERNELS = ("cco_stats", "quantize", "segment_sum", "mips_topk")
+KERNELS = ("cco_stats", "quantize", "segment_sum", "mips_topk",
+           "flash_attention")
 
 _libs: dict = {}          # name -> ctypes.CDLL, loaded once per process
 build_logs: dict = {}     # name -> nvcc's output (ptxas register/smem use)

@@ -1,0 +1,194 @@
+"""Causal or sliding-window GQA attention with an online softmax: the
+wrapper of ``csrc/flash_attention.cu``, and its gradient.
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``
+(kernel body ``_flash_kernel``), in its layout: q (B, H, Sq, Dh), k and v
+(B, KVH, Skv, Dh) -> (B, H, Sq, Dh), query head h reading kv head
+``h // (H / KVH)``, the queries the last Sq of the Skv positions. See the
+source for the design and its bound on the card. The Pallas kernel's
+``block_q``, ``block_kv`` and ``interpret`` have no counterpart: there is
+one route. A ragged Sq or Skv is masked, where the Pallas kernel asserts
+that its blocks divide them.
+
+On a CUDA tensor the wrapper launches the kernel, or raises: it never
+hands a CUDA tensor to the plain version. On a CPU tensor it runs the
+plain version, :func:`repro_torch.kernels.ref.flash_attention_ref` (and on
+a ``meta`` tensor, a shape trace, it only makes the outputs).
+``flash_attention.launches["forward"]`` counts kernel launches.
+
+The Pallas kernel has no backward; the reference trains through the
+``jax.checkpoint``-ed jnp scan of ``models/attention.py``. Here the
+differentiable entry is a ``torch.autograd.Function``: the forward saves
+q, k, v, the output and the row log-sum-exp, and the backward recomputes
+the probabilities from them in plain PyTorch (it launches nothing). Its
+``vmap`` rule folds a vmapped dimension into B, so ``torch.func.vmap``
+over K clients (phase 2 of a round) makes ONE launch for all of them.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+F32 = torch.float32
+HEAD_DIMS = (32, 64, 128)      # the kernel's template instances
+MAX_BATCH = 65535              # B is the grid's z dimension
+
+
+def _device_type(t: torch.Tensor) -> str:
+    return t.device.type
+
+
+def _kernel():
+    fn = _build.load("flash_attention").flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k and v must be 4-D (B, H, S, Dh), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, sq, dh = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh:
+        raise ValueError(f"k and v must be (B={b}, KVH, Skv, Dh={dh}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    kvh, skv = k.shape[1], k.shape[2]
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"{h} query heads do not split into {kvh} groups")
+    if not 0 < sq <= skv:
+        raise ValueError(f"Sq={sq} must be in [1, Skv={skv}]: the queries "
+                         f"are the last Sq of the Skv positions")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k and v must have one type, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+
+
+def _forward(q, k, v, causal: bool, window: int, scale: float):
+    """(output, row log-sum-exp): the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    kind = _device_type(q)
+    if kind == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale, return_lse=True)
+    if kind == "meta":
+        return (torch.empty_like(q), torch.empty(
+            q.shape[:3], dtype=torch.promote_types(q.dtype, F32),
+            device=q.device))
+    if kind != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
+                         f"{kind}")
+    if q.dtype not in (F32, torch.bfloat16):
+        raise TypeError(f"the kernel takes f32 or bf16, got {q.dtype}")
+    b, h, sq, dh = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} is not one of the kernel's "
+                         f"{HEAD_DIMS}")
+    if b > MAX_BATCH:
+        raise ValueError(f"B={b} exceeds the kernel's grid limit "
+                         f"{MAX_BATCH}")
+    fn = _kernel()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=F32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), int(q.dtype == torch.bfloat16), b, h, kvh,
+                 sq, skv, dh, int(causal), int(window), scale, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention.launches["forward"] += 1
+    return o, lse
+
+
+def attention_backward(q, k, v, o, lse, do, causal: bool, window: int,
+                       scale: float):
+    """Gradients of the output w.r.t. q, k and v, recomputed in plain
+    PyTorch from the saved row log-sum-exp: ``p = exp(s - lse)``, ``dv =
+    p^T do``, ``ds = p (do v^T - rowsum(do o))``, ``dq = ds k scale``, ``dk
+    = ds^T q scale``, the kv gradients summed over each head group. In f32
+    (f64 for f64 inputs), cast to the inputs' types."""
+    b, h, sq, dh = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    g = h // kvh
+    wide = torch.promote_types(q.dtype, F32)
+    qg = q.reshape(b, kvh, g, sq, dh).to(wide)
+    kw, vw = k.to(wide), v.to(wide)
+    dog = do.reshape(b, kvh, g, sq, dh).to(wide)
+    og = o.reshape(b, kvh, g, sq, dh).to(wide)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, kw) * scale
+    valid = ref.flash_attention_mask(sq, skv, causal, window, q.device)
+    s = torch.where(valid, s, torch.full_like(s, ref.NEG_INF))
+    p = torch.exp(s - lse.reshape(b, kvh, g, sq, 1).to(wide))
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dog, vw)
+    ds = p * (dp - (dog * og).sum(-1, keepdim=True)) * scale
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kw)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg)
+    return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``(o, lse) = FlashAttention.apply(q, k, v, causal, window, scale)``,
+    differentiable in q, k and v, composable with ``torch.func.grad`` and
+    ``torch.func.vmap``."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, scale):
+        return _forward(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, scale = inputs
+        o, lse = output
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, window, scale)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*attention_backward(q, k, v, o, lse, do, *ctx.args),
+                None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, scale):
+        """Fold the vmapped dimension into B (an unbatched input is
+        expanded) and launch once at the folded shape."""
+        n = info.batch_size
+
+        def fold(x, dim):
+            x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+            return x.reshape(n * x.shape[1], *x.shape[2:])
+
+        o, lse = FlashAttention.apply(fold(q, in_dims[0]),
+                                      fold(k, in_dims[1]),
+                                      fold(v, in_dims[2]), causal, window,
+                                      scale)
+        return ((o.reshape(n, -1, *o.shape[1:]),
+                 lse.reshape(n, -1, *lse.shape[1:])), (0, 0))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale=None) -> torch.Tensor:
+    """q: (B, H, Sq, Dh), k and v: (B, KVH, Skv, Dh) -> (B, H, Sq, Dh) in
+    q's type. Differentiable (see :class:`FlashAttention`)."""
+    _check(q, k, v)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    return FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                scale)[0]
+
+
+flash_attention.launches = {"forward": 0}

@@ -2,6 +2,8 @@
 wrapper, and what ``chip_smoke.py`` holds each kernel against on the card."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 F32 = torch.float32
@@ -176,3 +178,44 @@ def mips_topk_ref(q, corpus, k: int, index_offset=None, n_total=None,
             qn, -1)], dim=1)
         vals, idxs = _ordered_topk(cand_v, cand_i, k)
     return vals, idxs
+
+
+def flash_attention_mask(sq: int, skv: int, causal: bool, window: int,
+                         device):
+    """(Sq, Skv) validity of the flash kernel's scores: the queries are the
+    last Sq of Skv positions; ``kv <= q`` when causal and ``kv > q -
+    window`` when ``window > 0``."""
+    q_pos = torch.arange(skv - sq, skv, device=device)[:, None]
+    kv_pos = torch.arange(skv, device=device)[None, :]
+    valid = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        valid = valid & (kv_pos <= q_pos)
+    if window > 0:
+        valid = valid & (kv_pos > q_pos - window)
+    return valid
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        scale=None, return_lse: bool = False):
+    """The flash-attention kernel's function.
+
+    q: (B, H, Sq, Dh), k and v: (B, KVH, Skv, Dh), query head h reading kv
+    head ``h // (H / KVH)``; the queries are the last Sq of the Skv
+    positions. Scores ``q.k * scale`` (default ``1 / sqrt(Dh)``) and the
+    product with v are computed in f32 (f64 for f64 inputs); masked scores
+    are ``NEG_INF``. Returns the output (B, H, Sq, Dh) in q's type and,
+    with ``return_lse``, the row log-sum-exp (B, H, Sq) in f32 (f64)."""
+    b, h, sq, dh = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
+    wide = torch.promote_types(q.dtype, F32)
+    qg = q.reshape(b, kvh, g, sq, dh).to(wide)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(wide)) * scale
+    valid = flash_attention_mask(sq, skv, causal, window, q.device)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(wide))
+    o = o.reshape(b, h, sq, dh).to(q.dtype)
+    return (o, lse.reshape(b, h, sq)) if return_lse else o

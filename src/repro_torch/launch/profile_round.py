@@ -5,7 +5,8 @@ paths (``--path``: the plain DCCO round; the two-level tree over 8 edges
 with an int8 client hop; clustered aggregation over 4 clusters; the
 buffered engine with async_k 32 and heavy-tail delays; the plain round
 with the retrieval eval after it, corpus the first three quarters of the
-dataset and queries the rest), runs ``--warmup``
+dataset and queries the rest) for the ``--arch`` tower (the ResNet-14, or a
+dense transformer over ``--seq-len`` tokens), runs ``--warmup``
 rounds, times ``--rounds`` more on the host clock (synchronised, no
 profiler), then profiles as many again with ``torch.profiler`` and prints
 the device's busy share of the profiled wall time and the kernels that
@@ -15,6 +16,8 @@ that launched it.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_round --full \\
       --clients-per-round 64 --dataset-size 2048 [--path clustered]
+  PYTHONPATH=src python -m repro_torch.launch.profile_round --full \\
+      --arch tinyllama-1.1b --seq-len 128 --clients-per-round 8
 
 On the CPU (``--device cpu``) there is no device time to read; the
 profile then lists host operator times only.
@@ -42,6 +45,12 @@ from repro_torch.utils import resolve_device
 # kernel-name fragments -> layer (first match wins)
 LAYERS = (
     ("cco_stats", "phase-1 statistics kernel (cco_stats)"),
+    ("flash_fwd", "flash-attention kernel (flash_attention)"),
+    # Hopper cuBLAS (nvjet), a gemm through xmma, and gemv are products;
+    # cuDNN's implicit-gemm convolutions are named xmma_fprop/dgrad/wgrad
+    ("nvjet", "matrix products (cuBLAS)"),
+    ("xmma_gemm", "matrix products (cuBLAS)"),
+    ("gemv", "matrix products (cuBLAS)"),
     ("mips", "MIPS top-k kernel (mips_topk)"),
     ("segment_sum", "segment-sum kernel (segment_sum)"),
     ("qdq_kernel", "quantize kernel (quant_dequant)"),
@@ -93,7 +102,8 @@ def _retrieval_eval(cfg, de_cfg, ds, labels, device):
     """The retrieval path's eval, as train's ``--retrieval-eval`` builds
     it: the first three quarters of the dataset indexed, the rest
     queried."""
-    images = torch.as_tensor(ds.data["images"], device=device)
+    leaf = dual_encoder.input_leaf(cfg)
+    data = torch.as_tensor(ds.data[leaf], device=device)
     labels = torch.as_tensor(labels, device=device)
     nc = len(labels) * 3 // 4
 
@@ -101,12 +111,15 @@ def _retrieval_eval(cfg, de_cfg, ds, labels, device):
         return dual_encoder.encode(cfg, de_cfg, p, batch)[0]
 
     return retrieval.make_retrieval_eval(
-        embed, {"images": images[:nc]}, labels[:nc],
-        {"images": images[nc:]}, labels[nc:], chunk=min(256, nc))
+        embed, {leaf: data[:nc]}, labels[:nc],
+        {leaf: data[nc:]}, labels[nc:], chunk=min(256, nc))
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="resnet14-cifar")
+    ap.add_argument("--seq-len", type=int, default=64,
+                    help="tokens a sequence (token archs)")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--device", default=None)
@@ -129,10 +142,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    cfg = get_config("resnet14-cifar", smoke=args.smoke)
+    cfg = get_config(args.arch, smoke=args.smoke)
     de_cfg = DualEncoderConfig(
         proj_dims=(64, 64) if args.smoke else
-        get_dual_encoder_config("resnet14-cifar").proj_dims, lambda_cco=5.0)
+        get_dual_encoder_config(args.arch).proj_dims, lambda_cco=5.0)
     params = dual_encoder.init_dual_encoder(args.seed, cfg, de_cfg, device)
     opt = server_update_lib.get_server_update(
         "fedavg_sgd", base_opt=opt_lib.adam(2e-3))
@@ -140,7 +153,7 @@ def main(argv=None) -> dict:
     data_args = argparse.Namespace(
         dataset_size=args.dataset_size, num_classes=args.num_classes,
         seed=args.seed, samples_per_client=args.samples_per_client,
-        partition=None, severity=None, alpha=None)
+        seq_len=args.seq_len, partition=None, severity=None, alpha=None)
     ds, labels = train.build_dataset(cfg, data_args)
     fields = _path_config(args.path, args.seed)
     if args.path == "retrieval":
@@ -185,7 +198,8 @@ def main(argv=None) -> dict:
                       for e in events if _device_us(e) > 0),
                      key=lambda x: -x[2])
     busy_ms = sum(ms for _, _, ms in kernels)
-    print(f"path {args.path}; device {device}; {args.clients_per_round} "
+    print(f"path {args.path}; arch {args.arch}; device {device}; "
+          f"{args.clients_per_round} "
           f"clients x "
           f"{args.samples_per_client}; wall {wall_ms:.3f} ms/round over "
           f"{args.rounds} rounds ({prof_ms:.3f} ms/round under the "

@@ -1,5 +1,7 @@
 """Training driver: federated stats-objective pretraining
-(``--objective dcco|dvicreg|dwmse``) of the ResNet-14 dual encoder, rounds
+(``--objective dcco|dvicreg|dwmse``) of the ResNet-14 dual encoder or, with
+``--arch tinyllama-1.1b|qwen3-1.7b|qwen3-8b|granite-3-8b``, of a dense
+transformer's token dual encoder (``--seq-len`` tokens a sequence), rounds
 driven by :class:`repro_torch.core.round_engine.RoundEngine` (the
 reference CLI's ``--mode engine`` path), optionally over a lossy client
 uplink (``--channel``), through a two-level client -> edge -> server tree
@@ -7,12 +9,14 @@ uplink (``--channel``), through a two-level client -> edge -> server tree
 (``--clusters``) or on the FedBuff-style buffered engine (``--async-k``,
 ``--staleness``, ``--latency-tail``), optionally scoring retrieval of a
 held-out split every few rounds (``--retrieval-eval``: recall@1/5/10 and
-MRR, searched by the MIPS top-k kernel).
+MRR, searched by the MIPS top-k kernel). The ridge probe reads the ResNet
+tower; for a token tower it reports NaN, as the reference's does.
 
 Runs on the GPU unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it raises. ``--full`` trains the full-width
 model (channels (64, 128, 256), 32x32 images, projection head
-(1024, 1024, 1024)); the default ``--smoke`` config is the reduced one.
+(1024, 1024, 1024); for a token arch its published widths and depth, in
+bf16); the default ``--smoke`` config is the reduced one.
 
 Examples (full width, on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 5 \\
@@ -33,6 +37,9 @@ Examples (full width, on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
       --retrieval-eval --retrieval-every 1 --retrieval-corpus 1536 \\
       --retrieval-queries 512 --clients-per-round 64 --dataset-size 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
+      --arch tinyllama-1.1b --seq-len 128 --clients-per-round 8 \\
+      --samples-per-client 2 --stats-kernel fused
 """
 from __future__ import annotations
 
@@ -52,15 +59,22 @@ from repro_torch.data import latency as latency_lib
 from repro_torch.data import partition as partition_lib
 from repro_torch.data import pipeline, synthetic
 from repro_torch.models import dual_encoder, resnet as resnet_mod
+from repro_torch.models.dual_encoder import input_leaf, is_resnet
 from repro_torch.optim import optimizers as opt_lib, schedules
 from repro_torch.server import update as server_update_lib
 from repro_torch.utils import resolve_device
 
 
 def build_dataset(cfg, args):
-    imgs, labels = synthetic.synthetic_labeled_images(
-        args.dataset_size, args.num_classes, image_size=cfg.image_size,
-        noise=0.5, seed=args.seed)
+    if is_resnet(cfg):
+        imgs, labels = synthetic.synthetic_labeled_images(
+            args.dataset_size, args.num_classes, image_size=cfg.image_size,
+            noise=0.5, seed=args.seed)
+        x = imgs
+    else:
+        x, labels = synthetic.synthetic_labeled_tokens(
+            args.dataset_size, args.num_classes, args.seq_len,
+            vocab=cfg.vocab_size, seed=args.seed)
     num_clients = max(args.dataset_size // args.samples_per_client, 4)
     if args.partition is not None:
         spec = partition_lib.PartitionSpec(
@@ -72,7 +86,7 @@ def build_dataset(cfg, args):
         # legacy default: the paper's fully non-IID partition (alpha=0)
         spec = partition_lib.PartitionSpec("dirichlet", alpha=0.0)
     return pipeline.FederatedDataset.build(
-        {"images": imgs}, labels, num_clients=num_clients,
+        {input_leaf(cfg): x}, labels, num_clients=num_clients,
         samples_per_client=args.samples_per_client, partition=spec,
         seed=args.seed), labels
 
@@ -209,9 +223,11 @@ def validate_flags(ap, args) -> None:
 
 
 def make_apply(cfg, de_cfg):
+    leaf = input_leaf(cfg)
+
     def apply(p, batch):
-        zf, _ = dual_encoder.encode(cfg, de_cfg, p, {"images": batch["v1"]})
-        zg, _ = dual_encoder.encode(cfg, de_cfg, p, {"images": batch["v2"]})
+        zf, _ = dual_encoder.encode(cfg, de_cfg, p, {leaf: batch["v1"]})
+        zg, _ = dual_encoder.encode(cfg, de_cfg, p, {leaf: batch["v2"]})
         return zf, zg
     return apply
 
@@ -219,7 +235,7 @@ def make_apply(cfg, de_cfg):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Federated stats-objective pretraining of the ResNet-14 "
-                    "dual encoder (PyTorch port)")
+                    "or dense-transformer dual encoder (PyTorch port)")
     ap.add_argument("--arch", default="resnet14-cifar")
     ap.add_argument("--objective", default="dcco",
                     choices=list(objectives_lib.OBJECTIVES),
@@ -243,6 +259,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--samples-per-client", type=int, default=2)
     g.add_argument("--dataset-size", type=int, default=600)
     g.add_argument("--num-classes", type=int, default=5)
+    g.add_argument("--seq-len", type=int, default=64,
+                   help="tokens a sequence (token archs)")
 
     g = ap.add_argument_group("engine")
     g.add_argument("--chunk-rounds", type=int, default=0,
@@ -363,6 +381,13 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if is_resnet(cfg):
+        _forbid_ignored_flags(
+            ap, args, ["seq_len"],
+            f"--seq-len sets the token archs' sequences; {args.arch} "
+            f"encodes images")
+    elif args.seq_len < 1:
+        raise SystemExit(f"--seq-len {args.seq_len} must be >= 1")
     de_cfg = DualEncoderConfig(
         proj_dims=(64, 64) if args.smoke else
         get_dual_encoder_config(args.arch).proj_dims,
@@ -375,13 +400,16 @@ def main(argv=None) -> dict:
     opt_state = opt.init(params)
 
     ds, labels = build_dataset(cfg, args)
-    images = torch.as_tensor(ds.data["images"], device=device)
+    leaf = input_leaf(cfg)
+    data = torch.as_tensor(ds.data[leaf], device=device)
     labels_t = torch.as_tensor(labels, device=device)
     cut = int(len(labels) * 0.7)
 
     def evaluate(p):
+        if not is_resnet(cfg):
+            return float("nan")
         with torch.no_grad():
-            z = resnet_mod.resnet_forward(cfg, p["tower"], images)
+            z = resnet_mod.resnet_forward(cfg, p["tower"], data)
             return float(eval_lib.ridge_linear_probe(
                 z[:cut], labels_t[:cut], z[cut:], labels_t[cut:],
                 args.num_classes))
@@ -414,8 +442,8 @@ def main(argv=None) -> dict:
             return z
 
         retrieval_eval = retrieval_lib.make_retrieval_eval(
-            embed, {"images": images[:nc]}, labels_t[:nc],
-            {"images": images[nc:nc + nq]}, labels_t[nc:nc + nq],
+            embed, {leaf: data[:nc]}, labels_t[:nc],
+            {leaf: data[nc:nc + nq]}, labels_t[nc:nc + nq],
             chunk=min(256, nc),
             index_dtype=(torch.bfloat16 if args.retrieval_dtype
                          == "bfloat16" else torch.float32))
@@ -458,6 +486,10 @@ def main(argv=None) -> dict:
         acc = evaluate(carry.params)
         probes.append(acc)
         extra = ""
+        if device.type == "cuda":
+            extra += (" peak_mem="
+                      f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f}"
+                      "GiB")
         if args.async_k:
             extra = (f" updates={int(sum(applied[-m.loss.shape[0]:]))}"
                      f"/{m.loss.shape[0]}t")

@@ -1,0 +1,151 @@
+"""Attention: GQA with optional QK-RMSNorm, RoPE and a sliding window.
+
+Layouts are the reference's: q (B, Sq, H, Dh), k and v (B, Skv, KVH, Dh),
+query head h reading kv head ``h // (H / KVH)``, positions (B, S).
+
+Two implementations, as in the reference:
+  * ``naive``     — materializes the (B, H, Sq, Skv) scores (plain torch);
+  * ``blockwise`` — for Sq > 1, the CUDA flash-attention kernel
+                    (:mod:`repro_torch.kernels.flash_attention`), whose
+                    gradient is recomputed in plain torch. The reference
+                    runs its jnp online-softmax scan here; the Pallas
+                    kernel it calls "the analogue" of that scan is what
+                    the port's kernel replaces. The plain scan is kept
+                    as :func:`blockwise_attention`, for the parity tests.
+
+The flash route takes the positions of a full sequence: queries are the
+last Sq of ``kv_pos = 0 .. Skv-1``, which is what ``gqa_forward`` passes.
+The decode cache, the int8 cache and MLA are not ported yet (ROADMAP §1).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.common import (F32, apply_rope, linear, linear_init,
+                                       rmsnorm, rmsnorm_init)
+
+NEG_INF = -1e30
+
+
+def _mask(q_pos, kv_pos, window: int):
+    """(..., Sq, Skv) boolean validity. q_pos: (..., Sq), kv_pos: (..., Skv)."""
+    m = kv_pos[..., None, :] <= q_pos[..., :, None]
+    if window > 0:
+        m = m & (kv_pos[..., None, :] > (q_pos[..., :, None] - window))
+    return m & (kv_pos[..., None, :] >= 0)   # ring slots not yet written
+
+
+def naive_attention(q, k, v, q_pos, kv_pos, window: int = 0, scale=None):
+    """q: (B,Sq,H,Dh) k: (B,Skv,KVH,Dk) v: (B,Skv,KVH,Dv); H % KVH == 0.
+    Scores and the product with v accumulate in f32; ``p`` is rounded to
+    v's type first, as in the reference."""
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
+    wide = torch.promote_types(q.dtype, F32)
+    qg = q.reshape(b, sq, kvh, g, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.to(wide),
+                          k.to(wide)) * scale
+    m = _mask(q_pos, kv_pos, window)[:, None, None]          # (B,1,1,Sq,Skv)
+    scores = torch.where(m, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).to(wide),
+                       v.to(wide))
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+def blockwise_attention(q, k, v, q_pos, kv_pos, window: int = 0,
+                        kv_block: int = 1024, scale=None):
+    """The reference's online-softmax scan over kv blocks, in plain torch
+    (same semantics as ``naive_attention``; all reductions in f32). Kept
+    for the parity tests; the model's blockwise route is the kernel."""
+    b, sq, h, dh = q.shape
+    skv, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
+    wide = torch.promote_types(q.dtype, F32)
+    kv_block = min(kv_block, skv)
+    pad = -(-skv // kv_block) * kv_block - skv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-2)
+    qg = q.reshape(b, sq, kvh, g, dh).to(wide)
+    acc = torch.zeros((b, kvh, g, sq, dv), dtype=wide, device=q.device)
+    m_run = torch.full((b, kvh, g, sq), NEG_INF, dtype=wide, device=q.device)
+    l_run = torch.zeros((b, kvh, g, sq), dtype=wide, device=q.device)
+    for s0 in range(0, skv + pad, kv_block):
+        ki = k[:, s0:s0 + kv_block]
+        vi = v[:, s0:s0 + kv_block]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, ki.to(wide)) * scale
+        valid = _mask(q_pos, kv_pos[:, s0:s0 + kv_block], window)[:, None,
+                                                                  None]
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m_run, s.amax(-1))
+        alpha = torch.exp(m_run - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_run = l_run * alpha + p.sum(-1)
+        pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(vi.dtype).to(wide),
+                          vi.to(wide))
+        acc = acc * alpha[..., None] + pv
+        m_run = m_new
+    out = acc / torch.clamp(l_run, min=1e-30)[..., None]     # (B,KVH,G,Sq,Dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
+
+
+def attention_math(cfg, q, k, v, q_pos, kv_pos, scale=None):
+    """``cfg.attn_impl == "blockwise"`` with Sq > 1: the flash kernel, its
+    (B, S, H, Dh) operands transposed to (B, H, S, Dh) and back; else the
+    naive version."""
+    if cfg.attn_impl == "blockwise" and q.shape[1] > 1:
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True,
+                              window=cfg.sliding_window, scale=scale)
+        return out.transpose(1, 2)
+    return naive_attention(q, k, v, q_pos, kv_pos, cfg.sliding_window,
+                           scale=scale)
+
+
+# =========================================================================
+# GQA block
+# =========================================================================
+
+def gqa_init(gen, cfg, dtype, device="cpu"):
+    d, h, kvh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    dh = cfg.resolved_head_dim
+    p = {
+        "wq": linear_init(gen, d, h * dh, dtype, device=device),
+        "wk": linear_init(gen, d, kvh * dh, dtype, device=device),
+        "wv": linear_init(gen, d, kvh * dh, dtype, device=device),
+        "wo": linear_init(gen, h * dh, d, dtype, device=device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(dh, device)
+        p["k_norm"] = rmsnorm_init(dh, device)
+    return p
+
+
+def _gqa_qkv(cfg, p, x, positions):
+    b, s, _ = x.shape
+    h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = linear(p["wq"], x).reshape(b, s, h, dh)
+    k = linear(p["wk"], x).reshape(b, s, kvh, dh)
+    v = linear(p["wv"], x).reshape(b, s, kvh, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_forward(cfg, p, x, positions):
+    """Self-attention over a full sequence. x: (B,S,D); positions: (B,S)."""
+    b, s, _ = x.shape
+    q, k, v = _gqa_qkv(cfg, p, x, positions)
+    out = attention_math(cfg, q, k, v, positions, positions)
+    return linear(p["wo"], out.reshape(b, s, -1))

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.utils import at_least_f32
@@ -28,9 +29,11 @@ def truncated_normal(gen: torch.Generator, shape, lo: float = -2.0,
     """Standard normal truncated to [lo, hi], by inverse CDF (f32, CPU)."""
     cdf = lambda v: 0.5 * (1.0 + math.erf(v / math.sqrt(2.0)))  # noqa: E731
     u = torch.rand(shape, generator=gen, dtype=torch.float64)
-    u = cdf(lo) + u * (cdf(hi) - cdf(lo))
-    x = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
-    return x.clamp(lo, hi).to(F32)
+    # in place, in the order cdf(lo) + u (cdf(hi) - cdf(lo)), then
+    # sqrt(2) erfinv(2u - 1): a billion-parameter tower draws in one pass
+    u.mul_(cdf(hi) - cdf(lo)).add_(cdf(lo)).mul_(2.0).sub_(1.0)
+    torch.erfinv(u, out=u)
+    return u.mul_(math.sqrt(2.0)).clamp_(lo, hi).to(F32)
 
 
 # ----------------------------------------------------------------- linear ---
@@ -54,6 +57,18 @@ def linear(p, x):
 
 # ------------------------------------------------------------------ norms ---
 
+def rmsnorm_init(d: int, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=F32, device=device)}
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    """RMSNorm over the last axis, computed in f32 (f64 for an f64 model)
+    and cast back to ``x``'s type."""
+    xf = at_least_f32(x)
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+
+
 def groupnorm(x, num_groups: int, scale, bias, eps: float = 1e-5,
               axis: int = -1):
     """The reference's GroupNorm (paper Sec 4.2): the channel axis ``axis``
@@ -75,7 +90,54 @@ def groupnorm(x, num_groups: int, scale, bias, eps: float = 1e-5,
     return (xf * scale.reshape(bshape) + bias.reshape(bshape)).to(x.dtype)
 
 
+# ------------------------------------------------------------------- rope ---
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., S, H, Dh), its two halves rotated pairwise by the angles of
+    ``positions`` (..., S) or (S,); computed in f32 and cast back."""
+    dh = x.shape[-1]
+    freqs = torch.as_tensor(rope_frequencies(dh, theta), device=x.device)
+    wide = torch.promote_types(x.dtype, F32)
+    angles = positions.to(F32)[..., None] * freqs             # (..., S, dh/2)
+    angles = angles[..., None, :].to(wide)                    # (..., S, 1, dh/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    xf1, xf2 = x[..., : dh // 2].to(wide), x[..., dh // 2:].to(wide)
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -------------------------------------------------------------- embedding ---
+
+def embedding_init(gen, vocab: int, d_model: int, dtype=torch.bfloat16,
+                   device="cpu"):
+    emb = torch.randn((vocab, d_model), generator=gen, dtype=F32) * 0.02
+    return {"table": emb.to(device, dtype)}
+
+
+def embed(p, tokens):
+    """Rows of the table: (...,) int tokens -> (..., d_model)."""
+    return torch.nn.functional.embedding(tokens, p["table"])
+
+
 # ------------------------------------------------------------------- misc ---
+
+def swiglu_init(gen, d_model: int, d_ff: int, dtype=torch.bfloat16,
+                device="cpu"):
+    return {"gate": linear_init(gen, d_model, d_ff, dtype, device=device),
+            "up": linear_init(gen, d_model, d_ff, dtype, device=device),
+            "down": linear_init(gen, d_ff, d_model, dtype, device=device)}
+
+
+def swiglu(p, x):
+    return linear(p["down"],
+                  torch.nn.functional.silu(linear(p["gate"], x))
+                  * linear(p["up"], x))
+
 
 def mlp_init(gen, dims, dtype=torch.bfloat16, bias=True, device="cpu"):
     """Plain MLP for projection heads: dims = (d_in, h1, ..., d_out)."""

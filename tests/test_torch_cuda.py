@@ -15,13 +15,20 @@ as its plain version does. The MIPS top-k kernel sums each score over d
 with fused multiply-adds, its plain version in a reduction of its own
 order: scores to 1e-5 on unit vectors, indices equal except at near ties
 (plain scores of the two picks within 1e-5); inside the kernel, sharded
-equals unsharded and one run equals the next, bit for bit."""
+equals unsharded and one run equals the next, bit for bit. The flash
+attention kernel computes in f32 from the same inputs as its plain
+version, in other orders: f32 outputs to 2e-5, bf16 outputs (rounded once
+on each side) to 3e-2, the row log-sum-exp to 2e-5 (1 + |lse|); its
+gradient (plain torch from the kernel's log-sum-exp) to 1e-4 of each
+gradient's magnitude against autograd of the plain version."""
 import pytest
 import torch
 
 from repro_torch.core.round_engine import make_kernel_agg_stats
 from repro_torch.kernels import ref
 from repro_torch.kernels.cco_stats import cco_stats
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention)
 from repro_torch.kernels.mips_topk import mips_topk
 from repro_torch.kernels.quantize import quant_dequant
 from repro_torch.kernels.segment_sum import segment_sum
@@ -272,3 +279,83 @@ def test_mips_kernel_pads_short_lists_with_sentinels(cuda_device):
     assert (i[:, 3:] == ref.BIG_IDX).all() and (v[:, 3:] == ref.NEG_INF).all()
     pv, pi = ref.mips_topk_ref(q, corpus, 5, index_offset=1000, n_total=1003)
     assert torch.equal(i, pi)
+
+
+def _qkv(dev, b, h, kvh, sq, skv, dh, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(b, h, sq, dh, generator=gen, device=dev).to(dtype),
+            torch.randn(b, kvh, skv, dh, generator=gen, device=dev).to(dtype),
+            torch.randn(b, kvh, skv, dh, generator=gen, device=dev).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kvh,sq,skv,dh,dtype,causal,window", [
+    (8, 32, 4, 128, 128, 64, torch.bfloat16, True, 0),     # the token path
+    (8, 32, 4, 128, 128, 64, torch.float32, True, 0),
+    (4, 16, 8, 128, 128, 128, torch.bfloat16, True, 0),    # Dh 128, groups of 2
+    (4, 8, 2, 128, 128, 32, torch.float32, True, 0),       # smoke heads
+    (2, 8, 8, 256, 256, 64, torch.bfloat16, True, 32),     # windows
+    (2, 8, 8, 256, 256, 64, torch.float32, True, 96),
+    (2, 8, 2, 128, 128, 64, torch.float32, False, 0),      # non-causal
+    (2, 8, 2, 64, 128, 64, torch.bfloat16, True, 0),       # q_offset 64
+    (3, 8, 2, 100, 100, 64, torch.float32, True, 0),       # ragged S
+    (1, 4, 1, 37, 101, 32, torch.float32, False, 20),      # ragged, window
+])
+def test_flash_kernel_matches_plain_version(cuda_device, b, h, kvh, sq, skv,
+                                            dh, dtype, causal, window):
+    q, k, v = _qkv(cuda_device, b, h, kvh, sq, skv, dh, dtype, b * sq + dh)
+    before = flash_attention.launches["forward"]
+    out, lse = FlashAttention.apply(q, k, v, causal, window, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["forward"] == before + 1
+    assert out.shape == q.shape and out.dtype == dtype and out.is_cuda
+    plain, plain_lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window,
+                                               return_lse=True)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    assert float(((lse - plain_lse).abs()
+                  / (1 + plain_lse.abs())).max()) <= 2e-5
+    assert torch.equal(flash_attention(q, k, v, causal=causal,
+                                       window=window), out)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_an_unbuilt_head_dim(cuda_device):
+    q, k, v = _qkv(cuda_device, 1, 2, 1, 16, 16, 48, torch.float32, 0)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40),
+                                           (False, 0)])
+def test_flash_gradient_on_card(cuda_device, causal, window):
+    """The Function's backward against autograd of the plain version, and
+    under ``vmap(grad)`` one launch for all clients."""
+    q, k, v = _qkv(cuda_device, 4, 8, 2, 96, 96, 64, torch.float32, 3)
+    w = torch.randn(q.shape, device=cuda_device)
+    grads = []
+    for fn in (flash_attention, ref.flash_attention_ref):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        (fn(*xs, causal=causal, window=window) * w).sum().backward()
+        grads.append([x.grad for x in xs])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+    def loss(qc, kc, vc):
+        return (flash_attention(qc, kc, vc, causal=causal, window=window)
+                ** 2).sum()
+
+    before = flash_attention.launches["forward"]
+    g = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(
+        q.reshape(2, 2, 8, 96, 64), k.reshape(2, 2, 2, 96, 64),
+        v.reshape(2, 2, 2, 96, 64))
+    assert flash_attention.launches["forward"] == before + 1
+    for i in range(2):
+        gi = torch.func.grad(loss, argnums=(0, 1, 2))(
+            q[2 * i:2 * i + 2], k[2 * i:2 * i + 2], v[2 * i:2 * i + 2])
+        for a, b in zip(g, gi):
+            assert float((a[i] - b).abs().max()) <= 1e-5 * float(
+                b.abs().max())

@@ -50,12 +50,18 @@ def test_train_main_returns_a_summary_on_cpu():
 
 
 def test_train_rejects_unported_choices():
-    with pytest.raises(NotImplementedError, match="Transformer families"):
-        train.main(["--device", "cpu", "--arch", "qwen3-8b", *SMALL])
+    for arch in ("deepseek-v2-lite-16b", "zamba2-2.7b"):
+        with pytest.raises(NotImplementedError, match="Transformer families"):
+            train.main(["--device", "cpu", "--arch", arch, *SMALL])
     with pytest.raises(SystemExit):
         train.main(["--device", "cpu", "--stats-kernel", "pallas", *SMALL])
     with pytest.raises(SystemExit):
         train.main(["--device", "cpu", "--severity", "0.5", *SMALL])
+
+
+def test_train_refuses_seq_len_on_the_image_tower():
+    with pytest.raises(SystemExit, match="--seq-len"):
+        train.main(["--device", "cpu", "--seq-len", "32", *SMALL])
 
 
 def test_train_runs_the_full_moment_objective_on_cpu():
@@ -162,7 +168,10 @@ def test_port_sources_import_neither_jax_nor_the_reference():
             "cluster/kmeans.py", "cluster/round.py", "core/buffer.py",
             "data/latency.py", "kernels/mips_topk.py", "retrieval/index.py",
             "retrieval/server.py", "retrieval/sharded.py",
-            "retrieval/ivf.py"} <= names
+            "retrieval/ivf.py", "kernels/flash_attention.py",
+            "models/attention.py", "models/transformer.py",
+            "configs/tinyllama_1_1b.py", "configs/qwen3_1_7b.py",
+            "configs/qwen3_8b.py", "configs/granite_3_8b.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT.search(f.read_text())]
     assert not offenders, offenders

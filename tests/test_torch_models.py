@@ -9,6 +9,8 @@ values, which is ill-conditioned: on the smoke forward the reference's
 own f32 output is 2e-4 from an f64 evaluation (values ~1), the port's
 3e-5. Whole-encoder outputs are held to rtol 1e-3 / atol 1e-4 for that
 reason; single layers (GroupNorm, MLP, one conv) to 1e-5."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -153,7 +155,22 @@ def test_port_init_has_reference_shapes():
 
 
 def test_transformer_arch_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="Transformer families"):
-        get_config("tinyllama-1.1b")
+    for arch in ("deepseek-v2-lite-16b", "zamba2-2.7b"):
+        with pytest.raises(NotImplementedError, match="Transformer families"):
+            get_config(arch)
     with pytest.raises(KeyError):
         get_config("not-an-arch")
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-1.7b", "qwen3-8b",
+                                  "granite-3-8b"])
+def test_dense_archs_load_with_reference_values(arch, smoke):
+    """The four dense configs are ported value for value: every field the
+    port keeps equals the reference's."""
+    ours, theirs = get_config(arch, smoke), j_get_config(arch, smoke)
+    assert ours.family == "dense" and ours.name == theirs.name
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    assert ours.resolved_head_dim == theirs.resolved_head_dim
+    assert ours.num_superblocks == theirs.num_superblocks
