@@ -121,6 +121,7 @@ IVF_C, IVF_NPROBE = 128, 8
 # Dh 64, bf16), TOK_K clients x TOK_N sequences of TOK_S tokens
 TOK_ARCH, TOK_LAYERS, TOK_K, TOK_N, TOK_S = "tinyllama-1.1b", 22, 4, 2, 128
 PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_TF32 = 495e12    # H100 SXM dense TF32 tensor-core FLOP/s
 # flash attention vs plain: both compute in f32 from the same inputs, in
 # other orders; a bf16 output is rounded once on each side (1 bf16 ulp of
 # an output below 4 is under 3e-2), as tests/test_kernels.py holds it
@@ -173,10 +174,11 @@ def eager_ms(fn, iters=200, warmup=20):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(bytes_moved, ops):
+def bound_ms(bytes_moved, ops, peak=PEAK_F32):
     """Least time on the card: the bytes at the HBM rate or the operations
-    at the f32 non-tensor peak, whichever is longer."""
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / PEAK_F32
+    at ``peak`` (by default the f32 non-tensor peak), whichever is
+    longer."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -354,10 +356,10 @@ def unit_rows(n, d, gen, dtype=torch.float32):
 
 def mips_bound_ms(qn, n_valid, d, k, corpus_bytes):
     """The corpus rows read once, the queries read once, the (Q, k) scores
-    and indices written once; 2 Q N d operations at the f32 peak (the
-    scores are f32 sums, no tensor cores)."""
+    and indices written once; 2 Q N d operations at the TF32 tensor-core
+    peak, the fastest rate at which any route multiplies f32 inputs."""
     return bound_ms(n_valid * d * corpus_bytes + qn * d * 4 + 8 * qn * k,
-                    2 * qn * n_valid * d)
+                    2 * qn * n_valid * d, PEAK_TF32)
 
 
 def mips_agree(q, corpus, out, plain, off=0):

@@ -72,6 +72,12 @@ def _check(q, k, v):
                         f"{k.dtype}, {v.dtype}")
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it whose data starts on a 16-byte boundary:
+    the bf16 kernel stages its tiles with 16-byte copies."""
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def _forward(q, k, v, causal: bool, window: int, scale: float):
     """(output, row log-sum-exp): the kernel on CUDA tensors, the plain
     version on CPU tensors."""
@@ -97,7 +103,7 @@ def _forward(q, k, v, causal: bool, window: int, scale: float):
         raise ValueError(f"B={b} exceeds the kernel's grid limit "
                          f"{MAX_BATCH}")
     fn = _kernel()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(x.contiguous()) for x in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=F32, device=q.device)
     with torch.cuda.device(q.device):

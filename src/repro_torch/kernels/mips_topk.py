@@ -5,10 +5,11 @@ Replaces ``repro/kernels/mips_topk.py::mips_topk_pallas`` in both its
 forms: the whole-corpus search (kernel body ``_mips_kernel``) and the
 shard-local search of rows [offset, offset + N) of an ``n_total``-row
 corpus that emits global indices (``_mips_kernel_offset``). Scores are
-f32 inner products (a bf16 corpus is upcast as it is read), ordered by
-score descending and, on equal scores, by ascending index; the (Q, N)
-score matrix is never written. See the source for the design and its
-bound on the card.
+inner products at f32 accuracy (on the card, from TF32 and bf16 parts on
+the tensor cores; each score the same bits wherever its row lies),
+ordered by score descending and, on equal scores, by ascending index;
+the (Q, N) score matrix is never written. See the source for the design
+and its bound on the card.
 
 On a CUDA tensor the wrapper launches the kernel, or raises: it never
 hands a CUDA tensor to the plain version. On a CPU tensor it runs the
@@ -28,9 +29,9 @@ from repro_torch.kernels import _build, ref
 F32 = torch.float32
 I32 = torch.int32
 MAX_K = 256            # the kernel's running lists live in shared memory
+FULL_TILE_K = 64       # the largest k a 64-query tile's lists leave room for
 ROWS_PER_TILE = 256    # corpus rows a block scores at a time
 MAX_SPLITS = 1024
-BLOCKS_PER_SM = 4      # pass 1 aims for this many blocks on each SM
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -41,7 +42,7 @@ def _kernel(offset: bool):
     lib = _build.load("mips_topk")
     fn = lib.mips_topk_offset if offset else lib.mips_topk_search
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 4
+                   + [ctypes.c_void_p] * 5
                    + [ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
                       ctypes.c_int]
                    + ([ctypes.c_int64] if offset else [])
@@ -51,15 +52,29 @@ def _kernel(offset: bool):
     return fn
 
 
-def plan(qn: int, n: int, sms: int):
-    """(query tile BQ, splits S, rows a split) for pass 1: BQ = 16 for a
-    batch of at most 16 queries, else 32; S splits of whole 256-row tiles,
-    as many as give ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs."""
-    bq = 16 if qn <= 16 else 32
-    q_tiles = -(-qn // bq)
+def plan(qn: int, n: int, k: int, sms: int):
+    """(query tile BQ, splits S, rows a split) for pass 1.
+
+    BQ is 16 for at most 16 queries, 32 for at most 32 or for k above
+    ``FULL_TILE_K``, else 64: a batch of up to 64 queries is one tile and
+    reads the corpus once. Where 64-query tiles would leave SMs idle (a
+    corpus of fewer row tiles than SMs, or many query tiles on a small
+    one) BQ = 32 doubles the blocks instead; such a corpus is small enough
+    that a second read costs little. A block fills an SM's shared memory,
+    so pass 1 runs one wave of
+    at most ``sms`` blocks: S splits of whole 256-row tiles, as few as
+    keep every SM busy (each split's running lists take insertions in
+    proportion to the log of its length, so longer splits insert less per
+    row)."""
     tiles = -(-n // ROWS_PER_TILE)
-    s = max(1, min(MAX_SPLITS, tiles,
-                   -(-BLOCKS_PER_SM * sms // q_tiles)))
+    if qn <= 16:
+        bq = 16
+    elif qn <= 32 or k > FULL_TILE_K or -(-qn // 64) * tiles < sms:
+        bq = 32
+    else:
+        bq = 64
+    q_tiles = -(-qn // bq)
+    s = max(1, min(MAX_SPLITS, tiles, sms // q_tiles))
     rows = -(-(-(-n // s)) // ROWS_PER_TILE) * ROWS_PER_TILE
     return bq, -(-n // rows), rows
 
@@ -111,15 +126,16 @@ def mips_topk(q: torch.Tensor, corpus: torch.Tensor, k: int, *,
     q = q.to(F32).contiguous()
     dev = q.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    bq, splits, rows = plan(qn, n, sms)
+    bq, splits, rows = plan(qn, n, k, sms)
+    qparts = torch.empty((2, qn, -(-d // 4) * 4), dtype=F32, device=dev)
     part_v = torch.empty((splits, qn, k), dtype=F32, device=dev)
     part_i = torch.empty((splits, qn, k), dtype=I32, device=dev)
     out_v = torch.empty((qn, k), dtype=F32, device=dev)
     out_i = torch.empty((qn, k), dtype=I32, device=dev)
     bf16 = int(corpus.dtype == torch.bfloat16)
-    ptrs = (q.data_ptr(), corpus.data_ptr(), bf16, part_v.data_ptr(),
-            part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), qn, n, d,
-            k)
+    ptrs = (q.data_ptr(), corpus.data_ptr(), bf16, qparts.data_ptr(),
+            part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), qn, n, d, k)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if off is None:

@@ -359,3 +359,133 @@ def test_flash_gradient_on_card(cuda_device, causal, window):
         for a, b in zip(g, gi):
             assert float((a[i] - b).abs().max()) <= 1e-5 * float(
                 b.abs().max())
+
+
+# ------------------------------------------- tensor-core tile edges --------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,dh,h,kvh,causal,window", [
+    (1, 1, 64, 8, 8, True, 0),          # S 1, groups of 1
+    (15, 15, 32, 8, 4, True, 0),        # groups of 2
+    (63, 63, 128, 16, 2, True, 0),      # groups of 8
+    (65, 65, 64, 8, 1, True, 0),        # one row past a query tile
+    (127, 127, 32, 4, 4, False, 0),     # non-causal
+    (129, 129, 128, 8, 4, True, 1),     # window 1: the diagonal alone
+    (200, 200, 64, 8, 2, True, 256),    # window >= S
+    (15, 129, 64, 8, 2, True, 0),       # Sq < Skv
+    (65, 200, 128, 4, 4, False, 0),     # Sq < Skv, non-causal
+    (1, 200, 32, 8, 1, True, 0),        # one query over 200 kv rows
+    (63, 127, 64, 8, 8, True, 1),       # window 1, Sq < Skv
+    (129, 200, 32, 4, 2, False, 70),    # non-causal window, ragged tiles
+])
+def test_flash_bf16_tile_edges(cuda_device, sq, skv, dh, h, kvh, causal,
+                               window):
+    """The bf16 tensor-core route at ragged query and kv tiles, every head
+    dim, GQA group and mask edge: held to the plain version (out 3e-2, lse
+    2e-5 (1 + |lse|)) and bit-equal on a second run."""
+    q, k, v = _qkv(cuda_device, 2, h, kvh, sq, skv, dh, torch.bfloat16,
+                   sq * 7 + skv + dh)
+    before = flash_attention.launches["forward"]
+    out, lse = FlashAttention.apply(q, k, v, causal, window, dh ** -0.5)
+    again, lse2 = FlashAttention.apply(q, k, v, causal, window, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["forward"] == before + 2
+    plain, plain_lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window,
+                                               return_lse=True)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=3e-2,
+                               atol=3e-2)
+    assert float(((lse - plain_lse).abs()
+                  / (1 + plain_lse.abs())).max()) <= 2e-5
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_takes_misaligned_inputs(cuda_device):
+    """bf16 inputs whose data start off a 16-byte boundary are copied to
+    an aligned buffer by the wrapper (the kernel stages 16-byte copies)."""
+    q, k, v = _qkv(cuda_device, 1, 4, 2, 40, 40, 64, torch.bfloat16, 9)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        return buf[1:].view(t.shape).copy_(t)
+
+    qs, ks, vs = shifted(q), shifted(k), shifted(v)
+    assert qs.data_ptr() % 16 != 0
+    assert torch.equal(flash_attention(qs, ks, vs), flash_attention(q, k, v))
+
+
+def _odd_base(t):
+    """``t``'s values in a contiguous tensor whose data start one element
+    past an allocation's start (off a 16-byte boundary)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qn,n,d,k,dtype,odd_base", [
+    (1, 3000, 36, 10, torch.float32, False),      # d % 8 != 0
+    (63, 1000, 100, 7, torch.float32, False),     # d % 32 != 0
+    (64, 5000, 257, 10, torch.float32, False),    # odd d: plain staging
+    (65, 4096, 64, 32, torch.bfloat16, False),    # two query tiles
+    (1024, 3000, 128, 10, torch.float32, False),  # 16 query tiles
+    (5, 300, 64, 256, torch.float32, False),      # the largest k
+    (9, 200, 48, 5, torch.float32, False),        # N below one row tile
+    (33, 2500, 64, 10, torch.bfloat16, True),     # bf16 at an odd base
+    (40, 700, 72, 80, torch.float32, True),       # k > 64: 32-query tiles
+])
+def test_mips_tile_edges(cuda_device, qn, n, d, k, dtype, odd_base):
+    q = _unit_rows(cuda_device, qn, d, qn + n + d)
+    corpus = _unit_rows(cuda_device, n, d, n * d, dtype)
+    if odd_base:
+        corpus = _odd_base(corpus)
+        assert corpus.data_ptr() % 16 != 0
+    before = dict(mips_topk.launches)
+    out = mips_topk(q, corpus, k)
+    again = mips_topk(q, corpus, k)
+    torch.cuda.synchronize()
+    assert mips_topk.launches == dict(before, search=before["search"] + 2)
+    _assert_mips_close(q, corpus, out, ref.mips_topk_ref(q, corpus, k))
+    assert torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mips_n_total_masks_rows_mid_tile(cuda_device, dtype):
+    """The offset form with ``n_total`` ending inside a row tile: rows
+    past it never enter, the rest match the plain version."""
+    q = _unit_rows(cuda_device, 20, 128, 5)
+    corpus = _unit_rows(cuda_device, 1000, 128, 6, dtype)
+    corpus[900:] = corpus[:100]              # masked copies of real rows
+    kw = {"index_offset": 3000, "n_total": 3000 + 777}
+    v, i = mips_topk(q, corpus, 16, **kw)
+    assert bool((i < 3777).all()) and bool((i >= 3000).all())
+    _assert_mips_close(q, corpus, (v, i),
+                       ref.mips_topk_ref(q, corpus, 16, **kw), 3000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mips_score_is_position_independent(cuda_device, dtype):
+    """One row copied to positions in other row tiles, splits and fragment
+    slots (position mod 8, 32 and 256 all differ), searched by the same
+    query placed in other slots of batches of other sizes (other query
+    tiles): every copy scores the same bits, and the copies come out in
+    ascending index order."""
+    n, d = 70_000, 1024
+    corpus = _unit_rows(cuda_device, n, d, 11, dtype)
+    target = corpus[123].clone()
+    places = [123, 300, 4096 + 13, 9_001, 33_333, 65_536 + 250, 69_999]
+    for p in places:
+        corpus[p] = target
+    others = _unit_rows(cuda_device, 200, d, 12)
+    seen = set()
+    for qn, slot in ((1, 0), (17, 13), (64, 40), (65, 64), (200, 150)):
+        q = others[:qn].clone()
+        q[slot] = target.float()
+        v, i = mips_topk(q, corpus, len(places) + 1)
+        got_v, got_i = v[slot, :len(places)], i[slot, :len(places)]
+        assert got_i.tolist() == places
+        assert bool((got_v == got_v[0]).all())
+        seen.add(float(got_v[0]))
+    assert len(seen) == 1
