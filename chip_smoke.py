@@ -10,7 +10,10 @@ Phases (each prints its lines; any failure exits non-zero):
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at a ragged shape, and time the kernel, the
      plain version and, where one exists, a one-call PyTorch yardstick:
-     ``cco_stats`` in both moment sets (to 1e-5 x (1 + max|plain|)),
+     ``cco_stats`` in both moment sets (to 1e-5 x (1 + max|plain|), a
+     second run bit-equal, cov_f and cov_g exactly symmetric, the full
+     set's cross statistics bit-equal to the cross set's) at (N, d) =
+     (128, 1024), the token path's (8, 1024), (37, 1000) and (4096, 1024),
      ``quant_dequant`` in both scale forms (bit for bit)
      and ``segment_sum`` (bit for bit, and the same on a second run) at
      every (K, D, E) its paths give it, a ragged shape with padding ids
@@ -97,6 +100,7 @@ from repro_torch.models import dual_encoder  # noqa: E402
 from repro_torch.objectives import get_objective  # noqa: E402
 from repro_torch.optim import optimizers as opt_lib  # noqa: E402
 from repro_torch import retrieval  # noqa: E402
+from tools.time_cco_stats import eager_ms, time_ms  # noqa: E402
 
 ROUNDS = 5            # the DCCO path
 PATH_ROUNDS = 3       # every other path
@@ -105,7 +109,9 @@ MAIN_N, MAIN_D = K * N_PER_CLIENT, 1024   # phase-1 rows, projection width
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # kernel vs plain: max |kernel - plain| <= TOL * (1 + max |plain|); both
-# sum <= 128 f32 products of unit-normal data, in other orders
+# sum f32 products of unit-normal data in other orders, the kernel each
+# product as a TF32 and two bf16 remainder products (~2^-20 of it) summed
+# from zero every 32 rows (tests/test_torch_kernel_numerics.py)
 TOL = 1e-5
 QMAX = 127.0          # the int8 channel
 # MIPS kernel vs plain version: |score - plain score| <= MIPS_TOL; both sum
@@ -133,47 +139,6 @@ def fail(msg):
     sys.exit(1)
 
 
-def time_ms(fn, calls=50, replays=20):
-    """Mean device time of one call of ``fn``: ``calls`` calls are captured
-    in one CUDA graph, replayed ``replays`` times between CUDA events. The
-    replay launches no Python, so this is the kernels' time and not the
-    host's time to issue them (see ``eager_ms``)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (calls * replays)
-
-
-def eager_ms(fn, iters=200, warmup=20):
-    """Mean time of one eager call, host issue included: CUDA events
-    around ``iters`` back-to-back calls, after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound_ms(bytes_moved, ops, peak=PEAK_F32):
     """Least time on the card: the bytes at the HBM rate or the operations
     at ``peak`` (by default the f32 non-tensor peak), whichever is
@@ -183,24 +148,29 @@ def bound_ms(bytes_moved, ops, peak=PEAK_F32):
                                        else "operations")
 
 
-def cco_stats_bound_ms(n, d, moments="cross"):
+def cco_stats_bound_ms(n, d, moments="cross", peak=PEAK_TF32):
     """Each input read once and each output written once; FLOPs: 2Nd^2
     for cross, plus N d (d + 1) for the upper triangle (diagonal included)
     of each of the two symmetric within-view products in the full set, plus
-    6Nd for the vector statistics."""
+    6Nd for the vector statistics, at the TF32 tensor-core peak, the
+    fastest rate at which any route multiplies f32 inputs (``peak=PEAK_F32``
+    gives the CUDA-core figure used before the kernel ran on the tensor
+    cores)."""
     mats, flops = 1, 2 * n * d * d + 6 * n * d
     if moments == "full":
         mats, flops = 3, flops + 2 * n * d * (d + 1)
-    return bound_ms(4 * (2 * n * d + mats * d * d + 4 * d + 1), flops)
+    return bound_ms(4 * (2 * n * d + mats * d * d + 4 * d + 1), flops, peak)
 
 
 def check_cco_stats(n, d, valid, seed, moments="cross"):
     """Kernel vs plain version on pre-masked rows with ``num_valid``, as
-    the engine calls it; returns (max_abs_err, ms, plain_ms, library_ms),
-    times on the device. The yardstick is one cuBLAS product: zf^T zg for
-    the cross set; for the full set z^T z with z = [zf, zg], which makes
-    all three (d, d) blocks at once (and more: the lower blocks, no vector
-    statistics, no masking)."""
+    the engine calls it, and a second run bit-equal to the first; in the
+    full set cov_f and cov_g exactly symmetric and the five cross
+    statistics bit-equal to the cross set's. Returns (max_abs_err, ms,
+    plain_ms, library_ms), times on the device. The yardstick is one cuBLAS
+    product: zf^T zg for the cross set; for the full set z^T z with z =
+    [zf, zg], which makes all three (d, d) blocks at once (and more: the
+    lower blocks, no vector statistics, no masking)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     m = (torch.arange(n, device=dev) < valid).float()[:, None]
@@ -208,7 +178,10 @@ def check_cco_stats(n, d, valid, seed, moments="cross"):
     zg = torch.randn(n, d, generator=gen, device=dev) * m
     nv = m.sum()
     out = cco_stats(zf, zg, nv, moments=moments)
+    again = cco_stats(zf, zg, nv, moments=moments)
     torch.cuda.synchronize()
+    if not all(torch.equal(out[k], again[k]) for k in out):
+        fail(f"cco_stats {moments}: a second run differs at N={n} d={d}")
     plain = ref.cco_stats_ref(zf, zg, nv, moments)
     err, scale = 0.0, 0.0
     if set(out) != set(plain):
@@ -218,6 +191,8 @@ def check_cco_stats(n, d, valid, seed, moments="cross"):
         if out[k].shape != plain[k].shape or not out[k].is_cuda:
             fail(f"cco_stats {k}: shape {tuple(out[k].shape)} on "
                  f"{out[k].device}, expected {tuple(plain[k].shape)} on cuda")
+        if not bool(torch.isfinite(out[k]).all()):
+            fail(f"cco_stats {moments}: {k} is not finite at N={n} d={d}")
         err = max(err, float((out[k] - plain[k]).abs().max()))
         scale = max(scale, float(plain[k].abs().max()))
     ok = err <= TOL * (1.0 + scale)
@@ -225,6 +200,10 @@ def check_cco_stats(n, d, valid, seed, moments="cross"):
         for k in ("cov_f", "cov_g"):
             if not torch.equal(out[k], out[k].T):
                 fail(f"cco_stats {k} is not exactly symmetric")
+        cross = cco_stats(zf, zg, nv)
+        if not all(torch.equal(cross[k], out[k]) for k in cross):
+            fail(f"cco_stats: the full set's cross statistics differ from "
+                 f"the cross set's at N={n} d={d}")
         z = torch.cat([zf, zg], 1)
         lib_ms = time_ms(lambda: torch.matmul(z.T, z))
         lib = "matmul([zf,zg]^T [zf,zg])"
@@ -235,11 +214,15 @@ def check_cco_stats(n, d, valid, seed, moments="cross"):
     plain_ms = time_ms(lambda: ref.cco_stats_ref(zf, zg, nv, moments))
     call_ms = eager_ms(lambda: cco_stats(zf, zg, nv, moments=moments))
     b_ms, b_by = cco_stats_bound_ms(n, d, moments)
+    f32_ms, f32_by = cco_stats_bound_ms(n, d, moments, PEAK_F32)
     print(f"cco_stats moments={moments} N={n} d={d} num_valid={valid}: "
           f"max_abs_err={err:.3e} (tol {TOL:g} x (1 + {scale:.3g})) "
-          f"{'ok' if ok else 'MISMATCH'}; device ms: kernel {ms:.5f} plain "
-          f"{plain_ms:.5f} {lib} {lib_ms:.5f} bound {b_ms:.5f} ({b_by}); "
-          f"eager call ms {call_ms:.5f}", flush=True)
+          f"{'ok' if ok else 'MISMATCH'}, second run bit-equal"
+          f"{', symmetric, cross bit-equal' if moments == 'full' else ''}; "
+          f"device ms: kernel {ms:.5f} plain {plain_ms:.5f} {lib} "
+          f"{lib_ms:.5f} bound {b_ms:.5f} ({b_by}; {f32_ms:.5f}, {f32_by}, "
+          f"at the f32 CUDA-core rate); eager call ms {call_ms:.5f}",
+          flush=True)
     if not ok:
         fail(f"cco_stats {moments} disagrees with its plain version at "
              f"N={n} d={d}")
@@ -982,8 +965,10 @@ def main():
         "full": check_cco_stats(MAIN_N, MAIN_D, MAIN_N, 0, "full") + (
             cco_stats_bound_ms(MAIN_N, MAIN_D, "full"),),
     }
-    check_cco_stats(37, 1000, 30, 1)
-    check_cco_stats(37, 1000, 30, 1, "full")
+    # the token path's N = 8, a ragged shape, a large N
+    for n, d, valid in ((8, 1024, 8), (37, 1000, 30), (4096, 1024, 4096)):
+        for moments in ("cross", "full"):
+            check_cco_stats(n, d, valid, 1, moments)
     figures["per_row"] = check_quant(K, 1 << 20, False, 2) + (
         None, quant_bound_ms(K, 1 << 20, False))
     check_quant(K, n_stats, True, 3)

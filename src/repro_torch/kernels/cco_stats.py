@@ -28,15 +28,17 @@ def _device_type(t: torch.Tensor) -> str:
     return t.device.type
 
 
+_OUTS = {"cross": 5, "full": 7}   # output pointers of each entry point
+
+
 def _kernel(moments: str):
-    lib = _build.load("cco_stats")
-    if moments == "cross":
-        fn, outs = lib.cco_stats_cross_f32, 5
-    else:
-        fn, outs = lib.cco_stats_full_f32, 7
-    fn.argtypes = [ctypes.c_void_p] * (3 + outs) + [ctypes.c_int, ctypes.c_int,
-                                                    ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    """The entry point of ``moments``; its argument types are set at its
+    first use (ctypes keeps one function object per loaded library)."""
+    fn = getattr(_build.load("cco_stats"), f"cco_stats_{moments}_f32")
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * (3 + _OUTS[moments])
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return fn
 
 
@@ -79,23 +81,24 @@ def cco_stats(zf: torch.Tensor, zg: torch.Tensor, num_valid=None, *,
                              "inputs' device")
         num_valid = num_valid.to(F32).contiguous()
     fn = _kernel(moments)
-    mats = torch.empty((1 if moments == "cross" else 3, d, d), dtype=F32,
-                       device=zf.device)               # cross[, cov_f, cov_g]
-    vecs = torch.empty((4, d), dtype=F32, device=zf.device)
-    ptrs = [vecs[i].data_ptr() for i in range(4)]
-    ptrs += [mats[i].data_ptr() for i in range(1, mats.shape[0])]
-    with torch.cuda.device(zf.device):
-        stream = torch.cuda.current_stream(zf.device).cuda_stream
-        err = fn(zf.data_ptr(), zg.data_ptr(),
-                 None if num_valid is None else num_valid.data_ptr(),
-                 mats[0].data_ptr(), *ptrs, n, d, stream)
+    mats = 1 if moments == "cross" else 3     # cross[, cov_f, cov_g]
+    # one buffer: the (d, d) matrices, then mean_f, sq_f, mean_g, sq_g
+    buf = torch.empty(mats * d * d + 4 * d, dtype=F32, device=zf.device)
+    base = buf.data_ptr()
+    ptrs = [base + 4 * (mats * d * d + i * d) for i in range(4)]
+    ptrs += [base + 4 * i * d * d for i in range(1, mats)]
+    err = fn(zf.data_ptr(), zg.data_ptr(),
+             None if num_valid is None else num_valid.data_ptr(), base, *ptrs,
+             n, d, torch.cuda.current_stream(zf.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cco_stats kernel launch failed: CUDA error {err}")
     cco_stats.launches[moments] += 1
-    out = {"mean_f": vecs[0], "sq_f": vecs[1], "mean_g": vecs[2],
-           "sq_g": vecs[3], "cross": mats[0]}
+    m = buf[:mats * d * d].view(mats, d, d)
+    v = buf[mats * d * d:].view(4, d)
+    out = {"mean_f": v[0], "sq_f": v[1], "mean_g": v[2], "sq_g": v[3],
+           "cross": m[0]}
     if moments == "full":
-        out["cov_f"], out["cov_g"] = mats[1], mats[2]
+        out["cov_f"], out["cov_g"] = m[1], m[2]
     return out
 
 

@@ -5,9 +5,11 @@ imports neither JAX nor the reference package, so it runs on a machine
 that has only the port's requirements:
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: the statistics kernel sums f32 products with FFMA in its own
-order and the plain version goes through cuBLAS in f32 (TF32 off); for
-N <= 128 rows of unit-normal data the sums differ by a few f32 ulps, so
+Tolerance: the statistics kernel forms each product on the tensor cores
+as a TF32 product plus two bf16 remainder products (~2^-20 of a product)
+and sums chunks of 32 rows, and the plain version goes through cuBLAS in
+f32 (TF32 off); on unit-normal rows the two differ by well under 1e-6
+(tests/test_torch_kernel_numerics.py emulates the kernel's sums), so
 rtol/atol 1e-5. The quantize kernel is one IEEE division, add, floor,
 clip and multiply an element, like its plain version: bit equality. So is
 the segment-sum kernel, which adds ``w_k * x`` over ascending k exactly
@@ -51,9 +53,15 @@ def _pair(dev, n, d, seed):
             torch.randn(n, d, generator=gen, device=dev))
 
 
+# the main path, the token path (N = 8), a large N, a ragged shape with
+# pre-masked rows, all rows masked, and the tile edges in N and d
+SHAPES = [(128, 1024, None), (8, 1024, None), (4096, 256, None),
+          (37, 1000, 30), (1, 65, None), (200, 64, 0), (33, 1, None),
+          (1, 63, None), (33, 1023, 20)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,valid", [(128, 1024, None), (37, 1000, 30),
-                                       (1, 65, None), (200, 64, 0)])
+@pytest.mark.parametrize("n,d,valid", SHAPES)
 def test_kernel_matches_plain_version(cuda_device, n, d, valid):
     zf, zg = _pair(cuda_device, n, d, n * d)
     nv = None
@@ -72,8 +80,7 @@ def test_kernel_matches_plain_version(cuda_device, n, d, valid):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,valid", [(128, 1024, None), (37, 1000, 30),
-                                       (1, 65, None), (200, 64, 0)])
+@pytest.mark.parametrize("n,d,valid", SHAPES)
 def test_full_moment_kernel_matches_plain_version(cuda_device, n, d, valid):
     zf, zg = _pair(cuda_device, n, d, n + d)
     nv = None
@@ -96,6 +103,19 @@ def test_full_moment_kernel_matches_plain_version(cuda_device, n, d, valid):
     cross = cco_stats(zf, zg, nv)
     for k in KEYS:
         assert torch.equal(cross[k], out[k])
+
+
+@pytest.mark.cuda
+def test_within_view_diagonal_tiles_are_exactly_symmetric(cuda_device):
+    """Every 64 x 64 diagonal tile of cov_f and cov_g at d = 1024 equals
+    its transpose bit for bit, as does every off-diagonal pair of tiles."""
+    zf, zg = _pair(cuda_device, 128, 1024, 3)
+    out = cco_stats(zf, zg, moments="full")
+    for k in ("cov_f", "cov_g"):
+        for i in range(0, 1024, 64):
+            tile = out[k][i:i + 64, i:i + 64]
+            assert torch.equal(tile, tile.T), (k, i)
+        assert torch.equal(out[k], out[k].T)
 
 
 @pytest.mark.cuda

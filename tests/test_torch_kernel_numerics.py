@@ -7,12 +7,15 @@ b(q - h(q)) . b(c) + b(q) . b(c - h(c)) on bf16 MMAs; a bf16 corpus takes
 h(q) . c + b(q - h(q)) . c. An MMA rounds its sum toward zero, so each
 32-column chunk is summed from zero and then added to the score in f32.
 The flash kernel's P . V splits P into two bf16 terms against bf16 V.
+The statistics kernel takes the MIPS split for zf^T zg, zf^T zf and
+zg^T zg, with N as the reduction, in chunks of 32 rows of N.
 These tests emulate that arithmetic (TF32 and bf16 rounding, MMA sums in
-f64 rounded toward zero, 8 columns a step) on the unit rows
-``chip_smoke.py`` uses, and fix the tolerances before the card runs them:
-MIPS scores within MIPS_TOL = 1e-5 of the f32 plain version, P . V within
-the f32 tolerance 2e-5 of an f32 P . V. Each test also shows the cheaper
-form the kernel does not take failing the same bound.
+f64 rounded toward zero, 8 columns a step) on the unit rows (the
+unit-normal rows, for the statistics) ``chip_smoke.py`` uses, and fix the
+tolerances before the card runs them: MIPS scores within MIPS_TOL = 1e-5
+of the f32 plain version, P . V within the f32 tolerance 2e-5 of an f32
+P . V, the statistics within STATS_TOL x (1 + max|plain|). Each test also
+shows the cheaper form the kernel does not take failing the same bound.
 """
 import numpy as np
 import pytest
@@ -23,6 +26,8 @@ from repro_torch.kernels.mips_topk import (FULL_TILE_K, MAX_SPLITS,
                                            ROWS_PER_TILE, plan)
 
 MIPS_TOL = 1e-5        # chip_smoke.py: |kernel score - plain score|
+STATS_TOL = 1e-5       # chip_smoke.py TOL: statistics, x (1 + max|plain|)
+STATS_CHUNK = 32       # rows of N the statistics kernel sums from zero
 FLASH_F32_TOL = 2e-5   # chip_smoke.py: the flash kernel's f32 outputs
 D = 1024               # the projection width of the retrieval paths
 
@@ -127,6 +132,64 @@ def test_split_scores_on_a_bf16_corpus(unit_rows):
     assert float((kernel.double() - exact).abs().max()) <= MIPS_TOL / 10
     one = mma_scores([(qh, cb)], D, 32)
     assert float((one.double() - exact).abs().max()) > MIPS_TOL
+
+
+def _split_terms(a, b):
+    """The kernel's terms for a^T b, operands given as (d, N): h(a) h(b)
+    on TF32, then b(a - h(a)) b(b) + b(a) b(b - h(b)) on bf16."""
+    ah, bh = tf32(a), tf32(b)
+    return [(ah, bh), (bf16(a - ah), bf16(b)), (bf16(a), bf16(b - bh))]
+
+
+def _stats_errors(n, d, seed=0):
+    """Max |emulated - plain| of cross = zf^T zg / N and cov_f = zf^T zf / N
+    on (n, d) unit-normal rows, for the kernel's split with 32-row chunks,
+    a single TF32 product with the same chunks, and the kernel's split
+    summed without chunks; and the bound STATS_TOL (1 + max|plain|), the
+    max over the statistics as ``chip_smoke.py`` takes it (sq_f included).
+    """
+    rng = np.random.RandomState(seed)
+    zf = torch.tensor(rng.randn(n, d), dtype=torch.float32)
+    zg = torch.tensor(rng.randn(n, d), dtype=torch.float32)
+    plain = {"cross": (zf.T @ zg) / n, "cov_f": (zf.T @ zf) / n}
+    sq_f = (zf * zf).sum(0) / n
+    scale = max([float(sq_f.max())] + [float(p.abs().max())
+                                       for p in plain.values()])
+    errs = {}
+    for key, (a, b) in (("cross", (zf, zg)), ("cov_f", (zf, zf))):
+        at, bt = a.T.contiguous(), b.T.contiguous()
+        forms = {"kernel": (_split_terms(at, bt), STATS_CHUNK),
+                 "one_tf32": ([(tf32(at), tf32(bt))], STATS_CHUNK),
+                 "unchunked": (_split_terms(at, bt), 0)}
+        for form, (terms, chunk) in forms.items():
+            got = mma_scores(terms, n, chunk) / n
+            errs[key, form] = float((got - plain[key]).abs().max())
+    return errs, STATS_TOL * (1 + scale)
+
+
+def test_split_statistics_at_the_main_path_shape():
+    """At (N, d) = (128, 1024): the kernel's split, summed from zero each
+    32 rows, is within a tenth of the bound for cross and cov_f; a single
+    TF32 product (~2^-11 a product: ~3 decimal digits) is not within the
+    bound. The tolerance is the kernel-vs-plain one of ``chip_smoke.py``:
+    both sum the same f32 products in other orders."""
+    errs, bound = _stats_errors(128, 1024)
+    for key in ("cross", "cov_f"):
+        assert errs[key, "kernel"] <= bound / 10, (key, errs, bound)
+        assert errs[key, "one_tf32"] > bound, (key, errs, bound)
+
+
+def test_split_statistics_at_a_large_n():
+    """At N = 4096 (the engine's N is K x n, uncapped), d = 64: the kernel's
+    chunked sums stay within a tenth of the bound; summed in one running
+    MMA accumulator, the toward-zero rounding of every MMA drifts past the
+    bound on cov_f, whose diagonal sums only positive products; a single
+    TF32 product misses it there too."""
+    errs, bound = _stats_errors(4096, 64)
+    for key in ("cross", "cov_f"):
+        assert errs[key, "kernel"] <= bound / 10, (key, errs, bound)
+    assert errs["cov_f", "unchunked"] > bound, (errs, bound)
+    assert errs["cov_f", "one_tf32"] > bound, (errs, bound)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
