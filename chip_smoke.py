@@ -66,7 +66,24 @@ Phases (each prints its lines; any failure exits non-zero):
      attention forwards a round (2 views x 22 layers in the no-grad phase
      1, the same again in phase 2, where vmap folds the K clients into
      one launch; the backward recomputes in plain torch) and one "cross"
-     statistics kernel.
+     statistics kernel;
+  8. the paper's FedAvg baselines and the server strategies (the ResNet
+     paths right after those of phase 4, the token path at the end of
+     phase 7), each through ``train.run`` (the CLI's run with the engine's
+     algorithm chosen) at full width, PATH_ROUNDS rounds from seed 0,
+     launches held exact:
+     FedAvg+CCO, FedAvg+NT-Xent and FedAvg+BYOL on the ResNet (no kernel:
+     no phase 1), FedAvg+NT-Xent over an int8 uplink (the column quantize
+     kernel once a round: the deltas are the only uplink), FedAvg+CCO
+     through the tree of 8 edges with an int8 client hop (segment_sum
+     twice a round, the begin-round mass and the deltas fold; quantize
+     once), D-CCO with ``--server-opt fedadam`` (the "cross" statistics
+     kernel once a round), then D-CCO and the centralized step over the
+     same rounds for one Table-1-style line of probes (not gated: the
+     random-init probe is high on these synthetic images); after the
+     token D-CCO path, FedAvg+NT-Xent on the full-width TinyLlama-1.1B
+     tower (flash attention 2 views x 22 layers a round, all in the
+     vmapped phase 2), with its peak memory beside D-CCO's.
 Then one JSON line of kernel figures, and the device line last.
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -705,19 +722,23 @@ def _read_counts():
             "flash": flash_attention.launches["forward"]}
 
 
-def train_path(name, flags, rounds, expected):
-    """``train --full`` through its entry point, with every launch count
+def train_path(name, flags, rounds, expected, algorithm="dcco"):
+    """``train --full`` through its entry point (``train.run`` with the
+    engine's ``algorithm``; the CLI runs "dcco"), with every launch count
     set to 0 just before and read just after; fails unless the counts are
     ``expected`` (kernel -> launches, the others 0). Returns the counts
-    and the summary ``train.main`` returns."""
+    and the summary ``train.run`` returns, with the peak device memory in
+    GiB under "peak_gib"."""
+    args = train.parse_args([
+        "--full", "--clients-per-round", str(K), "--samples-per-client",
+        str(N_PER_CLIENT), "--dataset-size", str(DATASET), "--rounds",
+        str(rounds), "--eval-every", "1", *flags])
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    res = train.main(["--full", "--clients-per-round", str(K),
-                      "--samples-per-client", str(N_PER_CLIENT),
-                      "--dataset-size", str(DATASET), "--rounds", str(rounds),
-                      "--eval-every", "1", *flags])
+    res = train.run(args, algorithm=algorithm)
     counts = _read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["peak_gib"] = peak_gib
     leaves = utils.tree_leaves(res["params"])
     if len(res["history"]) != rounds or not res["loss_finite"]:
         fail(f"{name}: training losses {res['history']}")
@@ -731,7 +752,8 @@ def train_path(name, flags, rounds, expected):
         fail(f"{name}: kernel launches {counts} in {rounds} rounds, "
              f"expected {want}")
     steady = sorted(res["round_ms"][1:])
-    print(f"train --full {' '.join(flags)} ({name}): {rounds} rounds, losses "
+    print(f"train --full {' '.join(flags)} ({name}, {algorithm}): {rounds} "
+          f"rounds, losses "
           f"{[float(f'{x:.6g}') for x in res['history']]}; ms/round: first "
           f"{res['round_ms'][0]:.1f}, median of the rest "
           f"{steady[len(steady) // 2]:.1f}; probe acc {res['probe']:.3f} "
@@ -930,6 +952,46 @@ def check_ivf(index, queries):
     return counts
 
 
+def fedavg_paths():
+    """The FedAvg baselines and a server strategy on the ResNet, then the
+    Table-1-style probe line over the same PATH_ROUNDS rounds and cohorts
+    (every path samples from seed 0). Returns the paths' launch counts."""
+    tree = ["--edges", "8", "--channel", "int8", "--edge-channel", "dense"]
+    paths = [
+        ("fedavg_cco", [], "fedavg_cco", {}),
+        ("fedavg_contrastive", [], "fedavg_contrastive", {}),
+        ("fedavg_byol", [], "fedavg_byol", {}),
+        # the deltas are the only uplink: one column quantize a round
+        ("fedavg_contrastive over int8", ["--channel", "int8",
+                                          "--quant-kernel", "fused"],
+         "fedavg_contrastive", {"column": PATH_ROUNDS}),
+        # begin_round's per-edge mass and the deltas fold; the int8 client
+        # hop quantizes the deltas
+        ("fedavg_cco hierarchical", tree, "fedavg_cco",
+         {"fold": 2 * PATH_ROUNDS, "column": PATH_ROUNDS}),
+        ("dcco fedadam", ["--server-opt", "fedadam"], "dcco",
+         {"cross": PATH_ROUNDS}),
+        ("dcco", ["--stats-kernel", "fused"], "dcco",
+         {"cross": PATH_ROUNDS}),
+        ("centralized", [], "centralized", {})]
+    table = ("dcco", "fedavg_cco", "fedavg_contrastive", "fedavg_byol",
+             "centralized")
+    probes, counts = {}, []
+    for name, flags, algorithm, expected in paths:
+        c, res = train_path(name, flags, PATH_ROUNDS, expected, algorithm)
+        counts.append(c)
+        if name in table:
+            probes[name] = res["probe"]
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"table-1 probe after {PATH_ROUNDS} rounds on the same cohorts "
+          f"(full-width ResNet-14, K={K} x {N_PER_CLIENT}, seed 0; random "
+          f"init, not gated): "
+          + ", ".join(f"{k}={probes[k]:.4f}" for k in table), flush=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1035,22 +1097,36 @@ def main():
                                  "1", "--retrieval-corpus", "1536",
                                  "--retrieval-queries", "512"], PATH_ROUNDS,
                    {"cross": PATH_ROUNDS, "search": PATH_ROUNDS})]
+    fedavg = fedavg_paths()
     mips_figures = check_mips_laws(device)
     served = serving_phase(device, runs[-1][1]["params"])
     served += serving_rate(device)
-    runs = [counts for counts, _ in runs] + served
+    runs = [counts for counts, _ in runs] + fedavg + served
     # the token path, with the serving phase's corpora released
     gc.collect()
     torch.cuda.empty_cache()
     figures["flash"] = check_flash_shapes()
     check_flash_gradient()
-    runs.append(train_path(
-        "tinyllama dcco", ["--arch", TOK_ARCH, "--seq-len", str(TOK_S),
-                           "--clients-per-round", str(TOK_K),
-                           "--samples-per-client", str(TOK_N),
-                           "--stats-kernel", "fused"], PATH_ROUNDS,
-        {"flash": 2 * 2 * TOK_LAYERS * PATH_ROUNDS,
-         "cross": PATH_ROUNDS})[0])
+    tok_flags = ["--arch", TOK_ARCH, "--seq-len", str(TOK_S),
+                 "--clients-per-round", str(TOK_K),
+                 "--samples-per-client", str(TOK_N)]
+    counts, tok_dcco = train_path(
+        "tinyllama dcco", [*tok_flags, "--stats-kernel", "fused"],
+        PATH_ROUNDS, {"flash": 2 * 2 * TOK_LAYERS * PATH_ROUNDS,
+                      "cross": PATH_ROUNDS})
+    runs.append(counts)
+    del tok_dcco["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # no phase 1: the two views' forwards of phase 2 alone, the K clients
+    # folded into one launch a layer and view by the Function's vmap rule
+    counts, tok_fedavg = train_path(
+        "tinyllama fedavg_contrastive", tok_flags, PATH_ROUNDS,
+        {"flash": 2 * TOK_LAYERS * PATH_ROUNDS}, "fedavg_contrastive")
+    runs.append(counts)
+    print(f"tinyllama peak device memory: fedavg_contrastive "
+          f"{tok_fedavg['peak_gib']:.2f} GiB, dcco "
+          f"{tok_dcco['peak_gib']:.2f} GiB", flush=True)
     # launches of each kernel on the main paths, read from their counts
     # (the per-row form runs on none of them, nor in the reference)
     figures["fold"] = seg_figures["hierarchy deltas"]

@@ -122,7 +122,8 @@ def make_cluster_round_body(encoder_apply: Callable, server_opt,
             "flattened cohort; clustering assigns PER-CLIENT stats, so it "
             "needs per-client payloads")
     objective = fed_sim.resolve_objective(cfg.objective, cfg.lam)
-    server_update = server_update_lib.as_server_update(server_opt)
+    server_update = server_update_lib.as_server_update(
+        cfg.server_update if cfg.server_update is not None else server_opt)
     channel = cfg.channel
     hier = isinstance(channel, HierarchicalChannel) and not channel.collapses
     if channel is not None:

@@ -74,6 +74,19 @@ def encoding_stats_masked(zf, zg, mask) -> Stats:
     return moment_stats(zf, zg, mask)
 
 
+def per_client_stats(zf, zg, clients: int) -> Stats:
+    """A round's encodings (N, d) as per-client stats (K leading).
+
+    Assumes equal-size clients laid out contiguously: N = K * n_k.
+    """
+    n, d = zf.shape
+    if n % clients:
+        raise ValueError(f"{n} encodings do not split into {clients} "
+                         f"equal clients")
+    return torch.vmap(encoding_stats)(zf.reshape(clients, n // clients, d),
+                                      zg.reshape(clients, n // clients, d))
+
+
 def weighted_average_stats(stats: Stats, weights) -> Stats:
     """Aggregate stacked per-client stats (leading axis K) with weights
     N_k/N. Implements paper Eq. 3 exactly."""

@@ -4,7 +4,9 @@ The *protocol-faithful* implementation of the two-phase DCCO round (paper
 Fig. 2): phase 1 aggregates the clients' encoding statistics, phase 2
 runs each client's local steps against the stop-grad combine of its own
 and the aggregate statistics, and the server applies the FedOpt update
-from the weighted average of the client deltas.
+from the weighted average of the client deltas. The FedAvg baselines the
+paper compares against (``fedavg_round``) train a within-client loss and
+exchange nothing but the deltas.
 
 Client data layout: a dict whose leaves have leading dims (K, n, ...) —
 K clients, n samples each (padded; per-client ``client_sizes`` mark the
@@ -23,7 +25,7 @@ from torch.func import grad_and_value, vmap
 
 from repro_torch import objectives as objectives_lib
 from repro_torch import utils
-from repro_torch.core import cco
+from repro_torch.core import cco, losses
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.server import update as server_update_lib
 
@@ -54,6 +56,13 @@ def channel_bytes(channel, ctx, payload_template):
     edge = 0.0 if hop_bytes is None else hop_bytes(
         ctx, payload_template)["edge_server"]
     return total, edge
+
+
+def sample_clients(gen: torch.Generator, num_clients: int,
+                   clients_per_round: int) -> torch.Tensor:
+    """Server samples K clients without replacement, on ``gen``'s device."""
+    return torch.randperm(num_clients, generator=gen,
+                          device=gen.device)[:clients_per_round]
 
 
 def _client_masks(client_sizes, n_pad: int):
@@ -202,6 +211,83 @@ def dcco_round(encoder_apply: Callable, params, opt_state, server_opt,
                        client_data, client_sizes,
                        objective=resolve_objective(objective, lam),
                        **round_kw)
+
+
+# ---------------------------------------------------------------------------
+# FedAvg baselines (within-client loss, no stats exchange)
+# ---------------------------------------------------------------------------
+
+LOSS_KINDS = ("stats", "cco", "contrastive", "byol")
+
+
+def fedavg_round(encoder_apply: Callable, params, opt_state, server_opt,
+                 client_data, client_sizes, *, loss_kind: str = "cco",
+                 lam: float = 20.0, temperature: float = 0.1,
+                 objective=None, client_lr: float = 1.0,
+                 local_steps: int = 1, channel=None,
+                 channel_key: Optional[int] = None, channel_draws=None):
+    """FedAvg with a within-client loss: 'stats' | 'cco' | 'contrastive'
+    | 'byol'. Returns (params, opt_state, metrics).
+
+    ``'stats'`` runs any StatsObjective as a *within-client* loss (no
+    statistics exchange: the baseline D-CCO is compared against);
+    ``'cco'`` is the same bound to the CCO objective with ``lam``.
+    ``'contrastive'`` is NT-Xent at ``temperature`` and ``'byol'`` the
+    predictive loss, each over the client's own two views; padding samples
+    count as (weak) negatives in NT-Xent, as in the reference.
+
+    ``channel`` routes the single uplink (the client deltas, phase
+    ``"update"``) through the wire, with ``channel_draws`` (``"begin"``,
+    ``"update"``) as in ``stats_round``. The metrics carry the weighted
+    client loss and an ``encoding_std`` of 0, as the reference's do.
+    """
+    if loss_kind not in LOSS_KINDS:
+        raise ValueError(f"unknown loss_kind {loss_kind!r}; expected one of "
+                         f"{LOSS_KINDS}")
+    server_update = server_update_lib.as_server_update(server_opt)
+    if loss_kind in ("cco", "stats"):
+        objective = resolve_objective(objective, lam)
+    n_pad = utils.tree_leaves(client_data)[0].shape[1]
+    masks = _client_masks(client_sizes, n_pad)
+    draws = channel_draws or {}
+    if channel is None:
+        ctx = None
+        w = client_sizes.to(F32) / client_sizes.to(F32).sum()
+    else:
+        if channel_key is None:
+            raise ValueError("channel requires channel_key")
+        ctx = channel.begin_round(channel_key, client_sizes,
+                                  draws.get("begin"))
+        w = ctx.weights
+    zero = torch.zeros((), dtype=F32, device=masks.device)
+
+    def client_loss(p, batch, mask):
+        zf, zg = encoder_apply(p, batch)
+        if loss_kind == "contrastive":
+            return losses.ntxent_loss(zf, zg, temperature)
+        if loss_kind == "byol":
+            return losses.byol_predictive_loss(zf, zg)
+        return objective.loss_from_stats(objective.stats_masked(zf, zg, mask))
+
+    def client_update(batch, mask):
+        return client_local_steps(lambda p: client_loss(p, batch, mask),
+                                  params, client_lr, local_steps)
+
+    deltas, losses_k = vmap(client_update)(client_data, masks)
+    wire, edge_wire = zero, zero
+    if ctx is None:
+        avg_delta = utils.tree_map(lambda dl: torch.tensordot(w, dl, dims=1),
+                                   deltas)
+    else:
+        with torch.no_grad():
+            avg_delta = channel.aggregate(ctx, deltas, "update",
+                                          draws.get("update"))
+            total, edge = channel_bytes(channel, ctx, avg_delta)
+            wire, edge_wire = zero + total, zero + edge
+    del deltas
+    params, opt_state = server_update.step(params, opt_state, avg_delta)
+    return params, opt_state, RoundMetrics((w * losses_k).sum(), zero, wire,
+                                           edge_wire)
 
 
 # ---------------------------------------------------------------------------

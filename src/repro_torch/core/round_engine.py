@@ -15,6 +15,15 @@ the reference. A channel's draws come from its own per-round seed,
 ``utils.fold_in(round_seed, _CHANNEL_SALT)``, so the sampler's stream is
 the same with and without a channel.
 
+Round bodies (``EngineConfig.algorithm``): ``dcco``, the two-phase
+statistics round; the FedAvg baselines ``fedavg_cco`` (the objective as a
+within-client loss), ``fedavg_contrastive`` (NT-Xent at
+``EngineConfig.temperature``) and ``fedavg_byol`` (the predictive loss),
+which ship client deltas only; and ``centralized``, one large-batch step on
+the cohort's union. ``EngineConfig.server_update`` selects the server
+strategy (:mod:`repro_torch.server`: the FedAvg delegate, FedAvgM,
+FedAdagrad, FedAdam, FedYogi) in place of the engine's ``server_opt``.
+
 Phase-1 aggregate statistics go through the CUDA ``cco_stats`` kernel
 when ``EngineConfig.stats_kernel == "fused"``, in the objective's moment
 set: exact by Eq. 3, since statistics are linear in samples. The default
@@ -60,7 +69,11 @@ from repro_torch.server import update as server_update_lib
 
 F32 = torch.float32
 
-ALGORITHMS = ("dcco", "centralized")
+ALGORITHMS = ("dcco", "fedavg_cco", "fedavg_contrastive", "fedavg_byol",
+              "centralized")
+# the FedAvg bodies' within-client loss kinds (fed_sim.fedavg_round)
+_FEDAVG_KINDS = {"fedavg_cco": "stats", "fedavg_contrastive": "contrastive",
+                 "fedavg_byol": "byol"}
 STATS_KERNELS = ("off", "fused")
 _ROUND_SEED_STRIDE = 1_000_003
 _CHANNEL_SALT = 0xC0                # fold_in salt of the per-round channel seed
@@ -72,6 +85,7 @@ class EngineConfig(NamedTuple):
     objective: Any = None           # StatsObjective or registered name;
                                     # None = CCO with ``lam``
     lam: float = 20.0
+    temperature: float = 0.1        # NT-Xent's (fedavg_contrastive)
     client_lr: float = 1.0
     local_steps: int = 1
     chunk_rounds: int = 20          # rounds per metrics segment
@@ -84,6 +98,10 @@ class EngineConfig(NamedTuple):
                                     # per-client payloads
     channel: Any = None             # repro_torch.comm.Channel or None (the
                                     # lossless wire)
+    server_update: Any = None       # repro_torch.server ServerUpdate; None
+                                    # = the engine's server_opt argument
+                                    # (an Optimizer becomes the fedavg_sgd
+                                    # delegate)
     # --- cluster-aware aggregation (repro_torch.cluster) ---
     num_clusters: int = 0           # >1: cosine k-means on the per-client
                                     # stats assigns each cohort client a
@@ -194,17 +212,27 @@ def _resolve_agg_stats_fn(cfg: EngineConfig, objective) -> Optional[Callable]:
                      f"{STATS_KERNELS} or None")
 
 
+def _server_update_of(cfg: EngineConfig, server_opt):
+    """The round's server strategy: ``cfg.server_update`` if set, else
+    ``server_opt``, as a ServerUpdate."""
+    return server_update_lib.as_server_update(
+        cfg.server_update if cfg.server_update is not None else server_opt)
+
+
 def make_round_body(encoder_apply: Callable, server_opt,
                     cfg: EngineConfig) -> Callable:
     """Build round_fn(params, opt_state, batch, sizes, channel_key=None)
     -> (params, opt_state, metrics) for ``cfg.algorithm``."""
     if cfg.algorithm not in ALGORITHMS:
-        raise NotImplementedError(
-            f"algorithm {cfg.algorithm!r} is not ported (the port has "
-            f"{ALGORITHMS}; the fedavg baselines are ROADMAP §1, 'FedAvg "
-            f"baselines')")
+        raise ValueError(f"unknown algorithm {cfg.algorithm!r}; "
+                         f"expected one of {ALGORITHMS}")
     objective = fed_sim.resolve_objective(cfg.objective, cfg.lam)
-    server_update = server_update_lib.as_server_update(server_opt)
+    if cfg.objective is not None and cfg.algorithm in (
+            "fedavg_contrastive", "fedavg_byol"):
+        raise ValueError(
+            f"algorithm {cfg.algorithm!r} trains a non-stats loss; "
+            f"objective={objective!r} would be silently ignored")
+    server_update = _server_update_of(cfg, server_opt)
     channel = cfg.channel
     if channel is not None:
         if cfg.algorithm == "centralized":
@@ -217,6 +245,16 @@ def make_round_body(encoder_apply: Callable, server_opt,
                 f"stats from the flattened cohort, which is incompatible "
                 f"with {channel!r} (needs per-client payloads; use "
                 f"stats_kernel='off' or None)")
+        noise_phases = getattr(channel, "noise_phases", None)
+        if (noise_phases is not None and cfg.algorithm in _FEDAVG_KINDS
+                and "update" not in noise_phases):
+            # fedavg has no stats uplink: a stats-only DP channel would add
+            # zero noise while the accountant still reports a finite epsilon
+            raise ValueError(
+                f"{channel!r} noises only {noise_phases}, but "
+                f"{cfg.algorithm!r} ships client updates only — construct "
+                f"it with noise_phases=('update',) to noise the aggregate "
+                f"it actually releases")
 
     if cfg.algorithm == "dcco":
         agg_stats_fn = _resolve_agg_stats_fn(cfg, objective)
@@ -227,6 +265,18 @@ def make_round_body(encoder_apply: Callable, server_opt,
                 sizes, objective=objective, client_lr=cfg.client_lr,
                 local_steps=cfg.local_steps, agg_stats_fn=agg_stats_fn,
                 channel=channel, channel_key=channel_key)
+        return round_fn
+
+    if cfg.algorithm in _FEDAVG_KINDS:
+        kind = _FEDAVG_KINDS[cfg.algorithm]
+
+        def round_fn(params, opt_state, batch, sizes, channel_key=None):
+            return fed_sim.fedavg_round(
+                encoder_apply, params, opt_state, server_update, batch,
+                sizes, loss_kind=kind, objective=objective,
+                temperature=cfg.temperature, client_lr=cfg.client_lr,
+                local_steps=cfg.local_steps, channel=channel,
+                channel_key=channel_key)
         return round_fn
 
     # centralized: union of the cohort, one large-batch stats step
@@ -272,7 +322,7 @@ def make_async_round_body(encoder_apply: Callable, server_opt,
             "payloads")
     objective = fed_sim.resolve_objective(cfg.objective, cfg.lam)
     staleness_fn = buffer_lib.resolve_staleness(cfg.staleness_fn)
-    server_update = server_update_lib.as_server_update(server_opt)
+    server_update = _server_update_of(cfg, server_opt)
     channel = cfg.channel
     if channel is not None:
         if getattr(channel, "noise_phases", None) is not None:

@@ -18,7 +18,7 @@ Where the reference raises, this copy raises the same error: at severity
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -189,6 +189,26 @@ _REGISTRY = {
 PARTITIONS = tuple(_REGISTRY)
 
 
+def register_partition(name: str, fn: Callable) -> None:
+    """Register a partition strategy under ``name`` (CLI-visible).
+
+    ``fn(labels, num_clients, samples_per_client, severity, seed)`` must
+    return either an ``(num_clients, samples_per_client)`` int index
+    array (full-size clients) or an ``(index, sizes)`` pair for
+    variable-size clients; ``build_partition`` normalizes both."""
+    global PARTITIONS
+    _REGISTRY[name] = fn
+    PARTITIONS = tuple(_REGISTRY)
+
+
+def get_partition(name: str) -> Callable:
+    """Resolve a registered strategy name to its partition function."""
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    raise ValueError(f"unknown partition strategy {name!r}; "
+                     f"expected one of {PARTITIONS}")
+
+
 def build_partition(spec: PartitionSpec, labels, *, num_clients: int,
                     samples_per_client: int, seed: int = 0
                     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -199,10 +219,7 @@ def build_partition(spec: PartitionSpec, labels, *, num_clients: int,
     valid-sample counts."""
     if not isinstance(spec, PartitionSpec):
         raise TypeError(f"expected a PartitionSpec, got {type(spec)!r}")
-    if spec.strategy not in _REGISTRY:
-        raise ValueError(f"unknown partition strategy {spec.strategy!r}; "
-                         f"expected one of {PARTITIONS}")
-    fn = _REGISTRY[spec.strategy]
+    fn = get_partition(spec.strategy)
     kwargs = {}
     if spec.alpha is not None:
         if spec.strategy != "dirichlet":
@@ -222,3 +239,23 @@ def build_partition(spec: PartitionSpec, labels, *, num_clients: int,
         idx, sizes = out, np.full((num_clients,), samples_per_client,
                                   np.int64)
     return np.asarray(idx, np.int64), np.asarray(sizes, np.int64)
+
+
+# ------------------------------------------------------------ skew metric --
+
+def label_dominance(labels, index, sizes=None) -> float:
+    """Mean over clients of the fraction its most-common label holds: the
+    monotone-in-severity label-skew metric (~1/C for IID clients, 1.0 for
+    single-class clients). ``sizes`` masks padded slots of variable-size
+    partitions."""
+    labels = np.asarray(labels)
+    index = np.asarray(index)
+    k, n = index.shape
+    if sizes is None:
+        sizes = np.full((k,), n, np.int64)
+    doms = []
+    for i in range(k):
+        lab = labels[index[i, : sizes[i]]]
+        _, counts = np.unique(lab, return_counts=True)
+        doms.append(counts.max() / float(sizes[i]))
+    return float(np.mean(doms))

@@ -96,6 +96,14 @@ class FederatedDataset:
                                 device=device)
         return self._two_views(gen, raw, k, n), sizes
 
+    def flat_round_batch(self, gen: torch.Generator, clients_per_round: int,
+                         device=None):
+        """``round_batch``'s sampling, flattened to (K*n, ...)."""
+        batch, sizes = self.round_batch(gen, clients_per_round, device)
+        flat = {k: x.reshape((-1,) + tuple(x.shape[2:]))
+                for k, x in batch.items()}
+        return flat, sizes
+
     def _stage(self, device: torch.device):
         """Device-resident (data, client_index, client_sizes), staged once
         per device and shared by every sampler."""

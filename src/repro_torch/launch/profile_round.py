@@ -1,11 +1,12 @@
-"""Where the time of a DCCO training round goes.
+"""Where the time of a training round goes.
 
 Builds the same run as :mod:`repro_torch.launch.train` on one of its
 paths (``--path``: the plain DCCO round; the two-level tree over 8 edges
 with an int8 client hop; clustered aggregation over 4 clusters; the
 buffered engine with async_k 32 and heavy-tail delays; the plain round
 with the retrieval eval after it, corpus the first three quarters of the
-dataset and queries the rest) for the ``--arch`` tower (the ResNet-14, or a
+dataset and queries the rest; the FedAvg baselines ``fedavg_contrastive``
+and ``fedavg_cco``, which have no phase 1) for the ``--arch`` tower (the ResNet-14, or a
 dense transformer over ``--seq-len`` tokens), runs ``--warmup``
 rounds, times ``--rounds`` more on the host clock (synchronised, no
 profiler), then profiles as many again with ``torch.profiler`` and prints
@@ -79,7 +80,8 @@ def _device_us(evt) -> float:
     return float(evt.device_time_total)
 
 
-PATHS = ("dcco", "hierarchical", "clustered", "buffered", "retrieval")
+PATHS = ("dcco", "hierarchical", "clustered", "buffered", "retrieval",
+         "fedavg_contrastive", "fedavg_cco")
 
 
 def _path_config(path: str, seed: int) -> dict:
@@ -95,6 +97,8 @@ def _path_config(path: str, seed: int) -> dict:
         return {"async_k": 32, "staleness_fn": "poly",
                 "latency": latency_lib.LatencyModel(
                     "heavytail", horizon=8, tail=1.0, seed=seed)}
+    if path.startswith("fedavg_"):
+        return {"algorithm": path}
     return {}
 
 

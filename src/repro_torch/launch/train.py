@@ -9,8 +9,17 @@ uplink (``--channel``), through a two-level client -> edge -> server tree
 (``--clusters``) or on the FedBuff-style buffered engine (``--async-k``,
 ``--staleness``, ``--latency-tail``), optionally scoring retrieval of a
 held-out split every few rounds (``--retrieval-eval``: recall@1/5/10 and
-MRR, searched by the MIPS top-k kernel). The ridge probe reads the ResNet
-tower; for a token tower it reports NaN, as the reference's does.
+MRR, searched by the MIPS top-k kernel). ``--server-opt`` selects the
+server strategy (the FedAvg delegate of ``--server-optimizer``, or FedAvgM,
+FedAdagrad, FedAdam, FedYogi with ``--server-tau``). The ridge probe reads
+the ResNet tower; for a token tower it reports NaN, as the reference's
+does.
+
+The CLI trains the two-phase ``dcco`` round, as the reference's does.
+``run(args, algorithm=...)`` drives the same run through another
+:class:`repro_torch.core.round_engine.EngineConfig` body (the FedAvg
+baselines ``fedavg_cco``, ``fedavg_contrastive``, ``fedavg_byol``, or
+``centralized``) for callers in Python.
 
 Runs on the GPU unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it raises. ``--full`` trains the full-width
@@ -37,6 +46,8 @@ Examples (full width, on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
       --retrieval-eval --retrieval-every 1 --retrieval-corpus 1536 \\
       --retrieval-queries 512 --clients-per-round 64 --dataset-size 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
+      --server-opt fedadam --clients-per-round 64 --dataset-size 2048
   PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
       --arch tinyllama-1.1b --seq-len 128 --clients-per-round 8 \\
       --samples-per-client 2 --stats-kernel fused
@@ -203,6 +214,16 @@ def validate_flags(ap, args) -> None:
             ap, args, ["retrieval_every", "retrieval_corpus",
                        "retrieval_queries", "retrieval_dtype"],
             "retrieval flags configure the --retrieval-eval loop")
+    if args.server_opt != "fedavg_sgd":
+        _forbid_ignored_flags(
+            ap, args, ["server_optimizer"],
+            f"--server-opt {args.server_opt} builds its own server "
+            f"optimizer; the base --server-optimizer is unused")
+    if args.server_opt in ("fedavg_sgd", "fedavgm"):
+        _forbid_ignored_flags(
+            ap, args, ["server_tau"],
+            "--server-tau only applies to the adaptive --server-opt "
+            "strategies (fedadagrad / fedadam / fedyogi)")
     if args.edges:
         if args.clients_per_round % args.edges and not args.clusters:
             raise SystemExit(
@@ -364,7 +385,19 @@ def build_parser() -> argparse.ArgumentParser:
 
     g = ap.add_argument_group("server & client optimization")
     g.add_argument("--server-optimizer", default="adam",
-                   choices=["sgd", "adam", "lars"])
+                   choices=["sgd", "adam", "lars"],
+                   help="base optimizer of the fedavg_sgd server strategy "
+                        "(refused with an adaptive --server-opt)")
+    g.add_argument("--server-opt", default="fedavg_sgd",
+                   choices=list(server_update_lib.SERVER_UPDATES),
+                   help="server update strategy (repro_torch.server): "
+                        "'fedavg_sgd' = delegate to --server-optimizer; "
+                        "'fedavgm' = server momentum; 'fedadagrad' / "
+                        "'fedadam' / 'fedyogi' = Reddi et al.'s adaptive "
+                        "server optimizers with --server-tau adaptivity")
+    g.add_argument("--server-tau", type=float, default=1e-3,
+                   help="adaptivity epsilon tau of the adaptive server "
+                        "optimizers")
     g.add_argument("--server-lr", type=float, default=2e-3)
     g.add_argument("--client-lr", type=float, default=1.0)
     g.add_argument("--local-steps", type=int, default=1)
@@ -372,31 +405,51 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> dict:
-    """Train; returns a summary (losses, ms per round, probe accuracy,
-    uplink bytes, final params) for callers that drive it in-process."""
+def parse_args(argv=None) -> argparse.Namespace:
+    """The CLI's arguments, with its refusals of ignored flags applied."""
     ap = build_parser()
     args = ap.parse_args(argv)
     validate_flags(ap, args)
-    device = resolve_device(args.device)
-
-    cfg = get_config(args.arch, smoke=args.smoke)
-    if is_resnet(cfg):
+    if is_resnet(get_config(args.arch, smoke=args.smoke)):
         _forbid_ignored_flags(
             ap, args, ["seq_len"],
             f"--seq-len sets the token archs' sequences; {args.arch} "
             f"encodes images")
     elif args.seq_len < 1:
         raise SystemExit(f"--seq-len {args.seq_len} must be >= 1")
+    return args
+
+
+def main(argv=None) -> dict:
+    """Train; returns a summary (losses, ms per round, probe accuracy,
+    uplink bytes, final params) for callers that drive it in-process."""
+    return run(parse_args(argv))
+
+
+def run(args: argparse.Namespace, *, algorithm: str = "dcco") -> dict:
+    """Train the run ``args`` describes with the engine's ``algorithm``
+    body (``round_engine.ALGORITHMS``); returns ``main``'s summary. The
+    non-stats bodies (``fedavg_contrastive``, ``fedavg_byol``) refuse an
+    ``--objective``."""
+    if (algorithm in ("fedavg_contrastive", "fedavg_byol")
+            and args.objective != "dcco"):
+        raise SystemExit(f"--objective {args.objective} would be silently "
+                         f"ignored: {algorithm} trains a non-stats loss")
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
     de_cfg = DualEncoderConfig(
         proj_dims=(64, 64) if args.smoke else
         get_dual_encoder_config(args.arch).proj_dims,
         lambda_cco=args.lam)
     params = dual_encoder.init_dual_encoder(args.seed, cfg, de_cfg, device)
     sched = schedules.cosine_decay(args.server_lr, args.rounds)
-    opt = server_update_lib.get_server_update(
-        "fedavg_sgd",
-        base_opt=opt_lib.get_optimizer(args.server_optimizer, sched))
+    if args.server_opt == "fedavg_sgd":
+        opt = server_update_lib.get_server_update(
+            "fedavg_sgd",
+            base_opt=opt_lib.get_optimizer(args.server_optimizer, sched))
+    else:
+        opt = server_update_lib.get_server_update(
+            args.server_opt, server_lr=sched, tau=args.server_tau)
     opt_state = opt.init(params)
 
     ds, labels = build_dataset(cfg, args)
@@ -447,11 +500,13 @@ def main(argv=None) -> dict:
             chunk=min(256, nc),
             index_dtype=(torch.bfloat16 if args.retrieval_dtype
                          == "bfloat16" else torch.float32))
+    if algorithm in ("fedavg_contrastive", "fedavg_byol"):
+        objective = None
     ecfg = round_engine.EngineConfig(
-        algorithm="dcco", objective=objective, lam=args.lam,
+        algorithm=algorithm, objective=objective, lam=args.lam,
         client_lr=args.client_lr, local_steps=args.local_steps,
         chunk_rounds=args.chunk_rounds or args.eval_every or 25,
-        stats_kernel=args.stats_kernel, channel=channel,
+        stats_kernel=args.stats_kernel, channel=channel, server_update=opt,
         num_clusters=args.clusters, cluster_iters=args.cluster_iters,
         async_k=args.async_k, staleness_fn=args.staleness, latency=latency,
         retrieval_eval=retrieval_eval,

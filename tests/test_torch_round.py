@@ -253,10 +253,18 @@ def test_centralized_body_and_unported_algorithms(setup):
                                                      lam=LAM))
     p1, _, m = fn(p0, opt.init(p0), batch, sizes)
     assert torch.isfinite(m.loss)
-    with pytest.raises(NotImplementedError):
+    # an unknown algorithm raises, as the reference's does; the FedAvg
+    # baselines are ported and run
+    with pytest.raises(ValueError, match="unknown algorithm"):
         round_engine.make_round_body(
             s["t_apply"], opt,
-            round_engine.EngineConfig(algorithm="fedavg_cco"))
+            round_engine.EngineConfig(algorithm="fedavg_sgd"))
+    fn = round_engine.make_round_body(
+        s["t_apply"], opt, round_engine.EngineConfig(algorithm="fedavg_cco",
+                                                     lam=LAM))
+    p2, _, m = fn(p0, opt.init(p0), batch, sizes)
+    assert torch.isfinite(m.loss) and m.encoding_std.item() == 0.0
+    assert utils.tree_max_abs_diff(p2, p0) > 0
     with pytest.raises(ValueError):
         round_engine.make_round_body(
             s["t_apply"], opt, round_engine.EngineConfig(stats_kernel="x"))
