@@ -83,7 +83,27 @@ Phases (each prints its lines; any failure exits non-zero):
      random-init probe is high on these synthetic images); after the
      token D-CCO path, FedAvg+NT-Xent on the full-width TinyLlama-1.1B
      tower (flash attention 2 views x 22 layers a round, all in the
-     vmapped phase 2), with its peak memory beside D-CCO's.
+     vmapped phase 2), with its peak memory beside D-CCO's;
+  9. client-drift correction and bf16 compute (the ResNet paths after
+     those of phase 8, the token path at the end), each through
+     ``train.run`` at full width, PATH_ROUNDS rounds from seed 0, launches
+     held exact, the ResNet paths' parameters f32, the paths with two
+     local steps at the small client lr that keeps them finite (LR_*
+     below): D-CCO with FedProx
+     (``--fedprox-mu 0.01 --local-steps 2``; "cross" once a round), with
+     SCAFFOLD (``--scaffold --local-steps 2``; "cross" once a round, the
+     variate average a ``tensordot``), SCAFFOLD over an int8 uplink (the
+     column quantize kernel 3 a round: statistics, deltas, variate
+     deltas), SCAFFOLD through the tree of 8 edges (segment_sum 4 a round:
+     the mass and the three payloads; quantize 3), the buffered engine
+     with SCAFFOLD (segment_sum 2 a tick, the variates refreshed at
+     dispatch), FedAvg+CCO with SCAFFOLD (no kernel), D-CCO at
+     ``--compute-dtype bfloat16`` ("cross" once a round; the bf16 tower's
+     encodings reach ``cco_stats`` as f32, checked beside it); the
+     SCAFFOLD paths print the variate deltas' share of the uplink; then
+     D-CCO with FedProx on the full-width TinyLlama-1.1B tower (two local
+     steps: flash 44 + 2 x 44 a round, "cross" once), with its peak memory
+     beside D-CCO's.
 Then one JSON line of kernel figures, and the device line last.
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -99,7 +119,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-from repro_torch import utils  # noqa: E402
+from repro_torch import comm, utils  # noqa: E402
 from repro_torch.configs.base import (  # noqa: E402
     get_config, get_dual_encoder_config)
 from repro_torch.core import fed_sim, round_engine  # noqa: E402
@@ -992,6 +1012,122 @@ def fedavg_paths():
     return counts
 
 
+MU = "0.01"            # FedProx's coefficient on the drift paths
+# client lr of the paths with two local steps. D-CCO's phase-2 gradients
+# are ~1e6 at init, so plain-GD local steps diverge at the CLI's 1.0 (the
+# reference too: tests/test_torch_drift.py). tools/halve_client_lr.py on
+# the card (PERF.md) found the first rate at which 3 rounds stay finite
+# to vary across seeds 0-2 and repeats (D-CCO SCAFFOLD 2^-23..2^-25,
+# FedProx 2^-12, and 2^-14 went NaN once; FedAvg+CCO SCAFFOLD 2^-6..2^-7;
+# token FedProx 2^-2), so each path runs 8x below the lowest rate found.
+# The paths with one local step keep 1.0.
+LR_DCCO_LOCAL2 = repr(2.0 ** -28)
+LR_FEDAVG_SCAFFOLD = repr(2.0 ** -10)
+TOK_PROX_LR = repr(2.0 ** -5)
+
+
+def variate_share(name, flags, res, rounds):
+    """Print the SCAFFOLD variate deltas' share of a path's uplink: one
+    parameter-sized payload a client (and, through the tree, a dense one
+    an edge) each round, from the shapes, as the channel counts them."""
+    if "--channel" not in flags:
+        print(f"{name}: variate uplink 0 bytes (no channel: the variate "
+              f"average is a tensordot, as the update's)", flush=True)
+        return
+    params = res["params"]
+    client = comm.get_channel(flags[flags.index("--channel") + 1])
+    per_round = K * client.payload_bytes(params)
+    if "--edges" in flags:
+        per_round += (int(flags[flags.index("--edges") + 1])
+                      * comm.get_channel("dense").payload_bytes(params))
+    share = per_round * rounds / res["wire_bytes"]
+    print(f"{name}: variate uplink {per_round * rounds:.6g} of "
+          f"{res['wire_bytes']:.6g} bytes ({100 * share:.2f}%)", flush=True)
+    if not 0.0 < share < 1.0:
+        fail(f"{name}: variate share {share} of the uplink")
+
+
+def check_bf16_encodings(device):
+    """The bf16 path's contract at full width on one 64 x 2 cohort: the
+    encoder cast to bf16 gives f32 encodings (the dual encoder's output,
+    as the reference's) that differ from the f32 encoder's by bf16
+    rounding, and the phase-1 aggregate over them in ``cco_stats`` is f32
+    and finite, with f32 master parameters untouched."""
+    cfg = get_config("resnet14-cifar")
+    de = get_dual_encoder_config("resnet14-cifar")
+    params = dual_encoder.init_dual_encoder(0, cfg, de, device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = torch.rand((MAIN_N, 32, 32, 3), generator=gen, device=device)
+    batch = {"v1": x, "v2": x.flip(2)}
+    apply = train.make_apply(cfg, de)
+    with torch.no_grad():
+        zf32, _ = apply(params, batch)
+        zf, zg = round_engine.cast_encoder_apply(apply, "bfloat16")(params,
+                                                                    batch)
+        agg = round_engine.make_kernel_agg_stats()(
+            zf, zg, torch.ones(MAIN_N, device=device))
+    torch.cuda.synchronize()
+    rel = float(torch.linalg.norm(zf - zf32) / torch.linalg.norm(zf32))
+    masters = all(t.dtype == torch.float32
+                  for t in utils.tree_leaves(params))
+    ok = (zf.dtype == torch.float32 and 0.0 < rel < 0.25 and masters
+          and all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+                  for v in agg.values()))
+    dtypes = sorted({str(v.dtype) for v in agg.values()})
+    print(f"bf16 compute at full width: encodings {zf.dtype} entering "
+          f"cco_stats, |z_bf16 - z_f32| / |z_f32| = {rel:.3e}, aggregate "
+          f"statistics {dtypes}, master params f32 {masters}", flush=True)
+    if not ok:
+        fail("bf16 compute: the encodings or statistics are not f32, or the "
+             "bf16 tower did not run")
+
+
+def drift_paths(device):
+    """FedProx, SCAFFOLD (flat, over int8, through the tree, buffered,
+    FedAvg) and bf16 compute on the ResNet, PATH_ROUNDS rounds each from
+    seed 0, beside one D-CCO run in the same call. Returns the paths'
+    launch counts."""
+    p = PATH_ROUNDS
+    tree = ["--edges", "8", "--channel", "int8", "--edge-channel", "dense"]
+    def local2(lr):
+        return ["--local-steps", "2", "--client-lr", lr]
+
+    paths = [
+        ("dcco fedprox", ["--fedprox-mu", MU, *local2(LR_DCCO_LOCAL2),
+                          "--stats-kernel", "fused"], "dcco", {"cross": p}),
+        ("dcco scaffold", ["--scaffold", *local2(LR_DCCO_LOCAL2),
+                           "--stats-kernel", "fused"], "dcco", {"cross": p}),
+        # the statistics, the deltas and the variate deltas
+        ("dcco scaffold over int8", ["--scaffold", "--channel", "int8",
+                                     "--quant-kernel", "fused"], "dcco",
+         {"column": 3 * p}),
+        # the per-edge mass and the three payloads' folds
+        ("dcco scaffold hierarchical", ["--scaffold", *tree], "dcco",
+         {"fold": 4 * p, "column": 3 * p}),
+        # the variate average is a tensordot: the ring's two folds only
+        ("buffered scaffold", ["--scaffold", "--async-k", "32",
+                               "--latency-tail", "1.0", "--staleness",
+                               "poly"], "dcco", {"fold": 2 * p}),
+        ("fedavg_cco scaffold", ["--scaffold", *local2(LR_FEDAVG_SCAFFOLD)],
+         "fedavg_cco", {}),
+        ("dcco bf16", ["--compute-dtype", "bfloat16", "--stats-kernel",
+                       "fused"], "dcco", {"cross": p})]
+    counts = []
+    for name, flags, algorithm, expected in paths:
+        c, res = train_path(name, flags, p, expected, algorithm)
+        counts.append(c)
+        if not all(x.dtype == torch.float32
+                   for x in utils.tree_leaves(res["params"])):
+            fail(f"{name}: trained parameters are not f32")
+        if "--scaffold" in flags:
+            variate_share(name, flags, res, p)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    check_bf16_encodings(device)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1098,10 +1234,11 @@ def main():
                                  "--retrieval-queries", "512"], PATH_ROUNDS,
                    {"cross": PATH_ROUNDS, "search": PATH_ROUNDS})]
     fedavg = fedavg_paths()
+    drifted = drift_paths(device)
     mips_figures = check_mips_laws(device)
     served = serving_phase(device, runs[-1][1]["params"])
     served += serving_rate(device)
-    runs = [counts for counts, _ in runs] + fedavg + served
+    runs = [counts for counts, _ in runs] + fedavg + drifted + served
     # the token path, with the serving phase's corpora released
     gc.collect()
     torch.cuda.empty_cache()
@@ -1124,9 +1261,35 @@ def main():
         "tinyllama fedavg_contrastive", tok_flags, PATH_ROUNDS,
         {"flash": 2 * TOK_LAYERS * PATH_ROUNDS}, "fedavg_contrastive")
     runs.append(counts)
+    del tok_fedavg["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # FedProx's two local steps: phase 1's 44 forwards, then 44 in each
+    # step of phase 2
+    prox = ["--fedprox-mu", MU, "--local-steps", "2", "--client-lr",
+            TOK_PROX_LR, "--stats-kernel", "fused"]
+    tok_expected = {"flash": 3 * 2 * TOK_LAYERS * PATH_ROUNDS,
+                    "cross": PATH_ROUNDS}
+    try:
+        counts, tok_prox = train_path("tinyllama dcco fedprox",
+                                      [*tok_flags, *prox], PATH_ROUNDS,
+                                      tok_expected)
+    except torch.cuda.OutOfMemoryError:
+        print(f"tinyllama dcco fedprox: out of memory at K={TOK_K}, last "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"running K=2", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts, tok_prox = train_path(
+            "tinyllama dcco fedprox (K=2)",
+            [*tok_flags, *prox, "--clients-per-round", "2"], PATH_ROUNDS,
+            tok_expected)
+    runs.append(counts)
     print(f"tinyllama peak device memory: fedavg_contrastive "
           f"{tok_fedavg['peak_gib']:.2f} GiB, dcco "
-          f"{tok_dcco['peak_gib']:.2f} GiB", flush=True)
+          f"{tok_dcco['peak_gib']:.2f} GiB, dcco fedprox (2 local steps) "
+          f"{tok_prox['peak_gib']:.2f} GiB", flush=True)
     # launches of each kernel on the main paths, read from their counts
     # (the per-row form runs on none of them, nor in the reference)
     figures["fold"] = seg_figures["hierarchy deltas"]

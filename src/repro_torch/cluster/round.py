@@ -110,7 +110,11 @@ def make_cluster_round_body(encoder_apply: Callable, server_opt,
 
     ``channel_draws`` takes a channel's draws as ``stats_round`` takes
     them (``"begin"``, ``"stats"``, ``"update"``), plus ``"edges"``, the
-    edge hop's begin draws when the cluster ids re-route a hierarchy."""
+    edge hop's begin draws when the cluster ids re-route a hierarchy.
+    FedProx (``cfg.prox_mu``) pulls each client toward its cluster's
+    slot; SCAFFOLD is refused, as in the reference."""
+    from repro_torch.core import round_engine as engine_lib
+
     num_clusters = int(cfg.num_clusters)
     if cfg.algorithm != "dcco":
         raise ValueError(
@@ -121,6 +125,13 @@ def make_cluster_round_body(encoder_apply: Callable, server_opt,
             "stats_kernel='fused' aggregates phase-1 stats from the "
             "flattened cohort; clustering assigns PER-CLIENT stats, so it "
             "needs per-client payloads")
+    if cfg.scaffold:
+        raise ValueError(
+            "SCAFFOLD variates assume one shared broadcast model; the "
+            "clustered round broadcasts per-cluster params, so disable "
+            "scaffold for clustered aggregation")
+    encoder_apply = engine_lib.cast_encoder_apply(encoder_apply,
+                                                  cfg.compute_dtype)
     objective = fed_sim.resolve_objective(cfg.objective, cfg.lam)
     server_update = server_update_lib.as_server_update(
         cfg.server_update if cfg.server_update is not None else server_opt)
@@ -222,7 +233,8 @@ def make_cluster_round_body(encoder_apply: Callable, server_opt,
                     objective.combine(local, agg_k))
 
             return fed_sim.client_local_steps(loss_fn, p_k, cfg.client_lr,
-                                              cfg.local_steps)
+                                              cfg.local_steps,
+                                              prox_mu=cfg.prox_mu)
 
         deltas, losses_k = vmap(client_update)(
             batch, masks, _take(cstate.params_c, ids), _take(agg_c, ids))

@@ -27,9 +27,12 @@ draws also takes the draws themselves (``draws=``), which is how the tests
 feed the port the reference's random numbers.
 
 The two-level tree is :class:`repro_torch.hierarchy.HierarchicalChannel`,
-which composes two of these as its hops. The reference's sharded and
-streaming folds (``local_fold``, ``chunk_fold``) and the SCAFFOLD
-``"variate"`` phase are not ported yet (ROADMAP §1).
+which composes two of these as its hops. Three phases ride the wire: the
+phase-1 ``"stats"``, the phase-2 ``"update"`` and SCAFFOLD's ``"variate"``
+(the per-client control-variate deltas, :mod:`repro_torch.server.drift`),
+so quantization, DP noise and dropout compose with drift correction and
+its bytes are counted. The reference's sharded and streaming folds
+(``local_fold``, ``chunk_fold``) are not ported yet (ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -44,9 +47,9 @@ from repro_torch.comm.quantize import (payload_bytes as quant_payload_bytes,
 
 F32 = torch.float32
 
-# salts folded into the round's channel seed so the stats and update phases
-# (and the dropout mask) draw independent randomness
-PHASE_SALT = {"stats": 0x57A75, "update": 0x0BDA7E}
+# salts folded into the round's channel seed so the stats, update and
+# variate phases (and the dropout mask) draw independent randomness
+PHASE_SALT = {"stats": 0x57A75, "update": 0x0BDA7E, "variate": 0x5CAF0}
 _MASK_SALT = 0x3A5C
 
 

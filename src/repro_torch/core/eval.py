@@ -15,19 +15,23 @@ F32 = torch.float32
 def ridge_linear_probe(train_z, train_y, test_z, test_y, num_classes: int,
                        l2: float = 1e-2):
     """Fit W on (train_z -> one-hot) in closed form; return test accuracy
-    (a scalar tensor on the encodings' device)."""
+    (a scalar tensor on the encodings' device). A system that cannot be
+    solved (the encodings of a diverged run are not finite) gives NaN
+    rather than raising on the GPU or scoring weights made of garbage."""
     z = train_z.to(F32)
     z = torch.cat([z, torch.ones((z.shape[0], 1), dtype=F32,
                                  device=z.device)], dim=1)      # bias
     y = F.one_hot(train_y.long(), num_classes).to(F32)
     d = z.shape[1]
     a = z.T @ z + l2 * torch.eye(d, dtype=F32, device=z.device)
-    w = torch.linalg.solve(a, z.T @ y)
+    w, info = torch.linalg.solve_ex(a, z.T @ y)
     zt = torch.cat([test_z.to(F32), torch.ones((test_z.shape[0], 1),
                                                dtype=F32, device=z.device)],
                    dim=1)
     pred = torch.argmax(zt @ w, dim=-1)
-    return (pred == test_y.long()).to(F32).mean()
+    acc = (pred == test_y.long()).to(F32).mean()
+    solved = (info == 0) & torch.isfinite(w).all()
+    return torch.where(solved, acc, torch.full_like(acc, float("nan")))
 
 
 def recall_at_k(retrieved_relevant, ks=(1, 5, 10)):

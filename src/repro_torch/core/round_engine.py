@@ -32,6 +32,16 @@ and then the per-client average; the reference makes the caller choose.
 ``EngineConfig.channel`` routes every client uplink through a
 :mod:`repro_torch.comm` channel, with per-round ``wire_bytes``.
 
+Client drift (:mod:`repro_torch.server.drift`): ``EngineConfig.prox_mu``
+adds FedProx's proximal term to every local step, and
+``EngineConfig.scaffold`` carries SCAFFOLD's control variates from round
+to round (``EngineCarry.drift``; ``run(drift_state=)`` resumes them, and
+``self.drift_state`` holds them after a run), their deltas an uplink of
+their own (the channel's ``"variate"`` phase). ``EngineConfig.
+compute_dtype="bfloat16"`` runs the encoder in bf16
+(:func:`cast_encoder_apply`) while parameters, optimizer state, deltas,
+variates and every statistic stay f32.
+
 Two more round bodies ride the same loop, each with its state in the
 carry. ``num_clusters > 1`` runs the cluster-aware round
 (:mod:`repro_torch.cluster`, ``EngineCarry.cluster``). ``async_k > 0``
@@ -65,6 +75,7 @@ from repro_torch.core import buffer as buffer_lib
 from repro_torch.core import cco, fed_sim
 from repro_torch.data import latency as latency_lib
 from repro_torch.kernels.cco_stats import cco_stats
+from repro_torch.server import drift as drift_lib
 from repro_torch.server import update as server_update_lib
 
 F32 = torch.float32
@@ -77,6 +88,49 @@ _FEDAVG_KINDS = {"fedavg_cco": "stats", "fedavg_contrastive": "contrastive",
 STATS_KERNELS = ("off", "fused")
 _ROUND_SEED_STRIDE = 1_000_003
 _CHANNEL_SALT = 0xC0                # fold_in salt of the per-round channel seed
+
+# EngineConfig.compute_dtype spellings -> torch dtype. Only the encoder's
+# forward and backward run in the compute dtype (cast_encoder_apply).
+COMPUTE_DTYPES = {
+    "float32": torch.float32, "f32": torch.float32, "fp32": torch.float32,
+    "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+}
+
+
+def resolve_compute_dtype(compute_dtype):
+    """An EngineConfig.compute_dtype spelling -> its torch dtype."""
+    if compute_dtype in COMPUTE_DTYPES:
+        return COMPUTE_DTYPES[compute_dtype]
+    raise ValueError(f"unknown compute_dtype {compute_dtype!r}; expected one "
+                     f"of {sorted(COMPUTE_DTYPES)}")
+
+
+def cast_encoder_apply(encoder_apply: Callable, compute_dtype) -> Callable:
+    """Run the encoder's forward and backward in ``compute_dtype`` while
+    the Eq.-3 statistics stay f32.
+
+    The losses divide near-cancelling sums of per-sample statistics, so
+    the accumulation is the precision-critical path, not the encoder. The
+    wrapper casts float params and float batch leaves to ``compute_dtype``
+    at the encoder boundary and returns the encoder's outputs unchanged;
+    ``cco.moment_stats`` and the ``cco_stats`` kernel's wrapper upcast to
+    f32 before any reduction, so every statistic, loss, delta and
+    optimizer buffer is f32. The cast is differentiable, so the gradient
+    of a master parameter is f32. ``float32`` returns ``encoder_apply``
+    itself. Integer leaves (token ids) pass through.
+    """
+    dtype = resolve_compute_dtype(compute_dtype)
+    if dtype == torch.float32:
+        return encoder_apply
+
+    def cast_tree(tree):
+        return utils.tree_map(
+            lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
+
+    def apply(params, batch):
+        return encoder_apply(cast_tree(params), cast_tree(batch))
+
+    return apply
 
 
 class EngineConfig(NamedTuple):
@@ -102,6 +156,14 @@ class EngineConfig(NamedTuple):
                                     # = the engine's server_opt argument
                                     # (an Optimizer becomes the fedavg_sgd
                                     # delegate)
+    compute_dtype: str = "float32"  # the encoder's forward/backward type
+                                    # ("float32" | "bfloat16"; aliases f32,
+                                    # fp32, bf16); statistics, losses,
+                                    # deltas, optimizer state and master
+                                    # params stay f32 (cast_encoder_apply)
+    prox_mu: float = 0.0            # FedProx proximal coefficient (0: off)
+    scaffold: bool = False          # SCAFFOLD control variates, carried
+                                    # in EngineCarry.drift
     # --- cluster-aware aggregation (repro_torch.cluster) ---
     num_clusters: int = 0           # >1: cosine k-means on the per-client
                                     # stats assigns each cohort client a
@@ -149,6 +211,8 @@ class EngineCarry(NamedTuple):
     reval: Any = ()                 # a stateful retrieval eval's state
                                     # (the refreshing eval's encoded
                                     # corpus), else empty
+    drift: Any = ()                 # server.drift.ScaffoldState when
+                                    # EngineConfig.scaffold, else empty
 
 
 class EngineMetrics(NamedTuple):
@@ -219,22 +283,39 @@ def _server_update_of(cfg: EngineConfig, server_opt):
         cfg.server_update if cfg.server_update is not None else server_opt)
 
 
+def _required_drift(drift):
+    """A SCAFFOLD body's ``drift=``, which it cannot run without."""
+    if drift is None:
+        raise ValueError("EngineConfig.scaffold needs the ScaffoldState as "
+                         "drift= (server.drift.scaffold_init)")
+    return drift
+
+
 def make_round_body(encoder_apply: Callable, server_opt,
                     cfg: EngineConfig) -> Callable:
-    """Build round_fn(params, opt_state, batch, sizes, channel_key=None)
-    -> (params, opt_state, metrics) for ``cfg.algorithm``."""
+    """Build round_fn(params, opt_state, batch, sizes, channel_key=None,
+    drift=None) -> (params, opt_state, metrics) for ``cfg.algorithm``;
+    with ``cfg.scaffold`` it takes the ScaffoldState as ``drift=`` and
+    returns (params, opt_state, drift, metrics)."""
     if cfg.algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}; "
                          f"expected one of {ALGORITHMS}")
+    encoder_apply = cast_encoder_apply(encoder_apply, cfg.compute_dtype)
     objective = fed_sim.resolve_objective(cfg.objective, cfg.lam)
     if cfg.objective is not None and cfg.algorithm in (
             "fedavg_contrastive", "fedavg_byol"):
         raise ValueError(
             f"algorithm {cfg.algorithm!r} trains a non-stats loss; "
             f"objective={objective!r} would be silently ignored")
+    if cfg.algorithm == "centralized" and (cfg.scaffold or cfg.prox_mu):
+        raise ValueError(
+            "the centralized body has no local client training, so "
+            "drift correction (scaffold / prox_mu) does not apply")
     server_update = _server_update_of(cfg, server_opt)
     channel = cfg.channel
     if channel is not None:
+        if cfg.scaffold:
+            fed_sim.check_variate_noise(channel)
         if cfg.algorithm == "centralized":
             raise ValueError(
                 "the centralized body has no client->server wire; "
@@ -259,24 +340,31 @@ def make_round_body(encoder_apply: Callable, server_opt,
     if cfg.algorithm == "dcco":
         agg_stats_fn = _resolve_agg_stats_fn(cfg, objective)
 
-        def round_fn(params, opt_state, batch, sizes, channel_key=None):
+        def round_fn(params, opt_state, batch, sizes, channel_key=None,
+                     drift=None):
             return fed_sim.stats_round(
                 encoder_apply, params, opt_state, server_update, batch,
                 sizes, objective=objective, client_lr=cfg.client_lr,
                 local_steps=cfg.local_steps, agg_stats_fn=agg_stats_fn,
-                channel=channel, channel_key=channel_key)
+                channel=channel, channel_key=channel_key,
+                prox_mu=cfg.prox_mu,
+                scaffold_state=_required_drift(drift) if cfg.scaffold
+                else None)
         return round_fn
 
     if cfg.algorithm in _FEDAVG_KINDS:
         kind = _FEDAVG_KINDS[cfg.algorithm]
 
-        def round_fn(params, opt_state, batch, sizes, channel_key=None):
+        def round_fn(params, opt_state, batch, sizes, channel_key=None,
+                     drift=None):
             return fed_sim.fedavg_round(
                 encoder_apply, params, opt_state, server_update, batch,
                 sizes, loss_kind=kind, objective=objective,
                 temperature=cfg.temperature, client_lr=cfg.client_lr,
                 local_steps=cfg.local_steps, channel=channel,
-                channel_key=channel_key)
+                channel_key=channel_key, prox_mu=cfg.prox_mu,
+                scaffold_state=_required_drift(drift) if cfg.scaffold
+                else None)
         return round_fn
 
     # centralized: union of the cohort, one large-batch stats step
@@ -297,8 +385,10 @@ def make_round_body(encoder_apply: Callable, server_opt,
 def make_async_round_body(encoder_apply: Callable, server_opt,
                           cfg: EngineConfig) -> Callable:
     """Build the buffered round body: ``round_fn(params, opt_state, astate,
-    batch, sizes, delays, channel_key=None, channel_draws=None) ->
-    (params, opt_state, astate, EngineMetrics row)``.
+    batch, sizes, delays, channel_key=None, channel_draws=None,
+    drift=None) -> (params, opt_state, astate, EngineMetrics row)``; with
+    ``cfg.scaffold`` it takes the ScaffoldState as ``drift=`` and returns
+    (params, opt_state, astate, drift, metrics).
 
     Each scheduler tick dispatches a full cohort through the two-phase
     round's math (phase-1 stats, the dispatch cohort's aggregate, phase-2
@@ -308,7 +398,10 @@ def make_async_round_body(encoder_apply: Callable, server_opt,
     this tick's arrivals fold into the server buffer, and the update
     applies only when ``cfg.async_k`` contributions have accumulated (then
     the buffer resets). The step is computed every tick and kept by a
-    device ``torch.where``, so no tick waits for the host.
+    device ``torch.where``, so no tick waits for the host. SCAFFOLD's
+    variate refresh is client-side state, so it stays
+    dispatch-synchronous: it runs every tick on that tick's deltas, its
+    uplink on this tick's wire, and is never buffered.
     """
     if cfg.algorithm != "dcco":
         raise ValueError(
@@ -320,6 +413,7 @@ def make_async_round_body(encoder_apply: Callable, server_opt,
             "flattened cohort; the async buffer scatters per-client "
             "contributions by arrival delay, so it needs per-client "
             "payloads")
+    encoder_apply = cast_encoder_apply(encoder_apply, cfg.compute_dtype)
     objective = fed_sim.resolve_objective(cfg.objective, cfg.lam)
     staleness_fn = buffer_lib.resolve_staleness(cfg.staleness_fn)
     server_update = _server_update_of(cfg, server_opt)
@@ -340,7 +434,9 @@ def make_async_round_body(encoder_apply: Callable, server_opt,
     k_trigger = float(cfg.async_k)
 
     def round_fn(params, opt_state, astate, batch, sizes, delays,
-                 channel_key=None, channel_draws=None):
+                 channel_key=None, channel_draws=None, drift=None):
+        if cfg.scaffold:
+            _required_drift(drift)
         k, n_pad = utils.tree_leaves(batch)[0].shape[:2]
         masks = fed_sim._client_masks(sizes, n_pad)
         draws = channel_draws or {}
@@ -380,17 +476,19 @@ def make_async_round_body(encoder_apply: Callable, server_opt,
                 wire, edge_wire = wire + total, edge_wire + edge
 
         # ---- phase 2: local steps against the dispatch aggregate
-        def client_update(b, m):
+        def client_update(b, m, corr=None):
             def loss_fn(p):
                 zf_k, zg_k = encoder_apply(p, b)
                 local = objective.stats_masked(zf_k, zg_k, m)
                 return objective.loss_from_stats(
                     objective.combine(local, agg))
 
-            return fed_sim.client_local_steps(loss_fn, params, cfg.client_lr,
-                                              cfg.local_steps)
+            return fed_sim.client_local_steps(
+                loss_fn, params, cfg.client_lr, cfg.local_steps,
+                prox_mu=cfg.prox_mu, correction=corr)
 
-        deltas, losses_k = vmap(client_update)(batch, masks)
+        deltas, losses_k = fed_sim._vmap_clients(
+            client_update, batch, masks, drift if cfg.scaffold else None)
 
         with torch.no_grad():
             if ctx is None:
@@ -401,6 +499,11 @@ def make_async_round_body(encoder_apply: Callable, server_opt,
                 total, edge = fed_sim.channel_bytes(
                     channel, ctx, utils.tree_map(lambda x: x[0], deltas))
                 wire, edge_wire = wire + total, edge_wire + edge
+            if cfg.scaffold:
+                drift, extra, edge = fed_sim._scaffold_round_tail(
+                    drift, deltas, cfg.client_lr, cfg.local_steps, w, ctx,
+                    channel, draws.get("variate"))
+                wire, edge_wire = wire + extra, edge_wire + edge
 
             # ---- staleness-weighted scatter into the in-flight ring
             s_w = staleness_fn(delays.to(F32))
@@ -430,6 +533,8 @@ def make_async_round_body(encoder_apply: Callable, server_opt,
             (w * losses_k).sum(), objective.encoding_std(agg), wire,
             edge_wire, do_apply.to(F32),
             torch.where(do_apply, mean_tau, torch.zeros_like(mean_tau)), {})
+        if cfg.scaffold:
+            return params2, opt2, astate2, drift, metrics
         return params2, opt2, astate2, metrics
 
     return round_fn
@@ -479,6 +584,7 @@ class RoundEngine:
         self._encoder_apply = encoder_apply
         self._objective = fed_sim.resolve_objective(config.objective,
                                                     config.lam)
+        self.drift_state = None      # final ScaffoldState of the last run()
         self.buffer_state = None     # final AsyncState of the last run()
         self.cluster_state = None    # final ClusterState of the last run()
         self._async = config.async_k > 0
@@ -579,15 +685,17 @@ class RoundEngine:
 
     def run(self, params, opt_state, seed: int, rounds: int, *,
             start_round: int = 0, on_segment: Optional[Callable] = None,
-            buffer_state=None, cluster_state=None):
+            drift_state=None, buffer_state=None, cluster_state=None):
         """Run ``rounds`` rounds; returns (params, opt_state, EngineMetrics).
 
         ``on_segment(round_end, carry, seg_metrics)`` fires after each
         segment of ``chunk_rounds`` rounds, with an :class:`EngineCarry`.
-        The buffered and clustered paths carry their state from round to
-        round: pass ``buffer_state=`` / ``cluster_state=`` to resume it
-        (fresh state otherwise) and read the final one from
-        ``self.buffer_state`` / ``self.cluster_state``.
+        SCAFFOLD (``EngineConfig.scaffold``), the buffered and the
+        clustered paths carry their state from round to round: pass
+        ``drift_state=`` / ``buffer_state=`` / ``cluster_state=`` to
+        resume it (fresh state otherwise: zero variates for the first
+        batch's K slots) and read the final one from ``self.drift_state``
+        / ``self.buffer_state`` / ``self.cluster_state``.
 
         With ``EngineConfig.retrieval_eval`` the ``retrieval`` field of
         the metrics carries per-round recall@k / MRR (NaN on rounds the
@@ -596,7 +704,8 @@ class RoundEngine:
         initial params and rides the carry (``EngineCarry.reval``)."""
         device = utils.tree_leaves(params)[0].device
         channel = self.config.channel
-        buffer, cluster = buffer_state, cluster_state
+        scaffold = self.config.scaffold
+        drift, buffer, cluster = drift_state, buffer_state, cluster_state
         reval = ()
         if self._retrieval_stateful:
             with torch.no_grad():
@@ -614,24 +723,31 @@ class RoundEngine:
                 batch, sizes = out[:2]
                 key = (None if channel is None
                        else utils.fold_in(round_seed, _CHANNEL_SALT))
+                if scaffold and drift is None:
+                    drift = drift_lib.scaffold_init(params, sizes.shape[0])
+                drift_kw = {"drift": drift} if scaffold else {}
                 if self._async_real:
                     if buffer is None:
                         buffer = self._init_async_state(params, batch)
-                    params, opt_state, buffer, m = self.round_fn(
-                        params, opt_state, buffer, batch, sizes, out[2], key)
+                    params, opt_state, buffer, *res = self.round_fn(
+                        params, opt_state, buffer, batch, sizes, out[2], key,
+                        **drift_kw)
                 elif self._clustered:
                     if cluster is None:
                         cluster = self._init_cluster_state(params, opt_state,
                                                            batch)
                     params, opt_state, cluster, m = self.round_fn(
                         params, opt_state, cluster, batch, sizes, key)
-                    m = _sync_metrics(m, device)
+                    res = [_sync_metrics(m, device)]
                 else:
                     # a collapsed async config draws its delays and
                     # ignores them: same cohorts, the sync body
-                    params, opt_state, m = self.round_fn(params, opt_state,
-                                                         batch, sizes, key)
-                    m = _sync_metrics(m, device)
+                    params, opt_state, *res = self.round_fn(
+                        params, opt_state, batch, sizes, key, **drift_kw)
+                    res[-1] = _sync_metrics(res[-1], device)
+                if scaffold:
+                    drift = res[0]
+                m = res[-1]
                 for col, x in zip(per_round, m[:-1]):
                     col.append(x)
                 rm, reval = self._retrieval_metrics(params, r, reval)
@@ -647,11 +763,13 @@ class RoundEngine:
                            EngineCarry(params, opt_state,
                                        () if buffer is None else buffer,
                                        () if cluster is None else cluster,
-                                       reval),
+                                       reval,
+                                       () if drift is None else drift),
                            m)
         if channel is not None:
             # host-side bookkeeping (the DP epsilon accountant)
             channel.finalize_rounds(done)
+        self.drift_state = drift if scaffold else None
         self.buffer_state = buffer if self._async_real else None
         self.cluster_state = cluster if self._clustered else None
         metrics = EngineMetrics(*(torch.cat(c) if c else torch.zeros((0,))

@@ -12,13 +12,21 @@ rounds, times ``--rounds`` more on the host clock (synchronised, no
 profiler), then profiles as many again with ``torch.profiler`` and prints
 the device's busy share of the profiled wall time and the kernels that
 took the device time, grouped by layer. Only device-side events (kernels,
-copies) are summed, so a kernel is not counted again under the operator
-that launched it.
+copies) are read, so a kernel is not counted again under the operator
+that launched it; a record the profiler holds twice (same kernel, same
+start and end) is read once, and busy time is the union of the
+intervals, so kernels that overlap on two streams do not count twice.
+The summed kernel time, and its share on each stream, are printed beside
+it. ``--fedprox-mu``, ``--scaffold``, ``--compute-dtype``,
+``--local-steps`` and ``--client-lr`` set the round as train's flags of
+those names do.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_round --full \\
       --clients-per-round 64 --dataset-size 2048 [--path clustered]
   PYTHONPATH=src python -m repro_torch.launch.profile_round --full \\
       --arch tinyllama-1.1b --seq-len 128 --clients-per-round 8
+  PYTHONPATH=src python -m repro_torch.launch.profile_round --full \\
+      --scaffold --local-steps 2 [--compute-dtype bfloat16]
 
 On the CPU (``--device cpu``) there is no device time to read; the
 profile then lists host operator times only.
@@ -72,12 +80,25 @@ def _layer(name: str) -> str:
     return "elementwise and other"
 
 
-def _device_us(evt) -> float:
-    """Device time of a device-side event (a kernel or a copy); 0 for the
-    host-side operators, whose device time is their kernels' again."""
-    if getattr(evt, "device_type", None) != DeviceType.CUDA:
-        return 0.0
-    return float(evt.device_time_total)
+def device_time(records):
+    """Read device-side records ``(name, start_us, end_us)``: drop exact
+    duplicates, then return ``(kernels, union_us, summed_us, dropped)``
+    with ``kernels`` a list of ``(name, count, us)``, ``union_us`` the
+    time in which at least one record ran, ``summed_us`` their summed
+    durations and ``dropped`` the number of duplicates."""
+    unique = set(records)
+    per_name: dict = {}
+    for name, a, b in unique:
+        count, us = per_name.get(name, (0, 0.0))
+        per_name[name] = (count + 1, us + (b - a))
+    union_us, reach = 0.0, float("-inf")
+    for _, a, b in sorted(unique, key=lambda r: r[1]):
+        if b > reach:
+            union_us += b - max(a, reach)
+            reach = b
+    kernels = [(name, count, us) for name, (count, us) in per_name.items()]
+    return (kernels, union_us, sum(us for *_, us in kernels),
+            len(records) - len(unique))
 
 
 PATHS = ("dcco", "hierarchical", "clustered", "buffered", "retrieval",
@@ -136,6 +157,17 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=list(round_engine.STATS_KERNELS),
                     help="as train's flag; default: 'fused' where the "
                          "path allows it")
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=sorted(round_engine.COMPUTE_DTYPES),
+                    help="as train's flag")
+    ap.add_argument("--fedprox-mu", type=float, default=0.0,
+                    help="as train's flag")
+    ap.add_argument("--scaffold", action="store_true",
+                    help="as train's flag")
+    ap.add_argument("--local-steps", type=int, default=1,
+                    help="as train's flag")
+    ap.add_argument("--client-lr", type=float, default=1.0,
+                    help="as train's flag")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -163,8 +195,11 @@ def main(argv=None) -> dict:
     if args.path == "retrieval":
         fields["retrieval_eval"] = _retrieval_eval(cfg, de_cfg, ds, labels,
                                                    device)
-    ecfg = round_engine.EngineConfig(lam=5.0, chunk_rounds=1,
-                                     stats_kernel=args.stats_kernel, **fields)
+    ecfg = round_engine.EngineConfig(
+        lam=5.0, chunk_rounds=1, stats_kernel=args.stats_kernel,
+        compute_dtype=args.compute_dtype, prox_mu=args.fedprox_mu,
+        scaffold=args.scaffold, local_steps=args.local_steps,
+        client_lr=args.client_lr, **fields)
     if ecfg.async_k:
         sampler = ds.make_async_round_sampler(args.clients_per_round, device,
                                               ecfg.latency)
@@ -178,8 +213,9 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize(device)
 
     def rounds(n):
-        # the buffered and clustered paths carry their state on
+        # SCAFFOLD, the buffered and the clustered paths carry their state
         engine.run(params, opt_state, args.seed, n, start_round=args.warmup,
+                   drift_state=engine.drift_state,
                    buffer_state=engine.buffer_state,
                    cluster_state=engine.cluster_state)
 
@@ -197,12 +233,26 @@ def main(argv=None) -> dict:
         rounds(args.rounds)
         sync()
         prof_ms = (time.perf_counter() - t0) * 1e3 / args.rounds
-    events = prof.key_averages()
-    kernels = sorted(((e.key, e.count, _device_us(e) / 1e3 / args.rounds)
-                      for e in events if _device_us(e) > 0),
-                     key=lambda x: -x[2])
-    busy_ms = sum(ms for _, _, ms in kernels)
-    print(f"path {args.path}; arch {args.arch}; device {device}; "
+    device_events = [e for e in prof.events()
+                     if getattr(e, "device_type", None) == DeviceType.CUDA]
+    records = [(e.name, e.time_range.start, e.time_range.end)
+               for e in device_events]
+    kernels, union_us, summed_us, dropped = device_time(records)
+    per_stream: dict = {}            # the profiler's resource id: a stream
+    for e in device_events:
+        sid = getattr(e, "device_resource_id", None)
+        per_stream[sid] = per_stream.get(sid, 0.0) + e.time_range.elapsed_us()
+    kernels = sorted(((name, count, us / 1e3 / args.rounds)
+                      for name, count, us in kernels), key=lambda x: -x[2])
+    busy_ms = union_us / 1e3 / args.rounds
+    summed_ms = summed_us / 1e3 / args.rounds
+    drift = "".join(f"; {flag}" for flag, on in (
+        (f"fedprox mu {args.fedprox_mu}", args.fedprox_mu),
+        ("scaffold", args.scaffold),
+        (f"compute {args.compute_dtype}", args.compute_dtype != "float32"),
+        (f"local steps {args.local_steps}", args.local_steps != 1),
+        (f"client lr {args.client_lr!r}", args.client_lr != 1.0)) if on)
+    print(f"path {args.path}{drift}; arch {args.arch}; device {device}; "
           f"{args.clients_per_round} "
           f"clients x "
           f"{args.samples_per_client}; wall {wall_ms:.3f} ms/round over "
@@ -215,11 +265,17 @@ def main(argv=None) -> dict:
         launches = sum(count for _, count, _ in kernels) / args.rounds
         print(f"device busy {busy_ms:.3f} ms/round = "
               f"{100 * busy_ms / prof_ms:.1f}% of the profiled wall (idle "
-              f"{100 * (1 - busy_ms / prof_ms):.1f}%), {launches:.0f} device "
-              f"events/round")
+              f"{100 * (1 - busy_ms / prof_ms):.1f}%; the union of the "
+              f"kernels' intervals), {launches:.0f} device events/round; "
+              f"kernel time summed {summed_ms:.3f} ms/round; "
+              f"{dropped / args.rounds:.0f} duplicate records/round dropped")
+        print(f"device records on {len(per_stream)} stream(s), summed ms/"
+              f"round: " + ", ".join(
+                  f"{sid}: {us / 1e3 / args.rounds:.3f}" for sid, us in
+                  sorted(per_stream.items(), key=lambda x: -x[1])))
         for layer, ms in sorted(by_layer.items(), key=lambda x: -x[1]):
             print(f"  {layer:40s} {ms:9.3f} ms/round "
-                  f"{100 * ms / busy_ms:5.1f}% of device time")
+                  f"{100 * ms / summed_ms:5.1f}% of summed kernel time")
         print(f"top {args.top} kernels (device ms/round, launches/round):")
         for name, count, ms in kernels[:args.top]:
             print(f"  {ms:9.4f} {count / args.rounds:6.1f}  {name[:90]}")
@@ -228,6 +284,7 @@ def main(argv=None) -> dict:
               "kernels): device busy share not measured")
     return {"wall_ms": wall_ms, "profiled_ms": prof_ms,
             "busy_ms": busy_ms if kernels else None,
+            "summed_ms": summed_ms if kernels else None,
             "by_layer": by_layer, "kernels": kernels}
 
 

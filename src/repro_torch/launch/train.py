@@ -11,9 +11,12 @@ uplink (``--channel``), through a two-level client -> edge -> server tree
 held-out split every few rounds (``--retrieval-eval``: recall@1/5/10 and
 MRR, searched by the MIPS top-k kernel). ``--server-opt`` selects the
 server strategy (the FedAvg delegate of ``--server-optimizer``, or FedAvgM,
-FedAdagrad, FedAdam, FedYogi with ``--server-tau``). The ridge probe reads
-the ResNet tower; for a token tower it reports NaN, as the reference's
-does.
+FedAdagrad, FedAdam, FedYogi with ``--server-tau``). ``--fedprox-mu`` and
+``--scaffold`` correct client drift (FedProx's proximal term, SCAFFOLD's
+control variates, their deltas an uplink through ``--channel``), and
+``--compute-dtype bfloat16`` runs the encoder in bf16 with f32 statistics
+and state. The ridge probe reads the ResNet tower; for a token tower it
+reports NaN, as the reference's does.
 
 The CLI trains the two-phase ``dcco`` round, as the reference's does.
 ``run(args, algorithm=...)`` drives the same run through another
@@ -49,6 +52,10 @@ Examples (full width, on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
       --server-opt fedadam --clients-per-round 64 --dataset-size 2048
   PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
+      --scaffold --local-steps 2 --clients-per-round 64 --dataset-size 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
+      --compute-dtype bfloat16 --clients-per-round 64 --dataset-size 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
       --arch tinyllama-1.1b --seq-len 128 --clients-per-round 8 \\
       --samples-per-client 2 --stats-kernel fused
 """
@@ -72,6 +79,7 @@ from repro_torch.data import pipeline, synthetic
 from repro_torch.models import dual_encoder, resnet as resnet_mod
 from repro_torch.models.dual_encoder import input_leaf, is_resnet
 from repro_torch.optim import optimizers as opt_lib, schedules
+from repro_torch.server import drift as drift_lib
 from repro_torch.server import update as server_update_lib
 from repro_torch.utils import resolve_device
 
@@ -149,6 +157,11 @@ def validate_flags(ap, args) -> None:
                 "contributions into ONE server aggregate as they arrive; "
                 "per-cluster aggregation needs the materialized "
                 "synchronous cohort; drop one")
+        if args.scaffold:
+            raise SystemExit(
+                "--clusters with --scaffold: SCAFFOLD variates assume one "
+                "shared broadcast model, the clustered round broadcasts "
+                "per-cluster params; drop one")
         if args.stats_kernel == "fused":
             raise SystemExit(
                 "--clusters needs PER-CLIENT phase-1 stats for the "
@@ -286,6 +299,13 @@ def build_parser() -> argparse.ArgumentParser:
     g = ap.add_argument_group("engine")
     g.add_argument("--chunk-rounds", type=int, default=0,
                    help="rounds per metrics segment (0 = --eval-every)")
+    g.add_argument("--compute-dtype", default="float32",
+                   choices=sorted(round_engine.COMPUTE_DTYPES),
+                   help="encoder forward/backward compute dtype. "
+                        "'bfloat16' halves activation traffic and runs the "
+                        "convolutions and products on bf16 tensor cores; "
+                        "the Eq.-3 statistics, parameters and server state "
+                        "stay float32")
     g.add_argument("--stats-kernel", choices=list(round_engine.STATS_KERNELS),
                    default=None,
                    help="'fused': phase-1 aggregate statistics through the "
@@ -398,9 +418,18 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--server-tau", type=float, default=1e-3,
                    help="adaptivity epsilon tau of the adaptive server "
                         "optimizers")
+    g.add_argument("--fedprox-mu", type=float, default=0.0,
+                   help="FedProx proximal coefficient mu on the client "
+                        "local loss (0 = off; only bites at "
+                        "--local-steps > 1)")
+    g.add_argument("--scaffold", action="store_true",
+                   help="SCAFFOLD control variates (per-cohort-slot) for "
+                        "client-drift correction; the variate uplink is "
+                        "routed through --channel")
     g.add_argument("--server-lr", type=float, default=2e-3)
     g.add_argument("--client-lr", type=float, default=1.0)
-    g.add_argument("--local-steps", type=int, default=1)
+    g.add_argument("--local-steps", type=int, default=1,
+                   help="client local GD steps per round")
     g.add_argument("--lam", type=float, default=5.0)
     return ap
 
@@ -507,6 +536,8 @@ def run(args: argparse.Namespace, *, algorithm: str = "dcco") -> dict:
         client_lr=args.client_lr, local_steps=args.local_steps,
         chunk_rounds=args.chunk_rounds or args.eval_every or 25,
         stats_kernel=args.stats_kernel, channel=channel, server_update=opt,
+        compute_dtype=args.compute_dtype, prox_mu=args.fedprox_mu,
+        scaffold=args.scaffold,
         num_clusters=args.clusters, cluster_iters=args.cluster_iters,
         async_k=args.async_k, staleness_fn=args.staleness, latency=latency,
         retrieval_eval=retrieval_eval,
@@ -567,8 +598,11 @@ def run(args: argparse.Namespace, *, algorithm: str = "dcco") -> dict:
         sync()
         t_seg[0] = time.perf_counter()
 
+    drift_state = (drift_lib.scaffold_init(params, args.clients_per_round)
+                   if args.scaffold else None)
     params, opt_state, _ = engine.run(params, opt_state, args.seed,
-                                      args.rounds, on_segment=on_segment)
+                                      args.rounds, on_segment=on_segment,
+                                      drift_state=drift_state)
     probe = evaluate(params)
     if history:
         print(f"final loss {history[-1]:.4f}; first {history[0]:.4f}; "

@@ -48,8 +48,15 @@ def linear_init(gen, d_in: int, d_out: int, dtype=torch.bfloat16,
 
 
 def linear(p, x):
-    """x (..., d_in) @ w (d_in, d_out) + b."""
-    y = x @ p["w"]
+    """x (..., d_in) @ w (d_in, d_out) + b, in ``x``'s type. Operands of
+    two types (an f32 input to bf16 weights under bf16 compute) meet in
+    the wider one, as the reference's ``einsum`` promotes them."""
+    w = p["w"]
+    if w.dtype != x.dtype:
+        wide = torch.promote_types(x.dtype, w.dtype)
+        y = x.to(wide) @ w.to(wide)
+    else:
+        y = x @ w
     if "b" in p:
         y = y + p["b"]
     return y.to(x.dtype)

@@ -10,6 +10,7 @@ import sys
 import pytest
 import torch
 
+from repro_torch import utils
 from repro_torch.launch import train
 
 # tier-1 runs 6 pytest workers on the machine's cores: one torch thread
@@ -154,6 +155,28 @@ def test_train_refuses_a_lossy_tree_under_the_buffer():
                     "--channel", "int8", *SMALL])
 
 
+@pytest.mark.parametrize("flags", [
+    ["--fedprox-mu", "0.01", "--local-steps", "2"],
+    ["--scaffold", "--local-steps", "2", "--client-lr", "0.5"],
+    ["--compute-dtype", "bfloat16"],
+])
+def test_train_runs_the_drift_and_bf16_paths_on_cpu(flags):
+    res = train.main(["--device", "cpu", *flags, *SMALL])
+    assert res["loss_finite"] and len(res["history"]) == 2
+    assert all(x.dtype == torch.float32
+               for x in utils.tree_leaves(res["params"]))
+
+
+def test_train_refuses_scaffold_beside_clusters_or_an_unnoised_variate():
+    with pytest.raises(SystemExit, match="--scaffold"):
+        train.main(["--device", "cpu", "--clusters", "4", "--scaffold",
+                    *SMALL])
+    # the CLI's DP channel noises the statistics only
+    with pytest.raises(ValueError, match="variate"):
+        train.main(["--device", "cpu", "--channel", "dp", "--scaffold",
+                    *SMALL])
+
+
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)",
                      re.MULTILINE)
 
@@ -208,3 +231,27 @@ def test_profile_round_runs_on_cpu():
         "phase-1")
     assert profile_round._layer("sm90_xmma_fprop_implicit_gemm").startswith(
         "convolutions")
+
+
+def test_profile_round_device_time_is_the_union_of_unique_records():
+    from repro_torch.launch import profile_round
+    records = [("conv", 0.0, 10.0), ("conv", 0.0, 10.0),   # a duplicate
+               ("add", 5.0, 15.0),                          # overlaps conv
+               ("conv", 20.0, 30.0), ("add", 22.0, 25.0)]   # inside conv
+    kernels, union_us, summed_us, dropped = profile_round.device_time(records)
+    assert sorted(kernels) == [("add", 2, 13.0), ("conv", 2, 20.0)]
+    assert (union_us, summed_us, dropped) == (25.0, 33.0, 1)
+    assert profile_round.device_time([]) == ([], 0.0, 0, 0)
+
+
+def test_profile_round_takes_the_drift_and_compute_dtype_flags_on_cpu(
+        capsys):
+    from repro_torch.launch import profile_round
+    res = profile_round.main(["--device", "cpu", "--clients-per-round", "2",
+                              "--dataset-size", "32", "--warmup", "1",
+                              "--rounds", "1", "--scaffold", "--fedprox-mu",
+                              "0.01", "--local-steps", "2",
+                              "--compute-dtype", "bfloat16"])
+    assert res["wall_ms"] > 0
+    assert ("path dcco; fedprox mu 0.01; scaffold; compute bfloat16; local "
+            "steps 2;") in capsys.readouterr().out

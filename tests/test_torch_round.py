@@ -284,3 +284,15 @@ def test_ridge_linear_probe_matches_reference():
         torch.from_numpy(yte), 4))
     assert out == ref
     assert 0.5 < out <= 1.0
+
+
+def test_ridge_linear_probe_nan_when_encodings_diverged():
+    # a diverged run's NaN encodings give a NaN probe, not a score
+    rng = np.random.RandomState(1)
+    z = torch.from_numpy(rng.randn(60, 8).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 3, 60))
+    z[5, 2] = float("nan")
+    acc = eval_lib.ridge_linear_probe(z[:40], y[:40], z[40:], y[40:], 3)
+    assert torch.isnan(acc)
+    ok = eval_lib.ridge_linear_probe(z[6:40], y[6:40], z[40:], y[40:], 3)
+    assert 0.0 <= float(ok) <= 1.0
