@@ -104,24 +104,56 @@ Phases (each prints its lines; any failure exits non-zero):
      D-CCO with FedProx on the full-width TinyLlama-1.1B tower (two local
      steps: flash 44 + 2 x 44 a round, "cross" once), with its peak memory
      beside D-CCO's.
+  10. serving and checkpoints: the full-width TinyLlama-1.1B tower (bf16
+     weights from seed 0) serving through ``repro_torch.launch.serve``:
+     prefill of SRV_B x SRV_PROMPT tokens and SRV_DECODE greedy decode
+     steps, once with the model-dtype KV cache and once with the int8
+     cache, each in a window of its own (flash attention 22 launches for
+     the prefill, none for the decode steps), every step's logits held
+     to the last position of a full forward over the prompt and the
+     tokens generated so far, and the int8 cache's to the model-dtype
+     cache's while their tokens agree (SRV_TOL x max(1, max |logits|)
+     each), prefill ms, decode ms a token and peak memory printed, then
+     SRV_PROFILE decode steps of each cache under ``torch.profiler`` (the
+     device's busy share of the wall, device records a step); the dual
+     encoder over that tower saved and restored bit for bit, then
+     ``serve.run_retrieval`` with ``--ckpt`` of that file over token
+     corpora of RET_SIZES sequences, in its three tiers (exact, 2 shards,
+     IVF), each window's launches exact, the flash, MIPS (search and each
+     shard's offset form) and segment-sum kernels held to their plain
+     versions at the tiers' shapes, and the tiers' results held to the
+     exact one; an f32 and a bf16 ``CorpusIndex`` saved and loaded on the
+     card, searches equal before and after; then the ResNet's D-CCO with
+     SCAFFOLD through ``train --ckpt-dir --ckpt-every 2`` over 4 rounds
+     (the blob of round 2 restored equal, bit for bit, to what the engine
+     saved: params, Adam state, variates), resumed from round 2 with
+     ``--resume``, its parameters after round 4 held to the uninterrupted
+     run's within the distance between two uninterrupted runs (measured
+     in the same phase, cuDNN's deterministic algorithms on).
 Then one JSON line of kernel figures, and the device line last.
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
 import gc
 import json
 from pathlib import Path
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import comm, utils  # noqa: E402
+from repro_torch.checkpoint import (  # noqa: E402
+    restore_checkpoint, save_checkpoint)
 from repro_torch.configs.base import (  # noqa: E402
-    get_config, get_dual_encoder_config)
+    DualEncoderConfig, get_config, get_dual_encoder_config)
 from repro_torch.core import fed_sim, round_engine  # noqa: E402
 from repro_torch.data import partition, pipeline, synthetic  # noqa: E402
 from repro_torch.hierarchy import fold_to_edges  # noqa: E402
@@ -132,8 +164,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.quantize import quant_dequant  # noqa: E402
 from repro_torch.kernels.mips_topk import mips_topk  # noqa: E402
 from repro_torch.kernels.segment_sum import segment_sum  # noqa: E402
-from repro_torch.launch import train  # noqa: E402
-from repro_torch.models import dual_encoder  # noqa: E402
+from repro_torch.launch import serve as serve_cli, train  # noqa: E402
+from repro_torch.launch import steps as steps_lib  # noqa: E402
+from repro_torch.launch.profile_round import device_time  # noqa: E402
+from repro_torch.models import dual_encoder, transformer  # noqa: E402
 from repro_torch.objectives import get_objective  # noqa: E402
 from repro_torch.optim import optimizers as opt_lib  # noqa: E402
 from repro_torch import retrieval  # noqa: E402
@@ -169,6 +203,21 @@ PEAK_TF32 = 495e12    # H100 SXM dense TF32 tensor-core FLOP/s
 # other orders; a bf16 output is rounded once on each side (1 bf16 ulp of
 # an output below 4 is under 3e-2), as tests/test_kernels.py holds it
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# serving the token tower: SRV_B prompts of SRV_PROMPT tokens, then
+# SRV_DECODE greedy decode steps. A step's logits against the last position
+# of a full forward over the same tokens: both bf16 towers, the same
+# weights, attention on the flash kernel (forward) or in plain torch over
+# the cache (decode), matrix products of other shapes, so bf16 rounding
+# apart; the int8 cache adds its quantization. Both held to SRV_TOL x
+# max(1, max |logits|), the reference's bound for its int8 cache
+# (tests/test_perf_features.py).
+SRV_B, SRV_PROMPT, SRV_DECODE = 4, 128, 32
+SRV_PROFILE = 8       # decode steps profiled after the checked ones
+SRV_TOL = 0.05
+# serve --retrieval on the token tower: corpora of RET_SIZES sequences of
+# RET_PROMPT tokens, RET_BATCHES batches of RET_BATCH queries
+RET_SIZES, RET_PROMPT, RET_BATCH, RET_BATCHES = (1024, 4096), 64, 16, 32
+RET_IVF, RET_NPROBE = 64, 8
 
 
 def fail(msg):
@@ -323,9 +372,11 @@ def segment_sum_bound_ms(k_valid, d, e):
                     2 * k_valid * d)
 
 
-def check_segment_sum(k, d, e, ids, seed, label, time_it=True):
+def check_segment_sum(k, d, e, ids, seed, label, time_it=True,
+                      weighted=True):
     """Kernel vs plain version on (k, d) unit-normal rows, ``ids`` and
-    weights in [0, 1), bit for bit, and kernel vs kernel on a second run;
+    weights in [0, 1) (none, w = 1, unless ``weighted``), bit for bit,
+    and kernel vs kernel on a second run;
     returns (max_abs_err, ms, plain_ms, library_ms, bound). The plain
     version reads its ranks on the host, so it is timed eagerly (CUDA
     events around back-to-back calls), not in a graph. The yardstick is
@@ -334,7 +385,7 @@ def check_segment_sum(k, d, e, ids, seed, label, time_it=True):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     rows = torch.randn(k, d, generator=gen, device=dev)
-    w = torch.rand(k, generator=gen, device=dev)
+    w = torch.rand(k, generator=gen, device=dev) if weighted else None
     ids = ids.to(device=dev, dtype=torch.int32)
     out = segment_sum(rows, ids, e, w)
     again = segment_sum(rows, ids, e, w)
@@ -350,7 +401,9 @@ def check_segment_sum(k, d, e, ids, seed, label, time_it=True):
     ms = plain_ms = lib_ms = float("nan")
     if time_it:
         onehot = (ids.long()[None, :] == torch.arange(e, device=dev)[:, None])
-        wmat = (onehot.to(torch.float32) * w[None, :]).contiguous()
+        wmat = onehot.to(torch.float32)
+        if weighted:
+            wmat = (wmat * w[None, :]).contiguous()
         ms = time_ms(lambda: segment_sum(rows, ids, e, w), 10, 5)
         plain_ms = eager_ms(lambda: ref.segment_sum_ref(rows, ids, e, w), 10)
         lib_ms = time_ms(lambda: torch.matmul(wmat, rows), 10, 5)
@@ -804,6 +857,12 @@ def train_path(name, flags, rounds, expected, algorithm="dcco"):
     return counts, res
 
 
+def release(res):
+    """Drop the device state a ``train.run`` summary holds (the
+    parameters and the server's state), keeping its numbers."""
+    del res["params"], res["opt_state"]
+
+
 def _window(label, fn, expected):
     """``fn()`` with every launch count set to 0 just before and read just
     after; fails unless the counts are ``expected`` (kernel -> launches,
@@ -1128,6 +1187,346 @@ def drift_paths(device):
     return counts
 
 
+def _forward_logits(cfg, tower, tokens):
+    """Last-position logits of a full forward (no cache)."""
+    with torch.no_grad():
+        h = transformer.forward(cfg, tower, tokens)
+        return transformer.logits_from_hidden(cfg, tower, h[:, -1])
+
+
+def profile_decode(cfg, tower, prompt, kv, steps=SRV_PROFILE):
+    """``steps`` greedy decode steps after a prefill and one warm-up step,
+    timed on the host clock unprofiled, then again under
+    ``torch.profiler``: the device's busy time (the union of the device
+    records' intervals, as ``launch/profile_round.py`` reads it) over the
+    profiled wall, the device records a step and the kernels that took
+    the most device time."""
+    c = cfg.replace(kv_cache_dtype=kv)
+    prefill = steps_lib.make_prefill_step(c, prompt.shape[1] + 2 * steps + 2)
+    step = steps_lib.make_serve_step(c)
+    _, cache = prefill(tower, {"tokens": prompt})
+    tok = prompt[:, -1:]
+
+    def decode():
+        nonlocal cache, tok
+        for _ in range(steps):
+            logits, cache = step(tower, cache, {"tokens": tok})
+            tok = torch.argmax(logits, -1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+
+    _, cache = step(tower, cache, {"tokens": tok})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / steps
+    records = [(e.name, e.time_range.start, e.time_range.end)
+               for e in prof.events()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    kernels, union_us, summed_us, dropped = device_time(records)
+    if not kernels:
+        print(f"decode profile ({kv} KV cache): no device records, device "
+              f"busy share not measured", flush=True)
+        return
+    busy = union_us / 1e3 / steps
+    top = sorted(kernels, key=lambda x: -x[2])[:4]
+    print(f"decode profile ({kv} KV cache, {steps} steps x {prompt.shape[0]}"
+          f"): wall {wall:.3f} ms/token unprofiled, {prof_ms:.3f} profiled; "
+          f"device busy {busy:.3f} ms/token = {100 * busy / prof_ms:.1f}% "
+          f"of the profiled wall (union of intervals; summed "
+          f"{summed_us / 1e3 / steps:.3f}); "
+          f"{(len(records) - dropped) / steps:.0f} device records a step; "
+          f"top kernels (ms/token, count/token): " + "; ".join(
+              f"{name[:48]} {us / 1e3 / steps:.4f} {count / steps:.0f}"
+              for name, count, us in top), flush=True)
+
+
+def serve_generate(device, cfg, tower):
+    """Prefill and greedy decode through ``serve.generate`` with the
+    model-dtype and the int8 cache, each in a window of its own; every
+    step held to a full forward, the int8 steps to the model-dtype ones
+    while the tokens agree. Returns the windows' counts."""
+    gen = torch.Generator().manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (SRV_B, SRV_PROMPT),
+                           generator=gen, dtype=torch.int32).to(device)
+    serve_cli.generate(cfg, tower, prompt[:, :16], 2)     # cuBLAS warm-up
+    windows, runs = [], {}
+    for kv in ("model", "int8"):
+        c = cfg.replace(kv_cache_dtype=kv)
+        torch.cuda.reset_peak_memory_stats()
+        out, counts = _window(
+            f"serve prefill + decode ({kv} cache)",
+            lambda: serve_cli.generate(c, tower, prompt, SRV_DECODE + 1),
+            {"flash": TOK_LAYERS})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        windows.append(counts)
+        errs, scale = [], 1.0
+        for j, logits in enumerate(out["logits"]):
+            seq = torch.cat([prompt, out["tokens"][:, :j]], dim=1)
+            want = _forward_logits(cfg, tower, seq)
+            scale = max(scale, float(want.abs().max()))
+            errs.append(float((logits - want).abs().max()))
+        cache_mib = sum(x.numel() * x.element_size() for x in
+                        utils.tree_leaves(out["cache"])) / 2 ** 20
+        runs[kv] = out
+        print(f"serve tinyllama-1.1b ({kv} KV cache, {cache_mib:.1f} MiB): "
+              f"prefill {SRV_B}x{SRV_PROMPT} {out['prefill_ms']:.3f} ms, "
+              f"decode {out['decode_ms']:.3f} ms/token over {SRV_DECODE} "
+              f"steps x {SRV_B}; peak device memory {peak:.2f} GiB; "
+              f"launches {counts}; |logits - full forward| worst "
+              f"{max(errs):.4e} (prefill {errs[0]:.4e}, last step "
+              f"{errs[-1]:.4e}), tol {SRV_TOL * scale:.4e} "
+              f"(= {SRV_TOL} x {scale:.3f})", flush=True)
+        if not (out["tokens"].shape == (SRV_B, SRV_DECODE + 1)
+                and max(errs) <= SRV_TOL * scale):
+            fail(f"serving with the {kv} cache disagrees with a full "
+                 f"forward")
+    m, q = runs["model"], runs["int8"]
+    agree = 0
+    while (agree < SRV_DECODE + 1 and torch.equal(
+            m["tokens"][:, :agree], q["tokens"][:, :agree])):
+        agree += 1
+    diffs = [float((a - b).abs().max()) for a, b in
+             zip(m["logits"][:agree], q["logits"][:agree])]
+    scale = max(1.0, max(float(x.abs().max()) for x in m["logits"]))
+    print(f"serve int8 vs model-dtype KV cache: {agree} of {SRV_DECODE + 1} "
+          f"steps on the same tokens, |logits| difference worst "
+          f"{max(diffs):.4e} (tol {SRV_TOL * scale:.4e}); greedy tokens "
+          f"equal throughout: {torch.equal(m['tokens'], q['tokens'])}",
+          flush=True)
+    if not max(diffs) <= SRV_TOL * scale:
+        fail("the int8 KV cache departs from the model-dtype cache")
+    for kv in ("model", "int8"):
+        profile_decode(cfg, tower, prompt, kv)
+    return windows
+
+
+def check_retrieval_kernels(results):
+    """The kernels of ``serve --retrieval`` against their plain versions
+    at the shapes it gives them: flash at an index-build chunk (256 x 64
+    tokens) and at the queries' encode (RET_BATCH x RET_BATCHES x 64);
+    the k-means sums (N, 64) and counts (N, 1) into RET_IVF lists; for
+    each corpus the MIPS search of one QueryServer batch and of every
+    query, and each shard's offset search of one batch."""
+    check_flash(256, 32, 4, RET_PROMPT, RET_PROMPT, 64, torch.bfloat16,
+                "serve --retrieval index-build chunk", seed=50)
+    check_flash(RET_BATCH * RET_BATCHES, 32, 4, RET_PROMPT, RET_PROMPT, 64,
+                torch.bfloat16, "serve --retrieval query encode", seed=51)
+    for i, n in enumerate(RET_SIZES):
+        ids = torch.randint(0, RET_IVF, (n,), generator=torch.Generator(
+            device="cuda").manual_seed(52 + i), device="cuda")
+        for d, what in ((64, "sums"), (1, "counts")):
+            check_segment_sum(n, d, RET_IVF, ids, 54 + i,
+                              f"k-means {what}, unweighted",
+                              time_it=False, weighted=False)
+        exact = results["exact"][i]["index"]
+        q = results["exact"][i]["query_embeddings"]
+        check_mips(q[:RET_BATCH], exact.embeddings, 10,
+                   "serve --retrieval exact, one batch", time_it=False)
+        want = exact.search(q, 10)
+        plain = ref.mips_topk_ref(q, exact.embeddings, 10)
+        err, bad, ties = mips_agree(q, exact.embeddings, want, plain)
+        print(f"serve --retrieval exact N={n}, all {q.shape[0]} queries: "
+              f"max_abs_err={err:.3e} (tol {MIPS_TOL:g}) against the plain "
+              f"version, index mismatches {bad} (all near ties: {ties})",
+              flush=True)
+        if not (err <= MIPS_TOL and ties):
+            fail(f"serve --retrieval exact search disagrees with its plain "
+                 f"version at N={n}")
+        sharded = results["sharded x2"][i]["index"]
+        for j in range(sharded.num_shards):
+            check_mips(q[:RET_BATCH], sharded.shards[j], 10,
+                       f"serve --retrieval shard {j} of 2", time_it=False,
+                       off=j * sharded.shard_size, n_total=n)
+
+
+def serve_retrieval(ckpt):
+    """``serve.run_retrieval`` with ``--ckpt`` over token corpora, in its
+    three tiers, each a window of its own with exact launches; the kernels
+    held to their plain versions at the tiers' shapes, the tiers' results
+    to the exact tier's. Returns the windows' counts."""
+    chunks = sum(-(-n // min(256, n)) for n in RET_SIZES)
+    flash = TOK_LAYERS * (1 + chunks)     # the queries' encode and the chunks
+    served = 1 + RET_BATCHES              # the warm-up and the batches
+    base = ["--retrieval", "--full", "--corpus-sizes",
+            ",".join(map(str, RET_SIZES)), "--prompt-len", str(RET_PROMPT),
+            "--batch", str(RET_BATCH), "--serve-batches", str(RET_BATCHES),
+            "--ckpt", ckpt]
+    tiers = [("exact", [], {"search": len(RET_SIZES) * served}),
+             ("sharded x2", ["--shards", "2"],
+              {"offset": 2 * len(RET_SIZES) * served}),
+             # k-means: sums and counts in each of 8 iterations
+             (f"ivf C={RET_IVF}", ["--ivf", str(RET_IVF), "--nprobe",
+                                   str(RET_NPROBE)],
+              {"fold": 2 * 8 * len(RET_SIZES)})]
+    windows, results = [], {}
+    for name, flags, expected in tiers:
+        args = serve_cli.build_parser().parse_args(base + flags)
+        res, counts = _window(f"serve --retrieval {name}",
+                              lambda: serve_cli.run_retrieval(args),
+                              {"flash": flash, **expected})
+        windows.append(counts)
+        results[name] = res
+        for r in res:
+            print(f"serve --retrieval {name} tinyllama-1.1b N={r['n']} "
+                  f"S={RET_PROMPT} d={r['index'].dim}: build "
+                  f"{r['build_s']:.3f} s; QueryServer(batch={RET_BATCH}, "
+                  f"k=10) {r['batches']} batches p50 {r['p50_us']:.1f} us, "
+                  f"p99 {r['p99_us']:.1f} us, qps {r['qps']:.1f}, "
+                  f"qps_serial {r['qps_serial']:.1f}; launches {counts}",
+                  flush=True)
+    check_retrieval_kernels(results)
+    for i, n in enumerate(RET_SIZES):
+        exact = results["exact"][i]["index"]
+        q = results["exact"][i]["query_embeddings"]
+        want = exact.search(q, 10)
+        got = results["sharded x2"][i]["index"].search(q, 10)
+        ivf = results[f"ivf C={RET_IVF}"][i]["index"]
+        full = ivf.search(q, 10, nprobe=ivf.num_centroids)
+        _, bad, ties = mips_agree(q, exact.embeddings, full, want)
+        approx = ivf.search(q, 10)[1]
+        recall = float((approx[:, :, None] == want[1][:, None, :]).any(-1)
+                       .float().mean())
+        equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        print(f"serve --retrieval N={n}: 2 shards equal the exact tier bit "
+              f"for bit {equal}; IVF with every list probed: index "
+              f"mismatches {bad} (all near ties: {ties}); IVF recall@10 at "
+              f"nprobe={RET_NPROBE}: {recall:.4f}", flush=True)
+        if not (equal and ties):
+            fail(f"serve --retrieval tiers disagree at N={n}")
+    return windows, results["exact"][-1]
+
+
+def check_index_files(exact):
+    """An f32 and a bf16 CorpusIndex saved and loaded on the card: the
+    embeddings and the searches equal before and after."""
+    q = exact["query_embeddings"]
+    with tempfile.TemporaryDirectory() as d:
+        for dtype in (torch.float32, torch.bfloat16):
+            idx = retrieval.CorpusIndex(exact["index"].embeddings.to(dtype))
+            path = f"{d}/index.msgpack"
+            idx.save(path)
+            back = retrieval.CorpusIndex.load(path)
+            a, b = idx.search(q, 10), back.search(q, 10)
+            same = (back.embeddings.is_cuda
+                    and torch.equal(back.embeddings, idx.embeddings)
+                    and torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+            print(f"CorpusIndex {str(dtype).replace('torch.', '')} "
+                  f"N={idx.num_items} saved and loaded: searches equal "
+                  f"{same}", flush=True)
+            if not same:
+                fail(f"CorpusIndex ({dtype}) changed through save/load")
+
+
+def _same_bits(a, b):
+    la, lb = utils.tree_leaves(a), utils.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def serving_phase_tokens(device):
+    """Phase 10's serving half on the full-width TinyLlama-1.1B tower.
+    Returns the windows' counts."""
+    cfg = get_config(TOK_ARCH)
+    de = DualEncoderConfig(proj_dims=(64, 64))
+    params = dual_encoder.init_dual_encoder(0, cfg, de, device)
+    windows = serve_generate(device, cfg, params["tower"])
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/tinyllama.msgpack"
+        t0 = time.perf_counter()
+        save_checkpoint(path, {"params": params}, step=0)
+        t_save = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        blob, _ = restore_checkpoint(path, {"params": params})
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        restored = blob["params"]
+        same = _same_bits(restored, params)
+        dtypes = sorted({str(x.dtype) for x in utils.tree_leaves(restored)})
+        print(f"checkpoint of the full-width tinyllama-1.1b dual encoder: "
+              f"{size / 2 ** 30:.3f} GiB, saved in {t_save:.2f} s, restored "
+              f"to the card in {t_load:.2f} s, leaves {dtypes}, equal bit "
+              f"for bit {same}", flush=True)
+        if not same:
+            fail("the tinyllama checkpoint did not restore bit for bit")
+        del params, blob, restored
+        gc.collect()
+        torch.cuda.empty_cache()
+        more, exact = serve_retrieval(path)
+    check_index_files(exact)
+    return windows + more
+
+
+def checkpoint_resume(device):
+    """The ResNet's D-CCO with SCAFFOLD through ``train --ckpt-dir
+    --ckpt-every 2`` over 4 rounds, every blob the engine writes kept
+    beside what it saved; round 2's restored bit for bit; ``--resume``
+    from it held to the uninterrupted run within the distance between two
+    uninterrupted runs. Returns the runs' counts."""
+    real_save, saved = round_engine.save_checkpoint, {}
+
+    def keep(path, tree, step):
+        real_save(path, tree, step)
+        shutil.copy(path, f"{path}.{step}")
+        saved[step] = (tree, utils.tree_map(lambda x: x.clone(), tree))
+
+    flags = ["--scaffold", "--stats-kernel", "fused"]
+    counts = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    round_engine.save_checkpoint = keep
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            c, full = train_path("dcco scaffold, checkpointed",
+                                 [*flags, "--ckpt-dir", d, "--ckpt-every",
+                                  "2"], 4, {"cross": 4})
+            counts.append(c)
+            round_engine.save_checkpoint = real_save
+            path = f"{d}/resnet14-cifar.msgpack.2"
+            like, want = saved[2]
+            blob, step = restore_checkpoint(path, like)
+            same = step == 2 and sorted(blob) == ["drift", "opt",
+                                                  "params"] and \
+                _same_bits(blob, want)
+            print(f"checkpoint of round 2 (params, Adam state, SCAFFOLD "
+                  f"variates: {len(utils.tree_leaves(blob))} leaves, "
+                  f"{Path(path).stat().st_size / 2 ** 20:.1f} MiB) restored "
+                  f"equal to what the engine saved, bit for bit: {same}",
+                  flush=True)
+            if not same:
+                fail("the engine's checkpoint did not restore bit for bit")
+            args = train.parse_args([
+                "--full", "--clients-per-round", str(K),
+                "--samples-per-client", str(N_PER_CLIENT), "--dataset-size",
+                str(DATASET), "--rounds", "4", "--eval-every", "1", *flags,
+                "--ckpt-dir", d, "--ckpt-every", "0", "--resume", path])
+            resumed, c = _window("dcco scaffold, resumed at round 2",
+                                 lambda: train.run(args), {"cross": 2})
+            counts.append(c)
+        c, again = train_path("dcco scaffold, uninterrupted again", flags,
+                              4, {"cross": 4})
+        counts.append(c)
+    finally:
+        round_engine.save_checkpoint = real_save
+        torch.backends.cudnn.deterministic = deterministic
+    d_resume = utils.tree_max_abs_diff(resumed["params"], full["params"])
+    d_repeat = utils.tree_max_abs_diff(again["params"], full["params"])
+    print(f"resume from round 2 of 4: history {resumed['history']} (the "
+          f"uninterrupted run's rounds 3-4: {full['history'][2:]}); max "
+          f"|params resumed - uninterrupted| = {d_resume:.4e}, max |two "
+          f"uninterrupted runs| = {d_repeat:.4e}", flush=True)
+    if not (d_resume <= d_repeat and len(resumed["history"]) == 2):
+        fail("resuming from the checkpoint departs from the uninterrupted "
+             "run by more than two uninterrupted runs differ")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1252,7 +1651,7 @@ def main():
         PATH_ROUNDS, {"flash": 2 * 2 * TOK_LAYERS * PATH_ROUNDS,
                       "cross": PATH_ROUNDS})
     runs.append(counts)
-    del tok_dcco["params"]
+    release(tok_dcco)
     gc.collect()
     torch.cuda.empty_cache()
     # no phase 1: the two views' forwards of phase 2 alone, the K clients
@@ -1261,7 +1660,7 @@ def main():
         "tinyllama fedavg_contrastive", tok_flags, PATH_ROUNDS,
         {"flash": 2 * TOK_LAYERS * PATH_ROUNDS}, "fedavg_contrastive")
     runs.append(counts)
-    del tok_fedavg["params"]
+    release(tok_fedavg)
     gc.collect()
     torch.cuda.empty_cache()
     # FedProx's two local steps: phase 1's 44 forwards, then 44 in each
@@ -1286,6 +1685,13 @@ def main():
             [*tok_flags, *prox, "--clients-per-round", "2"], PATH_ROUNDS,
             tok_expected)
     runs.append(counts)
+    release(tok_prox)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += serving_phase_tokens(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += checkpoint_resume(device)
     print(f"tinyllama peak device memory: fedavg_contrastive "
           f"{tok_fedavg['peak_gib']:.2f} GiB, dcco "
           f"{tok_dcco['peak_gib']:.2f} GiB, dcco fedprox (2 local steps) "

@@ -5,10 +5,9 @@ kept are the ones their dual encoders read, with the reference's names
 and defaults. The reference's mesh-only fields (``act_shard_axes``,
 ``fsdp_model_size``), its layer-scan options (``scan_layers``,
 ``layer_chunks``, ``remat``), ``attn_block``, ``parallel_block``,
-``tie_embeddings`` (every dense config ties), the decode cache's
-``kv_cache_dtype``, the dual encoder's ``pool`` (always the mean) and the
-MLA, MoE, SSM and xLSTM sub-configs have no counterpart: no ported config
-sets them away from the default.
+``tie_embeddings`` (every dense config ties), the dual encoder's ``pool``
+(always the mean) and the MLA, MoE, SSM and xLSTM sub-configs have no
+counterpart: no ported config sets them away from the default.
 """
 from __future__ import annotations
 
@@ -36,6 +35,9 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10000.0
     sliding_window: int = 0         # 0 = full attention
+    # decode KV cache storage: "model" (the model's dtype) or "int8"
+    # (max-abs per position and head, one f32 scale each)
+    kv_cache_dtype: str = "model"
     # modality ("text" only in the port)
     modality: str = "text"
     # resnet (paper's own encoder; family == "resnet")

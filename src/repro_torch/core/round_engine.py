@@ -61,9 +61,15 @@ retrieval after each round on the cadence ``retrieval_every``, on the
 round's updated params, into ``EngineMetrics.retrieval`` (NaN off the
 cadence). It only observes: the parameters and losses are the same bits
 with and without it.
+
+``run(ckpt_dir=, ckpt_every=, ckpt_name=)`` writes the reference's
+checkpoint blob at segment boundaries (:mod:`repro_torch.checkpoint`);
+restored and passed back in with ``start_round``, it continues the run
+bit for bit.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -71,6 +77,7 @@ from torch.func import vmap
 
 from repro_torch import cluster as cluster_lib
 from repro_torch import utils
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.core import buffer as buffer_lib
 from repro_torch.core import cco, fed_sim
 from repro_torch.data import latency as latency_lib
@@ -645,7 +652,13 @@ class RoundEngine:
         zf, _ = self._encoder_apply(utils.tree_map(_meta, params), client0)
         return self._objective.stat_spec(zf.shape[-1])
 
-    def _init_async_state(self, params, batch):
+    def _init_async_state(self, params, batch=None):
+        """Zero buffered-engine state; without ``batch``, its shapes come
+        from one cohort the sampler draws with seed 0 (a template for
+        restoring a checkpoint's ``"buffer"``)."""
+        if batch is None:
+            device = utils.tree_leaves(params)[0].device
+            batch = self.sampler(utils.generator(0, device))[0]
         return buffer_lib.init_state(self._stat_spec(params, batch), params,
                                      self._horizon)
 
@@ -685,7 +698,9 @@ class RoundEngine:
 
     def run(self, params, opt_state, seed: int, rounds: int, *,
             start_round: int = 0, on_segment: Optional[Callable] = None,
-            drift_state=None, buffer_state=None, cluster_state=None):
+            ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
+            ckpt_name: str = "engine", drift_state=None, buffer_state=None,
+            cluster_state=None):
         """Run ``rounds`` rounds; returns (params, opt_state, EngineMetrics).
 
         ``on_segment(round_end, carry, seg_metrics)`` fires after each
@@ -696,6 +711,16 @@ class RoundEngine:
         resume it (fresh state otherwise: zero variates for the first
         batch's K slots) and read the final one from ``self.drift_state``
         / ``self.buffer_state`` / ``self.cluster_state``.
+
+        With ``ckpt_dir`` and ``ckpt_every``, ``{ckpt_dir}/{ckpt_name}.
+        msgpack`` is written (:mod:`repro_torch.checkpoint`, at step = the
+        round reached) at the first segment boundary at or past each
+        ``ckpt_every`` rounds: ``{"params", "opt"}``, with ``"drift"``
+        under SCAFFOLD, ``"buffer"`` on the buffered path and
+        ``"cluster"`` on the clustered one, the reference's blob. Resuming
+        is ``run(restored params, restored opt, seed, rest, start_round=
+        step, drift_state=..., buffer_state=..., cluster_state=...)``: the
+        rounds' draws depend only on ``seed`` and the round number.
 
         With ``EngineConfig.retrieval_eval`` the ``retrieval`` field of
         the metrics carries per-round recall@k / MRR (NaN on rounds the
@@ -712,7 +737,7 @@ class RoundEngine:
                 reval = self.config.retrieval_eval.init_state(params)
         cols = tuple([] for _ in EngineMetrics._fields[:-1])
         retrieval_rows = []
-        done = 0
+        done = last_ckpt = 0
         while done < rounds:
             seg = min(self.config.chunk_rounds, rounds - done)
             per_round = tuple([] for _ in EngineMetrics._fields[:-1])
@@ -766,6 +791,17 @@ class RoundEngine:
                                        reval,
                                        () if drift is None else drift),
                            m)
+            if ckpt_dir and ckpt_every and done - last_ckpt >= ckpt_every:
+                blob = {"params": params, "opt": opt_state}
+                if scaffold:
+                    blob["drift"] = drift
+                if self._async_real:
+                    blob["buffer"] = buffer
+                if self._clustered:
+                    blob["cluster"] = cluster
+                save_checkpoint(os.path.join(ckpt_dir, f"{ckpt_name}.msgpack"),
+                                blob, start_round + done)
+                last_ckpt = done
         if channel is not None:
             # host-side bookkeeping (the DP epsilon accountant)
             channel.finalize_rounds(done)

@@ -18,6 +18,17 @@ control variates, their deltas an uplink through ``--channel``), and
 and state. The ridge probe reads the ResNet tower; for a token tower it
 reports NaN, as the reference's does.
 
+Checkpoints (:mod:`repro_torch.checkpoint`, the reference's msgpack
+layout): the engine writes ``{--ckpt-dir}/{--arch}.msgpack`` at the first
+segment boundary at or past every ``--ckpt-every`` rounds (``{"params",
+"opt"}``, plus ``"drift"`` with ``--scaffold``, ``"buffer"`` on the
+buffered engine and ``"cluster"`` with ``--clusters``), and the run's
+losses go to ``{--ckpt-dir}/history.json``. ``--resume FILE`` restores
+the parameters, the server state, SCAFFOLD's variates and the buffered
+engine's buffer, then runs the rounds from the checkpoint's step to
+``--rounds``: the same rounds, bit for bit, as a run that never stopped.
+As in the reference, the clustered state is written but not resumed.
+
 The CLI trains the two-phase ``dcco`` round, as the reference's does.
 ``run(args, algorithm=...)`` drives the same run through another
 :class:`repro_torch.core.round_engine.EngineConfig` body (the FedAvg
@@ -62,6 +73,9 @@ Examples (full width, on the GPU):
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -69,6 +83,7 @@ import torch
 
 from repro_torch import comm, objectives as objectives_lib
 from repro_torch import hierarchy, retrieval as retrieval_lib
+from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.configs.base import (DualEncoderConfig, get_config,
                                       get_dual_encoder_config)
 from repro_torch.core import buffer as buffer_lib
@@ -281,7 +296,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "--device cpu runs")
     ap.add_argument("--rounds", type=int, default=100)
     ap.add_argument("--clients-per-round", type=int, default=16)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="where checkpoints and history.json go (default: "
+                         "repro_ckpt in the temporary directory, the "
+                         "reference's /tmp/repro_ckpt)")
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="rounds between checkpoints (0 = none)")
     ap.add_argument("--eval-every", type=int, default=25)
+    ap.add_argument("--resume", default=None,
+                    help="a checkpoint file to resume from")
     ap.add_argument("--seed", type=int, default=0)
 
     g = ap.add_argument_group("data & partition")
@@ -480,6 +503,18 @@ def run(args: argparse.Namespace, *, algorithm: str = "dcco") -> dict:
         opt = server_update_lib.get_server_update(
             args.server_opt, server_lr=sched, tau=args.server_tau)
     opt_state = opt.init(params)
+    start_round = 0
+    drift_state = (drift_lib.scaffold_init(params, args.clients_per_round)
+                   if args.scaffold else None)
+    if args.resume:
+        tmpl = {"params": params, "opt": opt_state}
+        if args.scaffold:
+            tmpl["drift"] = drift_state
+        blob, start_round = restore_checkpoint(args.resume, tmpl, device)
+        params, opt_state = blob["params"], blob["opt"]
+        if args.scaffold:
+            drift_state = blob["drift"]
+        print(f"resumed from {args.resume} @ round {start_round}")
 
     ds, labels = build_dataset(cfg, args)
     leaf = input_leaf(cfg)
@@ -549,6 +584,22 @@ def run(args: argparse.Namespace, *, algorithm: str = "dcco") -> dict:
         sampler = ds.make_round_sampler(args.clients_per_round, device)
     engine = round_engine.RoundEngine(make_apply(cfg, de_cfg), opt, sampler,
                                       ecfg)
+    buffer_state = None
+    if args.resume and engine._async_real:
+        # second pass over the blob: the buffer's template needs the built
+        # engine, whose sampler sizes it
+        try:
+            b, _ = restore_checkpoint(
+                args.resume, {"buffer": engine._init_async_state(params)},
+                device)
+            buffer_state = b["buffer"]
+        except KeyError:
+            print("resume checkpoint holds no buffer state (written by the "
+                  "synchronous engine) — starting the buffered run with an "
+                  "empty buffer", flush=True)
+    ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(),
+                                             "repro_ckpt")
+    os.makedirs(ckpt_dir, exist_ok=True)
 
     history, round_ms, probes, wire, edge_wire = [], [], [], [], []
     applied = []
@@ -598,15 +649,19 @@ def run(args: argparse.Namespace, *, algorithm: str = "dcco") -> dict:
         sync()
         t_seg[0] = time.perf_counter()
 
-    drift_state = (drift_lib.scaffold_init(params, args.clients_per_round)
-                   if args.scaffold else None)
-    params, opt_state, _ = engine.run(params, opt_state, args.seed,
-                                      args.rounds, on_segment=on_segment,
-                                      drift_state=drift_state)
+    params, opt_state, _ = engine.run(
+        params, opt_state, args.seed, args.rounds - start_round,
+        start_round=start_round, on_segment=on_segment,
+        ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every,
+        ckpt_name=args.arch, drift_state=drift_state,
+        buffer_state=buffer_state)
     probe = evaluate(params)
     if history:
         print(f"final loss {history[-1]:.4f}; first {history[0]:.4f}; "
               f"probe {probe:.3f}")
+    else:
+        print(f"no rounds to run (resumed at or past --rounds "
+              f"{args.rounds}); probe {probe:.3f}")
     wire_bytes = float(sum(wire))
     if channel is not None:
         line = f"channel {channel!r}: uplink {wire_bytes / 1e6:.3f} MB total"
@@ -620,8 +675,12 @@ def run(args: argparse.Namespace, *, algorithm: str = "dcco") -> dict:
         print(f"uplink per hop: client->edge "
               f"{(wire_bytes - edge_bytes) / 1e6:.3f} MB, edge->server "
               f"{edge_bytes / 1e6:.3f} MB")
+    if history:
+        with open(os.path.join(ckpt_dir, "history.json"), "w") as f:
+            json.dump(history, f)
     return {"history": history, "round_ms": round_ms, "probe": probe,
-            "probes": probes, "params": params, "device": str(device),
+            "probes": probes, "params": params, "opt_state": opt_state,
+            "device": str(device),
             "wire_bytes": wire_bytes, "edge_bytes": edge_bytes,
             "updates": int(sum(applied)), "retrieval": retrieval,
             "loss_finite": bool(np.all(np.isfinite(history)))}

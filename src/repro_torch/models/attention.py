@@ -14,8 +14,19 @@ Two implementations, as in the reference:
                     as :func:`blockwise_attention`, for the parity tests.
 
 The flash route takes the positions of a full sequence: queries are the
-last Sq of ``kv_pos = 0 .. Skv-1``, which is what ``gqa_forward`` passes.
-The decode cache, the int8 cache and MLA are not ported yet (ROADMAP §1).
+last Sq of ``kv_pos = 0 .. Skv-1``, which is what ``gqa_forward`` and
+``gqa_prefill`` pass.
+
+Decode keeps a KV cache in the reference's layout: ``k``/``v`` (B, W,
+KVH, Dh) and ``kv_pos`` (B, W) int32 (-1 = slot not written), W the
+sequence capacity or, with a sliding window, a ring of ``sliding_window``
+slots (slot = position % W). ``cfg.kv_cache_dtype == "int8"`` stores int8
+values with one f32 max-abs scale per (position, head) in
+``k_scale``/``v_scale``. The cache is written in place (the reference's
+scan carries it the same way, donated). Prefill attends over the full
+sequence on the flash kernel; a decode step's one query attends to the
+cache in plain torch (``naive_attention``), as the reference's decode
+does outside any Pallas kernel. MLA is not ported yet (ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -149,3 +160,96 @@ def gqa_forward(cfg, p, x, positions):
     q, k, v = _gqa_qkv(cfg, p, x, positions)
     out = attention_math(cfg, q, k, v, positions, positions)
     return linear(p["wo"], out.reshape(b, s, -1))
+
+
+# =========================================================================
+# KV cache (decode)
+# =========================================================================
+
+def _quantize_kv(x):
+    """Per-(position, head) max-abs int8 quantization of x (B, S, KVH, Dh):
+    (int8 values, (B, S, KVH) f32 scales)."""
+    xf = x.to(F32)
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0,
+                        min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def _dequantize_kv(q, scale, dtype):
+    return (q.to(F32) * scale[..., None]).to(dtype)
+
+
+def gqa_cache_init(cfg, batch: int, max_len: int, dtype, device="cpu"):
+    """One layer's empty cache (see the module docstring)."""
+    kvh, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    w = (min(max_len, cfg.sliding_window) if cfg.sliding_window > 0
+         else max_len)
+    cache = {"kv_pos": torch.full((batch, w), -1, dtype=torch.int32,
+                                  device=device)}
+    if cfg.kv_cache_dtype == "int8":
+        for name in ("k", "v"):
+            cache[name] = torch.zeros((batch, w, kvh, dh), dtype=torch.int8,
+                                      device=device)
+            cache[name + "_scale"] = torch.zeros((batch, w, kvh), dtype=F32,
+                                                 device=device)
+    else:
+        for name in ("k", "v"):
+            cache[name] = torch.zeros((batch, w, kvh, dh), dtype=dtype,
+                                      device=device)
+    return cache
+
+
+def _cache_write(cfg, cache, k, v, positions, slots):
+    """Write k/v (B, S, KVH, Dh) and their positions (B, S) into the cache
+    slots ``slots`` (an (S,) index tensor on the cache's device), in
+    place."""
+    def put(name, x):
+        cache[name].index_copy_(1, slots, x.to(cache[name].dtype))
+
+    put("kv_pos", positions)
+    if cfg.kv_cache_dtype == "int8":
+        for name, x in (("k", k), ("v", v)):
+            q, scale = _quantize_kv(x)
+            put(name, q)
+            put(name + "_scale", scale)
+    else:
+        put("k", k)
+        put("v", v)
+
+
+def _cache_read(cfg, cache, dtype):
+    if cfg.kv_cache_dtype == "int8":
+        return (_dequantize_kv(cache["k"], cache["k_scale"], dtype),
+                _dequantize_kv(cache["v"], cache["v_scale"], dtype))
+    return cache["k"], cache["v"]
+
+
+def gqa_prefill(cfg, p, x, positions, cache):
+    """Full-sequence forward that also fills the cache (positions start at
+    0). Attention runs on the full-precision K/V; the cache keeps the
+    (possibly int8) copies of the last W positions, each at slot
+    position % W."""
+    b, s, _ = x.shape
+    q, k, v = _gqa_qkv(cfg, p, x, positions)
+    out = attention_math(cfg, q, k, v, positions, positions)
+    w = cache["k"].shape[1]
+    first = max(s - w, 0)
+    slots = torch.arange(first, s, device=x.device) % w
+    _cache_write(cfg, cache, k[:, first:], v[:, first:],
+                 positions[:, first:], slots)
+    return linear(p["wo"], out.reshape(b, s, -1)), cache
+
+
+def gqa_decode(cfg, p, x, pos, cache):
+    """One-token decode. x: (B, 1, D); pos: () int tensor, the token's
+    position. Writes its K/V at slot pos % W and attends to the cache."""
+    b = x.shape[0]
+    positions = pos.reshape(1, 1).expand(b, 1)
+    q, k, v = _gqa_qkv(cfg, p, x, positions)
+    w = cache["k"].shape[1]
+    _cache_write(cfg, cache, k, v, positions, (pos % w).reshape(1).long())
+    k_full, v_full = _cache_read(cfg, cache, k.dtype)
+    out = naive_attention(q, k_full, v_full, positions, cache["kv_pos"],
+                          cfg.sliding_window)
+    return linear(p["wo"], out.reshape(b, 1, -1)), cache

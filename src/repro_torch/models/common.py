@@ -131,6 +131,14 @@ def embed(p, tokens):
     return torch.nn.functional.embedding(tokens, p["table"])
 
 
+def unembed(p, x):
+    """Tied unembedding: (..., D) @ (V, D)^T -> f32 logits (..., V), the
+    products of the model's values summed in f32 (f64 for an f64
+    model)."""
+    wide = torch.promote_types(x.dtype, F32)
+    return torch.matmul(x.to(wide), p["table"].to(wide).T)
+
+
 # ------------------------------------------------------------------- misc ---
 
 def swiglu_init(gen, d_model: int, d_ff: int, dtype=torch.bfloat16,

@@ -10,10 +10,19 @@ runs under ``torch.func.grad``, which refuses ``torch.utils.checkpoint``),
 its parallel block and its untied unembedding, which no dense config sets.
 
 Public entry points:
-  init_params(cfg, gen, device)   -> params
-  forward(cfg, params, tokens)    -> hidden (B, S, D)
-The MLA/MoE/SSM/xLSTM blocks, the vision-text front end, the logits and
-the decode cache are not ported yet (ROADMAP §1).
+  init_params(cfg, gen, device)              -> params
+  forward(cfg, params, tokens)               -> hidden (B, S, D)
+  logits_from_hidden(cfg, params, hidden)    -> f32 logits (tied unembed)
+  init_cache(cfg, batch, max_len, device)    -> cache
+  prefill(cfg, params, tokens, cache)        -> (last logits (B, V), cache)
+  decode_step(cfg, params, cache, token_ids) -> (logits (B, V), cache)
+
+The cache is the reference's tree, ``{"layers": {"b0": {leaf: (L, ...)}},
+"pos": () int32}``, its per-layer leaves stacked on the layer axis as the
+parameters are. Prefill and decode run without autograd and update it in
+place, layer by layer through views of the stacked leaves, so no second
+stacked copy is made; they return the same dict. The MLA/MoE/SSM/xLSTM
+blocks and the vision-text front end are not ported yet (ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ from repro_torch import utils
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (dtype_of, embed, embedding_init,
                                        rmsnorm, rmsnorm_init,
-                                       swiglu, swiglu_init)
+                                       swiglu, swiglu_init, unembed)
 
 
 def _require_dense(cfg):
@@ -95,3 +104,76 @@ def forward(cfg, params, tokens):
     for sp in _unstack(params["layers"], cfg.num_superblocks):
         x = _superblock_forward(cfg, sp, x, positions)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def logits_from_hidden(cfg, params, hidden):
+    """f32 logits of the tied unembedding (every ported config ties)."""
+    return unembed(params["embed"], hidden)
+
+
+# ------------------------------------------------------------------ cache ---
+
+def init_cache(cfg, batch: int, max_len: int, device="cpu"):
+    """An empty decode cache for ``batch`` sequences of up to ``max_len``
+    positions (a ring of ``cfg.sliding_window`` slots with a window)."""
+    _require_dense(cfg)
+    proto = attn.gqa_cache_init(cfg, batch, max_len, dtype_of(cfg.dtype),
+                                device)
+    n = cfg.num_superblocks
+    return {"layers": {"b0": {k: v.expand((n,) + v.shape).clone()
+                              for k, v in proto.items()}},
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _layer_caches(cache, n: int):
+    """Per-layer views of the stacked cache leaves (writes reach them)."""
+    stacked = cache["layers"]["b0"]
+    return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
+
+
+def _block_prefill(cfg, p, x, positions, cache):
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    y, cache = attn.gqa_prefill(cfg, p["attn"], h, positions, cache)
+    x = x + y
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + swiglu(p["ffn"], h)
+
+
+def _block_decode(cfg, p, x, pos, cache):
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    y, cache = attn.gqa_decode(cfg, p["attn"], h, pos, cache)
+    x = x + y
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + swiglu(p["ffn"], h)
+
+
+@torch.no_grad()
+def prefill(cfg, params, tokens, cache):
+    """Run the prompt ``tokens`` (B, S), filling ``cache`` from position
+    0. Returns (last-position f32 logits (B, V), cache)."""
+    _require_dense(cfg)
+    x = embed(params["embed"], tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    n = cfg.num_superblocks
+    for sp, c in zip(_unstack(params["layers"], n), _layer_caches(cache, n)):
+        x = _block_prefill(cfg, sp["b0"], x, positions, c)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    cache["pos"].fill_(s)
+    return logits_from_hidden(cfg, params, x[:, -1]), cache
+
+
+@torch.no_grad()
+def decode_step(cfg, params, cache, token_ids):
+    """One token a sequence, ``token_ids`` (B, 1), at position
+    ``cache["pos"]``. Returns (f32 logits (B, V), cache)."""
+    _require_dense(cfg)
+    x = embed(params["embed"], token_ids)
+    pos = cache["pos"]
+    n = cfg.num_superblocks
+    for sp, c in zip(_unstack(params["layers"], n), _layer_caches(cache, n)):
+        x = _block_decode(cfg, sp["b0"], x, pos, c)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = logits_from_hidden(cfg, params, x[:, 0])
+    pos.add_(1)
+    return logits, cache

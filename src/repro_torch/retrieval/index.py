@@ -26,8 +26,10 @@ of each block, and only blocks whose largest probe drift exceeds
 block with ``lax.cond`` inside a scan, the port reads the block decisions
 to the host once and loops over the blocks to re-encode.
 
-Saving and loading an index wait for the checkpoint slice of the port
-(ROADMAP §1, item 5).
+**Persistence** (``CorpusIndex.save`` / ``load``): the reference's
+checkpoint layout (:mod:`repro_torch.checkpoint`), ``{"embeddings",
+"normalized": int32}`` at step ``num_items``, so an index saved by either
+package loads in the other, bf16 storage included.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import utils
+from repro_torch.checkpoint import restore_checkpoint_flat, save_checkpoint
 from repro_torch.core import eval as eval_lib
 from repro_torch.kernels.mips_topk import mips_topk
 
@@ -203,15 +206,19 @@ class CorpusIndex:
         return mips_topk(queries.to(F32), self.embeddings, k)
 
     def save(self, path: str) -> None:
-        raise NotImplementedError(
-            "CorpusIndex.save waits for the port's checkpoint format "
-            "(ROADMAP §1, item 5, 'checkpoint/')")
+        save_checkpoint(path, {
+            "embeddings": self.embeddings,
+            "normalized": torch.tensor(int(self.normalized),
+                                       dtype=torch.int32),
+        }, step=self.num_items)
 
     @classmethod
-    def load(cls, path: str) -> "CorpusIndex":
-        raise NotImplementedError(
-            "CorpusIndex.load waits for the port's checkpoint format "
-            "(ROADMAP §1, item 5, 'checkpoint/')")
+    def load(cls, path: str, device=None) -> "CorpusIndex":
+        """The index saved at ``path``, its embeddings on ``device`` (the
+        card unless ``device="cpu"``) in the type they were saved in."""
+        flat, _ = restore_checkpoint_flat(path, utils.resolve_device(device))
+        return cls(flat["embeddings"],
+                   normalized=bool(int(flat["normalized"])))
 
 
 def make_retrieval_eval(encode_fn: Callable, corpus, corpus_labels, queries,

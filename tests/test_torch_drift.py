@@ -30,11 +30,11 @@ Tolerances:
   f32-vs-f64 distance plus 1e-6 of the update, and 1e-4 where the
   reference's ticks are held so (tests/test_torch_async.py).
 
-The reference's checkpoint-resume tests with drift
+Resuming from ``drift_state=`` in memory is tested here; the port's
+versions of the reference's checkpoint-resume tests with drift
 (tests/test_server_update.py, ``test_checkpoint_resume_with_drift_and_
 lossy_channel`` and ``test_async_checkpoint_roundtrips_buffer_and_drift``)
-wait for the port's ``checkpoint/`` (ROADMAP §1 item 8); resuming from
-``drift_state=`` in memory is tested here.
+resume from a file, in tests/test_torch_checkpoint.py.
 """
 import jax
 import jax.numpy as jnp

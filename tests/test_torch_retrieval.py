@@ -167,10 +167,6 @@ def test_mips_refusals():
     with pytest.raises(NotImplementedError, match="item 4"):
         retrieval.sharded_mips_topk(q, c.reshape(2, 150, 4), 3, n_total=300,
                                     mesh=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        retrieval.CorpusIndex(c).save("index.bin")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        retrieval.CorpusIndex.load("index.bin")
 
 
 def test_mips_cuda_tensor_never_reaches_the_plain_version(monkeypatch,
