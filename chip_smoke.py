@@ -17,9 +17,11 @@ Phases (each prints its lines; any failure exits non-zero):
      ``quant_dequant`` in both scale forms (bit for bit)
      and ``segment_sum`` (bit for bit, and the same on a second run) at
      every (K, D, E) its paths give it, a ragged shape with padding ids
-     and empty segments, and one segment per client; then
-     ``hierarchy.fold_to_edges`` end to end at the deltas shape beside the
-     kernel alone;
+     and empty segments, and one segment per client (phase 11's streamed
+     tree included: a chunk of STREAM_CHUNK rows of each payload into its
+     one edge, and the STREAM_K-row edge mass into 8); then
+     ``hierarchy.fold_to_edges`` end to end at the deltas shape, K into 8
+     edges and STREAM_CHUNK into 1, beside the kernel alone;
   3. the Appendix-A equivalence at full width, for DCCO and for D-VICReg:
      one round against one centralized step on the same 64-client cohort;
   4. six training paths through ``repro_torch.launch.train --full`` on
@@ -130,6 +132,25 @@ Phases (each prints its lines; any failure exits non-zero):
      ``--resume``, its parameters after round 4 held to the uninterrupted
      run's within the distance between two uninterrupted runs (measured
      in the same phase, cuDNN's deterministic algorithms on).
+  11. streamed cohorts and the training modes, each window's launches
+     held exact: (a) D-CCO on the ResNet over STREAM_K clients a round,
+     streamed in chunks of STREAM_CHUNK (``train --cohort-chunk``), no
+     kernel (the statistics kernel is refused on streamed rounds);
+     (b) the same through the tree of 8 edges with an int8 client hop, one
+     edge a chunk (the column quantize kernel 2 a chunk, segment_sum 1 + 2
+     a chunk), its peak memory and ms/round printed beside the
+     materialized 64-client D-CCO path's; (c) one lossless round at K
+     streamed in chunks of EQ_CHUNK against the materialized round from
+     the same round generator: the sampled cohorts equal bit for bit, the
+     parameters within STREAM_TOL of the update (the distance printed);
+     (f) ``--mode fused`` and ``--mode protocol`` on the ResNet, no kernel;
+     (d) D-CCO on the full-width TinyLlama-1.1B streamed at K =
+     TOK_STREAM_KS in chunks of TOK_CHUNK (flash attention 88 a chunk),
+     both peaks printed; (e) ``--mode fused --micro FUSED_MICRO`` on
+     TinyLlama-1.1B over FUSED_K clients x 2 sequences (flash 132 a
+     microbatch: phase 1, the checkpointed forward and its recompute),
+     then the micro FUSED_MICRO step's gradient against the micro 1
+     step's on GRAD_B sequences, within GRAD_TOL.
 Then one JSON line of kernel figures, and the device line last.
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -153,10 +174,11 @@ from repro_torch import comm, utils  # noqa: E402
 from repro_torch.checkpoint import (  # noqa: E402
     restore_checkpoint, save_checkpoint)
 from repro_torch.configs.base import (  # noqa: E402
-    DualEncoderConfig, get_config, get_dual_encoder_config)
+    DualEncoderConfig, TrainConfig, get_config, get_dual_encoder_config)
 from repro_torch.core import fed_sim, round_engine  # noqa: E402
 from repro_torch.data import partition, pipeline, synthetic  # noqa: E402
-from repro_torch.hierarchy import fold_to_edges  # noqa: E402
+from repro_torch.hierarchy import (  # noqa: E402
+    contiguous_edge_ids, fold_to_edges)
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.cco_stats import cco_stats  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -1527,6 +1549,239 @@ def checkpoint_resume(device):
     return counts
 
 
+# phase 11: streamed cohorts and the fused and protocol training modes.
+# STREAM_K clients a round streamed in chunks of STREAM_CHUNK (one edge of
+# the 8-edge tree a chunk); the equivalence round at the main paths' K in
+# chunks of EQ_CHUNK; the token tower at TOK_STREAM_KS clients in chunks of
+# TOK_CHUNK; the fused token step over FUSED_K clients in FUSED_MICRO
+# microbatches, and its gradient check on GRAD_B sequences.
+STREAM_K, STREAM_CHUNK, EQ_CHUNK = 512, 64, 16
+TOK_STREAM_KS, TOK_CHUNK, TOK_STREAM_ROUNDS = (8, 16), 4, 2
+FUSED_K, FUSED_MICRO, GRAD_B = 16, 4, 8
+# streamed vs materialized at full width, one lossless round, server SGD:
+# max |p_streamed - p_materialized| / max |p_materialized - p_0| <=
+# STREAM_TOL[dtype]. Only the grouping of the Eq.-3 sums differs, and the
+# batch shapes the convolutions and the vmapped phase 2 see (so cuDNN
+# picks other algorithms); a protocol fault moves the parameters by O(1)
+# of the update. D-CCO's first round at random init amplifies rounding by
+# ~1e4 (the f32 round read 7.7e-3 on the card), so the identity is gated
+# in f64, where it holds to rounding; the f32 round is gated only against
+# a fault. The materialized f32 round through the statistics kernel
+# against the per-client average is printed beside it as a yardstick.
+STREAM_TOL, EQ_LR = {"float64": 1e-5, "float32": 1e-1}, 1e-5
+# the fused token step's gradient, micro FUSED_MICRO against micro 1 on
+# one batch: ||g_M - g_1|| / ||g_1|| over all leaves <= GRAD_TOL. Both run
+# the bf16 tower (2^-8 relative rounding of every activation and product)
+# on other batch shapes, and the single step's gradient is bf16 where the
+# microbatched one is averaged in f32.
+GRAD_TOL = 5e-2
+# flash-attention forwards of the token tower (2 views x 22 layers):
+# a streamed chunk runs phase 1 (44) and phase 2 with the chunk's clients
+# folded into one launch a layer and view (44); a fused single step 44; a
+# microbatch of the microbatched step 44 in phase 1, then 44 in phase 2's
+# checkpointed forward and 44 again in its recompute for the backward
+FLASH_CHUNK = 2 * 2 * TOK_LAYERS
+FLASH_MICRO = 3 * 2 * TOK_LAYERS
+
+
+def streamed_equivalence(device):
+    """One lossless round of the full-width ResNet at K clients, streamed
+    in chunks of EQ_CHUNK against materialized, from the same round
+    generator and parameters, server SGD, in f64 and in f32: the sampled
+    cohorts equal bit for bit, the parameters within STREAM_TOL of the
+    update. Returns the windows' counts."""
+    cfg = get_config("resnet14-cifar")
+    args = train.parse_args([
+        "--full", "--clients-per-round", str(K), "--samples-per-client",
+        str(N_PER_CLIENT), "--dataset-size", str(DATASET)])
+    de_cfg = DualEncoderConfig(
+        proj_dims=get_dual_encoder_config("resnet14-cifar").proj_dims,
+        lambda_cco=args.lam)
+    ds, _ = train.build_dataset(cfg, args)
+    mat = ds.make_round_sampler(K, device)
+    stream = ds.make_streaming_sampler(K, EQ_CHUNK, device)
+    round_seed = 0              # round 0 of seed 0, as engine.run(.., 0, 1)
+    batch, sizes = mat(utils.generator(round_seed, device))
+    state = stream.prepare(utils.generator(round_seed, device))
+    chunks = [stream.sample_chunk(state, c) for c in range(stream.num_chunks)]
+    same = all(torch.equal(torch.cat([b[v] for b, _ in chunks]), batch[v])
+               for v in ("v1", "v2")) and torch.equal(
+                   torch.cat([z for _, z in chunks]), sizes)
+    print(f"streamed sampler (K={K}, chunks of {EQ_CHUNK}): its chunks "
+          f"concatenated equal the materialized sampler's cohort bit for "
+          f"bit: {same}", flush=True)
+    if not same:
+        fail("the streamed chunks are not the materialized cohort")
+    del batch, sizes, state, chunks
+    opt = opt_lib.sgd(EQ_LR)
+    base = round_engine.EngineConfig(lam=args.lam, chunk_rounds=1)
+    streamed = f"streamed in chunks of {EQ_CHUNK}"
+    counts, dist = [], {}
+    for dtype in ("float64", "float32"):
+        c_dt = cfg.replace(dtype=dtype)
+        p0 = dual_encoder.init_dual_encoder(0, c_dt, de_cfg, device)
+        apply = train.make_apply(c_dt, de_cfg)
+        runs = [("materialized, per-client phase 1",
+                 base._replace(stats_kernel="off"), mat, {}),
+                (streamed, base._replace(cohort_chunk=EQ_CHUNK), stream, {})]
+        if dtype == "float32":
+            runs.insert(1, ("materialized, statistics kernel",
+                            base._replace(stats_kernel="fused"), mat,
+                            {"cross": 1}))
+        out = {}
+        for name, cfg_e, sampler, expected in runs:
+            engine = round_engine.RoundEngine(apply, opt, sampler, cfg_e)
+            (p1, _, m), c = _window(
+                f"equivalence round, {dtype}, {name}",
+                lambda: engine.run(p0, opt.init(p0), 0, 1), expected)
+            counts.append(c)
+            out[name] = (p1, float(m.loss[0]))
+        ref = out["materialized, per-client phase 1"][0]
+        upd = utils.tree_max_abs_diff(ref, p0)
+        rel = {name: utils.tree_max_abs_diff(p, ref) / upd
+               for name, (p, _) in out.items()}
+        dist[dtype] = rel[streamed]
+        yard = rel.get("materialized, statistics kernel")
+        print(f"streamed vs materialized, one round at full width in "
+              f"{dtype} (K={K} x {N_PER_CLIENT}, server SGD lr {EQ_LR}): "
+              f"max |p_streamed - p_materialized| / max |update| = "
+              f"{rel[streamed]:.4e} (tol {STREAM_TOL[dtype]:g})"
+              + ("" if yard is None else
+                 f"; the statistics kernel against the per-client average:"
+                 f" {yard:.4e}")
+              + "; losses " + ", ".join(f"{n} {lo:.6f}"
+                                        for n, (_, lo) in out.items()),
+              flush=True)
+        del out, ref, p0
+    if not all(dist[dt] <= STREAM_TOL[dt] for dt in dist):
+        fail("the streamed round departs from the materialized round")
+    return counts
+
+
+def fused_gradient_check(device):
+    """The fused token step's gradient at micro FUSED_MICRO against micro
+    1 on one batch of GRAD_B sequences of the full-width TinyLlama-1.1B
+    tower, each in a window of its own. Returns the windows' counts."""
+    cfg = get_config(TOK_ARCH)
+    de_cfg = DualEncoderConfig(
+        proj_dims=get_dual_encoder_config(TOK_ARCH).proj_dims, lambda_cco=5.0)
+    params = dual_encoder.init_dual_encoder(0, cfg, de_cfg, device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    views = [torch.randint(0, cfg.vocab_size, (GRAD_B, TOK_S), generator=gen,
+                           device=device) for _ in range(2)]
+    batch = {"view1": {"tokens": views[0]}, "view2": {"tokens": views[1]}}
+    grads, counts = {}, []
+    for micro in (1, FUSED_MICRO):
+        step = steps_lib.make_dcco_train_step(
+            cfg, de_cfg, TrainConfig(global_batch=GRAD_B, samples_per_client=TOK_N),
+            opt_lib.sgd(1.0), num_microbatches=micro)
+        (g, m), c = _window(
+            f"fused step gradient, micro {micro}",
+            lambda: step.grads(params, batch),
+            {"flash": (FLASH_MICRO * micro if micro > 1
+                       else 2 * TOK_LAYERS)})
+        counts.append(c)
+        grads[micro] = (g, float(m["loss"]))
+    g1, gm = grads[1][0], grads[FUSED_MICRO][0]
+    sq_diff = sq_ref = dot = sq_m = 0.0
+    for a, b in zip(utils.tree_leaves(g1), utils.tree_leaves(gm)):
+        a, b = a.double(), b.double()
+        sq_diff += float(((a - b) ** 2).sum())
+        sq_ref += float((a * a).sum())
+        sq_m += float((b * b).sum())
+        dot += float((a * b).sum())
+    rel = (sq_diff / sq_ref) ** 0.5
+    cos = dot / (sq_ref * sq_m) ** 0.5
+    print(f"fused step gradient, {TOK_ARCH} full width, {GRAD_B} sequences "
+          f"of {TOK_S}: micro {FUSED_MICRO} vs micro 1: ||g_M - g_1|| / "
+          f"||g_1|| = {rel:.4e} (tol {GRAD_TOL:g}), cosine {cos:.6f}; "
+          f"losses {grads[1][1]:.6f} / {grads[FUSED_MICRO][1]:.6f}; "
+          f"gradient types {utils.tree_leaves(g1)[0].dtype} / "
+          f"{utils.tree_leaves(gm)[0].dtype}", flush=True)
+    if not (rel <= GRAD_TOL and all(
+            bool(torch.isfinite(x).all()) for x in utils.tree_leaves(gm))):
+        fail("the microbatched step's gradient departs from the single "
+             "step's")
+    return counts
+
+
+def streaming_and_modes(device, dcco_ref):
+    """Phase 11 (see the module docstring). ``dcco_ref``: the materialized
+    64-client D-CCO path's summary (peak GiB, ms/round), printed beside
+    the streamed tree's. Returns the paths' and windows' counts."""
+    counts = []
+    rounds = PATH_ROUNDS
+    stream = ["--clients-per-round", str(STREAM_K), "--cohort-chunk",
+              str(STREAM_CHUNK)]
+    c, res = train_path("streamed dcco", stream, rounds, {})
+    counts.append(c)
+    release(res)
+    # the begin-round edge mass, then each chunk's statistics and deltas
+    # through the int8 client hop (a column quantize each) and their fold
+    # into the chunk's one edge (a segment sum each)
+    chunks = STREAM_K // STREAM_CHUNK
+    c, res = train_path(
+        "streamed dcco over the int8 tree",
+        [*stream, "--edges", "8", "--channel", "int8", "--edge-channel",
+         "dense"], rounds, {"column": 2 * chunks * rounds,
+                            "fold": (1 + 2 * chunks) * rounds})
+    counts.append(c)
+    steady = sorted(res["round_ms"][1:])
+    ref_steady = sorted(dcco_ref["round_ms"][1:])
+    ms, ref_ms = steady[len(steady) // 2], ref_steady[len(ref_steady) // 2]
+    print(f"streamed tree (K={STREAM_K} in {chunks} chunks of "
+          f"{STREAM_CHUNK}, int8 client hop) beside the materialized "
+          f"K={K} D-CCO path: peak device memory {res['peak_gib']:.2f} vs "
+          f"{dcco_ref['peak_gib']:.2f} GiB (ratio "
+          f"{res['peak_gib'] / dcco_ref['peak_gib']:.3f}), median ms/round "
+          f"{ms:.1f} vs {ref_ms:.1f} (ratio {ms / ref_ms:.2f})", flush=True)
+    release(res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts += streamed_equivalence(device)
+    # the ResNet's fused step and protocol loop: statistics in plain code
+    # (no kernel), as the reference's
+    for name, flags in (("fused", ["--mode", "fused"]),
+                        ("protocol", ["--mode", "protocol"])):
+        c, res = train_path(f"resnet {name} mode", flags, rounds, {})
+        counts.append(c)
+        release(res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok = ["--arch", TOK_ARCH, "--seq-len", str(TOK_S),
+           "--samples-per-client", str(TOK_N)]
+    peaks = {}
+    for k in TOK_STREAM_KS:
+        c, res = train_path(
+            f"tinyllama dcco streamed K={k}",
+            [*tok, "--clients-per-round", str(k), "--cohort-chunk",
+             str(TOK_CHUNK)], TOK_STREAM_ROUNDS,
+            {"flash": FLASH_CHUNK * (k // TOK_CHUNK) * TOK_STREAM_ROUNDS})
+        counts.append(c)
+        peaks[k] = res["peak_gib"]
+        release(res)
+        gc.collect()
+        torch.cuda.empty_cache()
+    c, res = train_path(
+        f"tinyllama fused micro {FUSED_MICRO}",
+        [*tok, "--clients-per-round", str(FUSED_K), "--mode", "fused",
+         "--micro", str(FUSED_MICRO)], rounds,
+        {"flash": FLASH_MICRO * FUSED_MICRO * rounds})
+    counts.append(c)
+    peaks["fused"] = res["peak_gib"]
+    release(res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts += fused_gradient_check(device)
+    print(f"tinyllama peak device memory: dcco streamed in chunks of "
+          f"{TOK_CHUNK}: " + ", ".join(f"K={k} {peaks[k]:.2f} GiB"
+                                       for k in TOK_STREAM_KS)
+          + f" (materialized K={TOK_K} is printed above; K=8 materialized "
+          f"exceeds the card); fused micro {FUSED_MICRO} over {FUSED_K} x "
+          f"{TOK_N} sequences {peaks['fused']:.2f} GiB", flush=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1599,6 +1854,17 @@ def main():
     check_segment_sum(K, n_stats, K, torch.arange(K), 32,
                       "one segment per client")
     check_fold_to_edges(device, K, 8)
+    # phase 11's streamed tree: each chunk folds its clients into its one
+    # edge (both payloads), and begin_round's edge mass (unweighted)
+    # spans the whole cohort
+    one_edge = torch.zeros(STREAM_CHUNK, dtype=torch.int32, device=device)
+    check_segment_sum(STREAM_CHUNK, n_params, 1, one_edge, 33,
+                      "streamed chunk deltas")
+    check_segment_sum(STREAM_CHUNK, n_stats, 1, one_edge, 34,
+                      "streamed chunk stats")
+    check_segment_sum(STREAM_K, 1, 8, contiguous_edge_ids(STREAM_K, 8), 35,
+                      "streamed edge mass", weighted=False)
+    check_fold_to_edges(device, STREAM_CHUNK, 1)
 
     appendix_a(device, "dcco")
     appendix_a(device, "dvicreg")
@@ -1632,6 +1898,8 @@ def main():
                                  "1", "--retrieval-corpus", "1536",
                                  "--retrieval-queries", "512"], PATH_ROUNDS,
                    {"cross": PATH_ROUNDS, "search": PATH_ROUNDS})]
+    dcco_ref = {"peak_gib": runs[0][1]["peak_gib"],
+                "round_ms": runs[0][1]["round_ms"]}
     fedavg = fedavg_paths()
     drifted = drift_paths(device)
     mips_figures = check_mips_laws(device)
@@ -1692,6 +1960,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     runs += checkpoint_resume(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += streaming_and_modes(device, dcco_ref)
     print(f"tinyllama peak device memory: fedavg_contrastive "
           f"{tok_fedavg['peak_gib']:.2f} GiB, dcco "
           f"{tok_dcco['peak_gib']:.2f} GiB, dcco fedprox (2 local steps) "

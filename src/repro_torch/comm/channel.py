@@ -31,8 +31,10 @@ which composes two of these as its hops. Three phases ride the wire: the
 phase-1 ``"stats"``, the phase-2 ``"update"`` and SCAFFOLD's ``"variate"``
 (the per-client control-variate deltas, :mod:`repro_torch.server.drift`),
 so quantization, DP noise and dropout compose with drift correction and
-its bytes are counted. The reference's sharded and streaming folds
-(``local_fold``, ``chunk_fold``) are not ported yet (ROADMAP §1).
+its bytes are counted. ``chunk_fold`` is the streaming engine's partial
+fold of one cohort chunk (:mod:`repro_torch.hierarchy.streaming`); the
+reference's sharded fold (``local_fold``) waits for the cohort sharded
+over devices (ROADMAP §1, item 6, 'Sharded and streaming cohorts').
 """
 from __future__ import annotations
 
@@ -118,6 +120,20 @@ class Channel:
         dec = self.encode_decode(ctx, tree_k, phase, draws)
         return self.post_aggregate(ctx, _weighted_sum(ctx.weights, dec),
                                    phase, draws)
+
+    def chunk_fold(self, ctx: ChannelContext, tree_chunk, phase: str,
+                   chunk_index: int, chunk_weights, draws=None):
+        """Partial aggregate of one cohort chunk (the streaming engine):
+        encode/decode the chunk's per-client payloads under the round's
+        seed folded with ``chunk_index``, then fold them with the chunk's
+        slice of the GLOBAL aggregation weights. Summing the partials over
+        all chunks and applying ``post_aggregate`` once equals
+        ``aggregate`` on the materialized cohort up to float regrouping
+        (exactly, in math, by Eq.-3 linearity). ``draws``: this chunk's
+        ``encode_decode`` draws."""
+        ctx_c = ctx._replace(key=utils.fold_in(ctx.key, chunk_index))
+        dec = self.encode_decode(ctx_c, tree_chunk, phase, draws)
+        return _weighted_sum(chunk_weights, dec)
 
     def payload_bytes(self, tree) -> float:
         """Static per-client uplink bytes for one payload tree (shapes of

@@ -76,6 +76,19 @@ class DualEncoderConfig:
     shared_towers: bool = True      # Fig 1(a) vs 1(b)/(c)
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """The fused train step's batch and loss path (the reference's
+    fields that the step and the CLI read)."""
+    global_batch: int = 8
+    samples_per_client: int = 1     # clients/round = global_batch //
+                                    # samples_per_client
+    # D-CCO path: "fused" (centralized-equivalent) | "per_client" (the
+    # faithful per-client stop-grad combine); the reference's
+    # "shard_map" waits for ROADMAP §1, item 6
+    dcco_impl: str = "fused"
+
+
 # the reference's registry; only PORTED_ARCHS have a module here
 ARCH_IDS = (
     "internvl2-2b", "granite-3-8b", "qwen3-8b", "qwen3-1.7b",

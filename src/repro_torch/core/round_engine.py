@@ -62,6 +62,16 @@ round's updated params, into ``EngineMetrics.retrieval`` (NaN off the
 cadence). It only observes: the parameters and losses are the same bits
 with and without it.
 
+``EngineConfig.cohort_chunk`` streams the cohort through the two-phase
+round in chunks of that many clients (:mod:`repro_torch.hierarchy.
+streaming`): peak memory O(cohort_chunk) instead of O(cohort). Its sampler
+is chunkable (``FederatedDataset.make_streaming_sampler``), and the
+streaming body samples inside the round from the round's generator, one
+chunk at a time. There ``stats_kernel=None`` resolves to the per-chunk
+average and ``"fused"`` is refused: the cohort the kernel would read never
+materializes. SCAFFOLD, ``num_clusters > 1`` and ``async_k`` are refused
+beside it, as in the reference.
+
 ``run(ckpt_dir=, ckpt_every=, ckpt_name=)`` writes the reference's
 checkpoint blob at segment boundaries (:mod:`repro_torch.checkpoint`);
 restored and passed back in with ``start_round``, it continues the run
@@ -171,6 +181,12 @@ class EngineConfig(NamedTuple):
     prox_mu: float = 0.0            # FedProx proximal coefficient (0: off)
     scaffold: bool = False          # SCAFFOLD control variates, carried
                                     # in EngineCarry.drift
+    cohort_chunk: int = 0           # >0: stream the cohort through the
+                                    # round in chunks of this many clients
+                                    # (repro_torch.hierarchy.streaming):
+                                    # peak memory O(cohort_chunk) instead
+                                    # of O(cohort); needs a chunkable
+                                    # sampler (make_streaming_sampler)
     # --- cluster-aware aggregation (repro_torch.cluster) ---
     num_clusters: int = 0           # >1: cosine k-means on the per-client
                                     # stats assigns each cohort client a
@@ -386,6 +402,66 @@ def make_round_body(encoder_apply: Callable, server_opt,
 
 
 # ---------------------------------------------------------------------------
+# streaming round body (repro_torch.hierarchy.streaming)
+# ---------------------------------------------------------------------------
+
+def make_streaming_round_body(encoder_apply: Callable, server_opt,
+                              cfg: EngineConfig, sampler) -> Callable:
+    """Build the streaming round body: ``round_fn(params, opt_state, gen,
+    channel_key=None) -> (params, opt_state, metrics)``. Unlike the
+    materialized bodies it samples INSIDE the round from the round's
+    generator ``gen``, one cohort chunk at a time, so the engine never
+    holds more than ``cfg.cohort_chunk`` clients of batch data; the
+    ``sampler`` must be chunkable (``FederatedDataset.
+    make_streaming_sampler`` or a :class:`repro_torch.hierarchy.
+    StreamingSampler`)."""
+    from repro_torch.hierarchy import streaming as streaming_lib
+
+    if cfg.algorithm != "dcco":
+        raise ValueError(
+            f"cohort_chunk streams the two-phase stats round only "
+            f"(algorithm 'dcco'), got {cfg.algorithm!r}")
+    if cfg.scaffold:
+        raise ValueError(
+            "SCAFFOLD keeps per-cohort-slot variates resident, which is "
+            "exactly the O(cohort) state cohort_chunk removes; disable "
+            "scaffold for streaming rounds")
+    if cfg.stats_kernel not in (None, "off"):
+        raise ValueError(
+            "stats_kernel aggregates phase-1 stats from the flattened "
+            "materialized cohort; with cohort_chunk the cohort never "
+            "materializes, so use the default per-chunk accumulation")
+    if not hasattr(sampler, "sample_chunk"):
+        raise ValueError(
+            "cohort_chunk needs a chunkable sampler "
+            "(FederatedDataset.make_streaming_sampler or a "
+            "repro_torch.hierarchy.StreamingSampler), got a plain round "
+            "sampler")
+    if sampler.cohort_chunk != cfg.cohort_chunk:
+        raise ValueError(
+            f"sampler chunks {sampler.cohort_chunk} clients but "
+            f"EngineConfig.cohort_chunk={cfg.cohort_chunk}")
+    num_chunks = sampler.num_chunks
+    encoder_apply = cast_encoder_apply(encoder_apply, cfg.compute_dtype)
+    objective = fed_sim.resolve_objective(cfg.objective, cfg.lam)
+    server_update = _server_update_of(cfg, server_opt)
+    channel = cfg.channel
+
+    def round_fn(params, opt_state, gen, channel_key=None):
+        # the round's O(K)-scalar sampling state, drawn once for both
+        # phases
+        state = sampler.prepare(gen)
+        return streaming_lib.streaming_stats_round(
+            encoder_apply, params, opt_state, server_update,
+            lambda c: sampler.sample_chunk(state, c), num_chunks,
+            sampler.cohort_sizes(state), objective=objective,
+            client_lr=cfg.client_lr, local_steps=cfg.local_steps,
+            channel=channel, channel_key=channel_key, prox_mu=cfg.prox_mu)
+
+    return round_fn
+
+
+# ---------------------------------------------------------------------------
 # semi-synchronous buffered round body (repro_torch.core.buffer)
 # ---------------------------------------------------------------------------
 
@@ -594,6 +670,10 @@ class RoundEngine:
         self.drift_state = None      # final ScaffoldState of the last run()
         self.buffer_state = None     # final AsyncState of the last run()
         self.cluster_state = None    # final ClusterState of the last run()
+        if config.cohort_chunk < 0:
+            raise ValueError(
+                f"cohort_chunk must be >= 0, got {config.cohort_chunk}")
+        self._streaming = config.cohort_chunk > 0
         self._async = config.async_k > 0
         self._async_real = False     # True when the buffered path runs
         # num_clusters <= 1: ONE cluster is the global aggregate, so the
@@ -605,6 +685,20 @@ class RoundEngine:
                 "scheduler re-associates contributions across ticks, but "
                 "cluster targets and slots are per-dispatch; cluster the "
                 "synchronous engine")
+        if self._clustered and self._streaming:
+            raise ValueError(
+                "num_clusters assigns clusters from the materialized "
+                "cohort's per-client stats; cohort_chunk never "
+                "materializes the cohort; drop one")
+        if self._async and self._streaming:
+            raise ValueError(
+                "async_k and cohort_chunk are two schedulers for the same "
+                "round (buffered arrivals vs streamed chunks) and are not "
+                "composed; drop one")
+        if self._streaming:
+            self.round_fn = make_streaming_round_body(
+                encoder_apply, server_opt, config, sampler)
+            return
         if self._async:
             if not hasattr(sampler, "latency"):
                 raise ValueError(
@@ -744,14 +838,21 @@ class RoundEngine:
             seg_retrieval = []
             for r in range(start_round + done, start_round + done + seg):
                 round_seed = seed * _ROUND_SEED_STRIDE + r
-                out = self.sampler(utils.generator(round_seed, device))
-                batch, sizes = out[:2]
+                gen = utils.generator(round_seed, device)
                 key = (None if channel is None
                        else utils.fold_in(round_seed, _CHANNEL_SALT))
+                # the streaming body samples inside the round, one chunk
+                # at a time: the cohort never materializes here
+                out = (None, None) if self._streaming else self.sampler(gen)
+                batch, sizes = out[:2]
                 if scaffold and drift is None:
                     drift = drift_lib.scaffold_init(params, sizes.shape[0])
                 drift_kw = {"drift": drift} if scaffold else {}
-                if self._async_real:
+                if self._streaming:
+                    params, opt_state, m = self.round_fn(params, opt_state,
+                                                         gen, key)
+                    res = [_sync_metrics(m, device)]
+                elif self._async_real:
                     if buffer is None:
                         buffer = self._init_async_state(params, batch)
                     params, opt_state, buffer, *res = self.round_fn(

@@ -66,13 +66,6 @@ def augment_images(imgs: torch.Tensor, draws: AugmentDraws,
                        + mean * brightness[:, None, None, None], 0.0, 1.0)
 
 
-def two_views_image(gen: torch.Generator, imgs: torch.Tensor):
-    """Two independently augmented views of each image in (B,H,W,C)."""
-    b, h, w, _ = imgs.shape
-    return (augment_images(imgs, draw_augment(gen, b, h, w)),
-            augment_images(imgs, draw_augment(gen, b, h, w)))
-
-
 # ------------------------------------------------------------------ tokens --
 
 class TokenAugmentDraws(NamedTuple):
@@ -110,10 +103,3 @@ def augment_tokens(tokens: torch.Tensor, draws: TokenAugmentDraws,
     rolled = torch.gather(masked, 1, idx)
     return torch.where(draws.do_crop.to(dev)[:, None], rolled, masked)
 
-
-def two_views_tokens(gen: torch.Generator, tokens: torch.Tensor, **kw):
-    """Two independently augmented views of each sequence in (B, S). The
-    reference's ``vocab`` argument is dropped: no draw depends on it."""
-    b, s = tokens.shape
-    return (augment_tokens(tokens, draw_augment_tokens(gen, b, s, **kw)),
-            augment_tokens(tokens, draw_augment_tokens(gen, b, s, **kw)))

@@ -67,13 +67,30 @@ class FederatedDataset:
 
     # ------------------------------------------------------------- rounds --
 
-    def _two_views(self, gen, raw, k: int, n: int):
+    def _draw_views(self, gen, raw_shape):
+        """Both views' augmentation draws for a batch of ``raw_shape``,
+        view 1's then view 2's, as the reference's ``two_views_image``
+        and ``two_views_tokens`` draw them."""
+        b = raw_shape[0]
         if self.leaf == "tokens":
-            v1, v2 = augment.two_views_tokens(gen, raw)
-        else:
-            v1, v2 = augment.two_views_image(gen, raw)
+            return tuple(augment.draw_augment_tokens(gen, b, raw_shape[1])
+                         for _ in range(2))
+        return tuple(augment.draw_augment(gen, b, *raw_shape[1:3])
+                     for _ in range(2))
+
+    def _apply_views(self, raw, draws, k: int, n: int):
+        """Augment gathered (k*n, ...) raw samples with both views'
+        draws into stacked two-view batches (k, n, ...): the one view
+        pipeline of every sampler, so a streamed chunk's views are the
+        materialized cohort's."""
+        fn = (augment.augment_tokens if self.leaf == "tokens"
+              else augment.augment_images)
+        v1, v2 = (fn(raw, d) for d in draws)
         return {"v1": v1.reshape(k, n, *v1.shape[1:]),
                 "v2": v2.reshape(k, n, *v2.shape[1:])}
+
+    def _two_views(self, gen, raw, k: int, n: int):
+        return self._apply_views(raw, self._draw_views(gen, raw.shape), k, n)
 
     def _select(self, gen, clients_per_round: int):
         return torch.randperm(self.num_clients, generator=gen,
@@ -144,6 +161,47 @@ class FederatedDataset:
                                 latency_lib.resolve_latency(latency))
         sampler.clients_per_round = clients_per_round
         return sampler
+
+    def make_streaming_sampler(self, clients_per_round: int,
+                               cohort_chunk: int, device):
+        """A chunkable sampler for the streaming engine path
+        (``EngineConfig.cohort_chunk``), working on ``device``:
+        ``prepare(gen)`` does the round's O(K)-scalar work once (the
+        cohort's selection and both views' augmentation draws for all K*n
+        samples, drawn in ``make_round_sampler``'s order), and
+        ``sample_chunk(state, c)`` gathers and augments ONLY chunk ``c``
+        with its slice of those draws, so a round never holds more than
+        ``cohort_chunk`` clients of batch data. The chunks concatenate to
+        exactly the cohort ``make_round_sampler`` draws from the same
+        generator (tested bit for bit), which is what makes the streamed
+        and materialized rounds comparable."""
+        from repro_torch.hierarchy.streaming import StreamingSampler
+        if cohort_chunk < 1 or clients_per_round % cohort_chunk:
+            raise ValueError(
+                f"clients_per_round={clients_per_round} does not divide "
+                f"into chunks of {cohort_chunk}")
+        raw, cindex, csizes = self._stage(torch.device(device))
+        n, k, chunk = (self.samples_per_client, clients_per_round,
+                       cohort_chunk)
+
+        def prepare(gen: torch.Generator):
+            sel = self._select(gen, k)
+            return sel, self._draw_views(gen, (k * n,) + tuple(raw.shape[1:]))
+
+        def sample_chunk(state, c: int):
+            sel, draws = state
+            sel_c = sel[c * chunk:(c + 1) * chunk]
+            rows = slice(c * chunk * n, (c + 1) * chunk * n)
+            draws_c = tuple(type(d)(*(x[rows] for x in d)) for d in draws)
+            gathered = raw[cindex[sel_c].reshape(-1)]        # (chunk*n, ...)
+            return (self._apply_views(gathered, draws_c, chunk, n),
+                    csizes[sel_c])
+
+        def cohort_sizes(state):
+            return csizes[state[0]]
+
+        return StreamingSampler(k, chunk, prepare, sample_chunk,
+                                cohort_sizes)
 
     def _sampler(self, k: int, device, latency):
         device = torch.device(device)

@@ -232,6 +232,45 @@ class HierarchicalChannel(Channel):
         return self.edge_channel.post_aggregate(ctx.edge_ctx, agg, phase,
                                                 draws.get("edge"))
 
+    def chunk_fold(self, ctx: HierarchicalContext, tree_chunk, phase: str,
+                   chunk_index: int, chunk_weights, draws=None):
+        """Streaming fold: the cohort chunk must hold whole edges, so each
+        chunk folds its clients into its own edges (one segment-sum
+        launch), runs the edge hop on them and hands back a partial the
+        streaming round adds up. Each hop draws under its seed folded with
+        ``chunk_index``; ``draws``: a dict with optional ``"client"`` and
+        ``"edge"`` entries, this chunk's draws of each hop."""
+        chunk = utils.tree_leaves(tree_chunk)[0].shape[0]
+        k = ctx.weights.shape[0]
+        edge_size = k // self.num_edges
+        if chunk % edge_size:
+            raise ValueError(
+                f"cohort chunk of {chunk} does not hold whole edges "
+                f"(edge size {edge_size}): pick cohort_chunk a multiple "
+                f"of clients-per-round / num_edges")
+        if self.collapses:
+            return super().chunk_fold(ctx, tree_chunk, phase, chunk_index,
+                                      chunk_weights,
+                                      (draws or {}).get("client"))
+        draws = draws or {}
+        e_chunk = chunk // edge_size
+        cctx_c = ctx.client_ctx._replace(
+            key=utils.fold_in(ctx.client_ctx.key, chunk_index))
+        dec = self.client_channel.encode_decode(cctx_c, tree_chunk, phase,
+                                                draws.get("client"))
+        partials = fold_to_edges(
+            dec, chunk_weights,
+            contiguous_edge_ids(chunk, e_chunk, chunk_weights.device),
+            e_chunk)
+        ectx_c = ctx.edge_ctx._replace(
+            key=utils.fold_in(ctx.edge_ctx.key, chunk_index))
+        enc = self.edge_channel.encode_decode(ectx_c, partials, phase,
+                                              draws.get("edge"))
+        emask = ctx.edge_ctx.mask[chunk_index * e_chunk:
+                                  (chunk_index + 1) * e_chunk]
+        return utils.tree_map(
+            lambda v: torch.tensordot(emask, v, dims=1), enc)
+
     # ------------------------------------------------------- accounting --
     def round_bytes(self, ctx: HierarchicalContext, payload_template):
         per_hop = self.hop_bytes(ctx, payload_template)

@@ -18,8 +18,9 @@ start and end) is read once, and busy time is the union of the
 intervals, so kernels that overlap on two streams do not count twice.
 The summed kernel time, and its share on each stream, are printed beside
 it. ``--fedprox-mu``, ``--scaffold``, ``--compute-dtype``,
-``--local-steps`` and ``--client-lr`` set the round as train's flags of
-those names do.
+``--local-steps``, ``--client-lr`` and ``--cohort-chunk`` (the cohort
+streamed through the round in chunks of that many clients) set the round
+as train's flags of those names do.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_round --full \\
       --clients-per-round 64 --dataset-size 2048 [--path clustered]
@@ -168,6 +169,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="as train's flag")
     ap.add_argument("--client-lr", type=float, default=1.0,
                     help="as train's flag")
+    ap.add_argument("--cohort-chunk", type=int, default=0,
+                    help="as train's flag (the dcco and hierarchical "
+                         "paths)")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -199,8 +203,11 @@ def main(argv=None) -> dict:
         lam=5.0, chunk_rounds=1, stats_kernel=args.stats_kernel,
         compute_dtype=args.compute_dtype, prox_mu=args.fedprox_mu,
         scaffold=args.scaffold, local_steps=args.local_steps,
-        client_lr=args.client_lr, **fields)
-    if ecfg.async_k:
+        client_lr=args.client_lr, cohort_chunk=args.cohort_chunk, **fields)
+    if ecfg.cohort_chunk:
+        sampler = ds.make_streaming_sampler(args.clients_per_round,
+                                            ecfg.cohort_chunk, device)
+    elif ecfg.async_k:
         sampler = ds.make_async_round_sampler(args.clients_per_round, device,
                                               ecfg.latency)
     else:
@@ -251,7 +258,8 @@ def main(argv=None) -> dict:
         ("scaffold", args.scaffold),
         (f"compute {args.compute_dtype}", args.compute_dtype != "float32"),
         (f"local steps {args.local_steps}", args.local_steps != 1),
-        (f"client lr {args.client_lr!r}", args.client_lr != 1.0)) if on)
+        (f"client lr {args.client_lr!r}", args.client_lr != 1.0),
+        (f"cohort chunk {args.cohort_chunk}", args.cohort_chunk)) if on)
     print(f"path {args.path}{drift}; arch {args.arch}; device {device}; "
           f"{args.clients_per_round} "
           f"clients x "

@@ -2,9 +2,10 @@
 (``--objective dcco|dvicreg|dwmse``) of the ResNet-14 dual encoder or, with
 ``--arch tinyllama-1.1b|qwen3-1.7b|qwen3-8b|granite-3-8b``, of a dense
 transformer's token dual encoder (``--seq-len`` tokens a sequence), rounds
-driven by :class:`repro_torch.core.round_engine.RoundEngine` (the
-reference CLI's ``--mode engine`` path), optionally over a lossy client
-uplink (``--channel``), through a two-level client -> edge -> server tree
+driven by :class:`repro_torch.core.round_engine.RoundEngine` (``--mode
+engine``, the default; the other modes are below), optionally over a
+lossy client uplink (``--channel``), through a two-level client -> edge
+-> server tree
 (``--edges``, ``--edge-channel``), with cluster-aware aggregation
 (``--clusters``) or on the FedBuff-style buffered engine (``--async-k``,
 ``--staleness``, ``--latency-tail``), optionally scoring retrieval of a
@@ -28,6 +29,33 @@ the parameters, the server state, SCAFFOLD's variates and the buffered
 engine's buffer, then runs the rounds from the checkpoint's step to
 ``--rounds``: the same rounds, bit for bit, as a run that never stopped.
 As in the reference, the clustered state is written but not resumed.
+
+``--cohort-chunk N`` streams each round's cohort through the engine in
+chunks of N clients (:mod:`repro_torch.hierarchy.streaming`): peak memory
+O(N) instead of O(cohort), so a round can hold many more clients.
+
+Three execution modes, as in the reference:
+  * ``--mode engine``   (default) the round engine
+                        (:class:`repro_torch.core.round_engine.RoundEngine`),
+                        every path above;
+  * ``--mode fused``    the fused D-CCO train step
+                        (:func:`repro_torch.launch.steps.
+                        make_dcco_train_step`) on the flattened cohort: one
+                        step == one federated round by the Appendix-A
+                        theorem; ``--micro M`` runs it as exact microbatched
+                        large-batch CCO over M microbatches;
+  * ``--mode protocol`` one ``fed_sim.stats_round`` a round on the cohort
+                        ``round_batch`` gathers on the host (the
+                        reference's per-round loop; no statistics kernel,
+                        as the reference passes none).
+Round seeds of the fused and protocol loops: round ``r`` draws from a
+generator on the device seeded ``--seed * 1_000_003 + r`` and a channel
+from ``utils.fold_in`` of that seed, the engine's convention (the
+reference's loops use ``PRNGKey(seed * 100003 + r)``, a stream of their
+own), so ``--mode protocol`` trains on the engine's cohorts for the same
+``--seed``. They evaluate every ``--eval-every`` rounds and checkpoint
+(``{"params", "opt"}``, plus ``"drift"`` with ``--scaffold``) every
+``--ckpt-every`` rounds, as the reference's loops do.
 
 The CLI trains the two-phase ``dcco`` round, as the reference's does.
 ``run(args, algorithm=...)`` drives the same run through another
@@ -67,8 +95,16 @@ Examples (full width, on the GPU):
   PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
       --compute-dtype bfloat16 --clients-per-round 64 --dataset-size 2048
   PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
-      --arch tinyllama-1.1b --seq-len 128 --clients-per-round 8 \\
+      --arch tinyllama-1.1b --seq-len 128 --clients-per-round 4 \\
       --samples-per-client 2 --stats-kernel fused
+  PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 2 \\
+      --arch tinyllama-1.1b --seq-len 128 --clients-per-round 16 \\
+      --samples-per-client 2 --cohort-chunk 4
+  PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
+      --cohort-chunk 64 --clients-per-round 512 --dataset-size 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --full --rounds 3 \\
+      --arch tinyllama-1.1b --seq-len 128 --clients-per-round 16 \\
+      --samples-per-client 2 --mode fused --micro 4
 """
 from __future__ import annotations
 
@@ -83,20 +119,25 @@ import torch
 
 from repro_torch import comm, objectives as objectives_lib
 from repro_torch import hierarchy, retrieval as retrieval_lib
-from repro_torch.checkpoint import restore_checkpoint
-from repro_torch.configs.base import (DualEncoderConfig, get_config,
-                                      get_dual_encoder_config)
+from repro_torch import utils
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.configs.base import (DualEncoderConfig, TrainConfig,
+                                      get_config, get_dual_encoder_config)
 from repro_torch.core import buffer as buffer_lib
-from repro_torch.core import eval as eval_lib, round_engine
+from repro_torch.core import eval as eval_lib, fed_sim, round_engine
 from repro_torch.data import latency as latency_lib
 from repro_torch.data import partition as partition_lib
 from repro_torch.data import pipeline, synthetic
+from repro_torch.launch import steps as steps_lib
 from repro_torch.models import dual_encoder, resnet as resnet_mod
 from repro_torch.models.dual_encoder import input_leaf, is_resnet
 from repro_torch.optim import optimizers as opt_lib, schedules
 from repro_torch.server import drift as drift_lib
 from repro_torch.server import update as server_update_lib
 from repro_torch.utils import resolve_device
+
+
+MODES = ("engine", "fused", "protocol")
 
 
 def build_dataset(cfg, args):
@@ -144,6 +185,82 @@ def validate_flags(ap, args) -> None:
         raise SystemExit("--severity needs --partition")
     if args.severity is not None and not 0.0 <= args.severity <= 1.0:
         raise SystemExit(f"--severity {args.severity} must be in [0, 1]")
+    if args.partition == "dirichlet_quantity" and args.mode == "fused":
+        raise SystemExit(
+            "--partition dirichlet_quantity yields variable-size clients "
+            "(padded rows masked by per-client sizes); the fused step "
+            "flattens the cohort without a mask; use --mode engine or "
+            "protocol")
+    if args.objective != "dcco" and args.mode == "fused":
+        raise SystemExit(
+            f"--objective {args.objective} needs the objective-parametric "
+            f"round bodies; the fused step hardcodes the CCO loss; use "
+            f"--mode engine or protocol")
+    if args.mode != "engine":
+        for flag, what in (("clusters", "the cluster-aware round"),
+                           ("async_k", "the buffered scheduler"),
+                           ("retrieval_eval", "the in-loop retrieval eval")):
+            if getattr(args, flag):
+                raise SystemExit(
+                    f"--{flag.replace('_', '-')} runs {what} of the round "
+                    f"engine; --mode {args.mode} has none; use --mode "
+                    f"engine")
+        _forbid_ignored_flags(
+            ap, args, ["stats_kernel", "chunk_rounds", "cohort_chunk",
+                       "compute_dtype"],
+            f"--mode {args.mode} does not run the round engine")
+    if args.mode == "fused":
+        if args.channel != "none":
+            raise SystemExit(
+                "--channel models the client uplink; the fused step has no "
+                "per-client wire; use --mode engine or protocol")
+        if args.edges:
+            raise SystemExit(
+                "--edges models the client->edge->server wire; the fused "
+                "step has no per-client wire; use --mode engine or "
+                "protocol")
+        _forbid_ignored_flags(
+            ap, args, ["server_opt", "fedprox_mu", "scaffold", "local_steps"],
+            "the fused step hardcodes the FedOpt delegate with one local "
+            "step; use --mode engine or protocol for server or drift "
+            "strategies")
+        batch = args.clients_per_round * args.samples_per_client
+        if args.micro < 1 or batch % args.micro:
+            raise SystemExit(
+                f"--micro {args.micro} must be >= 1 and divide the global "
+                f"batch of {batch} (--clients-per-round x "
+                f"--samples-per-client)")
+    else:
+        _forbid_ignored_flags(
+            ap, args, ["micro"],
+            "--micro splits the fused step's batch (--mode fused)")
+    if args.cohort_chunk:
+        if args.clusters:
+            raise SystemExit(
+                "--clusters with --cohort-chunk: cluster assignment reads "
+                "the whole cohort's stats at once; the streamed cohort "
+                "never materializes them; drop one")
+        if args.async_k:
+            raise SystemExit(
+                "--async-k with --cohort-chunk: the staleness buffer and "
+                "the streamed cohort are two schedulers for the same round "
+                "and are not composed; drop one")
+        if args.cohort_chunk < 0 or \
+                args.clients_per_round % args.cohort_chunk:
+            raise SystemExit(
+                f"--cohort-chunk {args.cohort_chunk} does not divide "
+                f"--clients-per-round {args.clients_per_round}")
+        if args.edges and args.cohort_chunk % max(
+                args.clients_per_round // args.edges, 1):
+            raise SystemExit(
+                f"--cohort-chunk {args.cohort_chunk} does not hold whole "
+                f"edges of {args.clients_per_round // args.edges} clients "
+                f"(--edges {args.edges})")
+        _forbid_ignored_flags(
+            ap, args, ["scaffold", "stats_kernel"],
+            "streaming rounds keep no cohort-resident state: SCAFFOLD "
+            "slot variates and the flattened-cohort stats kernel both "
+            "need the materialized cohort")
     if args.objective != "dcco":
         _forbid_ignored_flags(
             ap, args, ["lam"],
@@ -291,6 +408,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="stats objective trained by the two-phase round")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--mode", choices=list(MODES), default="engine",
+                    help="'engine': the round engine; 'fused': the fused "
+                         "D-CCO step on the flattened cohort (--micro); "
+                         "'protocol': one fed_sim.stats_round a round")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; without a GPU only "
                          "--device cpu runs")
@@ -322,6 +443,10 @@ def build_parser() -> argparse.ArgumentParser:
     g = ap.add_argument_group("engine")
     g.add_argument("--chunk-rounds", type=int, default=0,
                    help="rounds per metrics segment (0 = --eval-every)")
+    g.add_argument("--cohort-chunk", type=int, default=0,
+                   help="stream the cohort through each round in chunks "
+                        "of this many clients (engine mode; peak memory "
+                        "O(chunk) instead of O(cohort); 0 = materialized)")
     g.add_argument("--compute-dtype", default="float32",
                    choices=sorted(round_engine.COMPUTE_DTYPES),
                    help="encoder forward/backward compute dtype. "
@@ -454,6 +579,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--local-steps", type=int, default=1,
                    help="client local GD steps per round")
     g.add_argument("--lam", type=float, default=5.0)
+    g.add_argument("--micro", type=int, default=1,
+                   help="microbatches of the fused step's exact "
+                        "microbatched CCO (--mode fused)")
     return ap
 
 
@@ -478,15 +606,219 @@ def main(argv=None) -> dict:
     return run(parse_args(argv))
 
 
+class _RunLog:
+    """What a run records a round (losses, ms, probes, uplink bytes,
+    server updates, retrieval metrics) and its progress line."""
+
+    def __init__(self, device, evaluate):
+        self.device, self.evaluate = device, evaluate
+        self.history, self.round_ms, self.probes = [], [], []
+        self.wire, self.edge_wire, self.applied = [], [], []
+        self.retrieval = {}
+        self.sync()
+        self.t0 = time.perf_counter()
+
+    def sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def lap_ms(self) -> float:
+        """Host ms since the last lap, the device synchronised."""
+        self.sync()
+        t = time.perf_counter()
+        ms, self.t0 = (t - self.t0) * 1e3, t
+        return ms
+
+    def line(self, round_end, params, enc_std, ms, extra=""):
+        """Probe ``params`` and print the progress line of ``round_end``."""
+        acc = self.evaluate(params)
+        self.probes.append(acc)
+        if self.device.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(self.device) / 2**30
+            extra = f" peak_mem={peak:.2f}GiB{extra}"
+        print(f"round {round_end:5d} loss={self.history[-1]:9.4f} "
+              f"enc_std={enc_std:.4f} probe_acc={acc:.3f}{extra} "
+              f"({ms:.1f} ms/round)", flush=True)
+        self.sync()
+        self.t0 = time.perf_counter()
+
+
+def _engine_rounds(args, algorithm, cfg, de_cfg, ds, data, labels_t, params,
+                   opt, opt_state, objective, channel, drift_state,
+                   start_round, ckpt_dir, log):
+    """``--mode engine``: the rounds through the round engine; returns
+    (params, opt_state)."""
+    device, leaf = log.device, input_leaf(cfg)
+    latency = None
+    if args.async_k and args.latency_tail > 0:
+        latency = latency_lib.LatencyModel(
+            "heavytail", horizon=8, tail=args.latency_tail, seed=args.seed)
+    retrieval_eval = None
+    if args.retrieval_eval:
+        # held-out split: the first nc items are indexed as the corpus,
+        # the next nq serve as queries (label-match relevance)
+        nc, nq = args.retrieval_corpus, args.retrieval_queries
+
+        def embed(p, batch):
+            z, _ = dual_encoder.encode(cfg, de_cfg, p, batch)
+            return z
+
+        retrieval_eval = retrieval_lib.make_retrieval_eval(
+            embed, {leaf: data[:nc]}, labels_t[:nc],
+            {leaf: data[nc:nc + nq]}, labels_t[nc:nc + nq],
+            chunk=min(256, nc),
+            index_dtype=(torch.bfloat16 if args.retrieval_dtype
+                         == "bfloat16" else torch.float32))
+    if algorithm in ("fedavg_contrastive", "fedavg_byol"):
+        objective = None
+    ecfg = round_engine.EngineConfig(
+        algorithm=algorithm, objective=objective, lam=args.lam,
+        client_lr=args.client_lr, local_steps=args.local_steps,
+        chunk_rounds=args.chunk_rounds or args.eval_every or 25,
+        stats_kernel=args.stats_kernel, channel=channel, server_update=opt,
+        compute_dtype=args.compute_dtype, prox_mu=args.fedprox_mu,
+        scaffold=args.scaffold, cohort_chunk=args.cohort_chunk,
+        num_clusters=args.clusters, cluster_iters=args.cluster_iters,
+        async_k=args.async_k, staleness_fn=args.staleness, latency=latency,
+        retrieval_eval=retrieval_eval,
+        retrieval_every=args.retrieval_every)
+    if args.cohort_chunk:
+        sampler = ds.make_streaming_sampler(args.clients_per_round,
+                                            args.cohort_chunk, device)
+    elif args.async_k:
+        sampler = ds.make_async_round_sampler(args.clients_per_round, device,
+                                              latency)
+    else:
+        sampler = ds.make_round_sampler(args.clients_per_round, device)
+    engine = round_engine.RoundEngine(make_apply(cfg, de_cfg), opt, sampler,
+                                      ecfg)
+    buffer_state = None
+    if args.resume and engine._async_real:
+        # second pass over the blob: the buffer's template needs the built
+        # engine, whose sampler sizes it
+        try:
+            b, _ = restore_checkpoint(
+                args.resume, {"buffer": engine._init_async_state(params)},
+                device)
+            buffer_state = b["buffer"]
+        except KeyError:
+            print("resume checkpoint holds no buffer state (written by the "
+                  "synchronous engine) — starting the buffered run with an "
+                  "empty buffer", flush=True)
+
+    def on_segment(round_end, carry, m):
+        rounds = m.loss.shape[0]
+        seg_ms = log.lap_ms() / rounds
+        log.round_ms.extend([seg_ms] * rounds)
+        log.history.extend(float(x) for x in m.loss.cpu())
+        log.wire.extend(float(x) for x in m.wire_bytes.cpu())
+        log.edge_wire.extend(float(x) for x in m.edge_bytes.cpu())
+        log.applied.extend(float(x) for x in m.applied.cpu())
+        extra = ""
+        if args.async_k:
+            extra = (f" updates={int(sum(log.applied[-rounds:]))}"
+                     f"/{rounds}t")
+        for key, x in m.retrieval.items():
+            log.retrieval.setdefault(key, []).extend(float(v)
+                                                     for v in x.cpu())
+        if m.retrieval:
+            # latest evaluated round in this segment (skipped = NaN)
+            r1 = m.retrieval["recall_at_1"].cpu().numpy()
+            live = np.flatnonzero(~np.isnan(r1))
+            if live.size:
+                i = live[-1]
+                extra += (
+                    f" recall@1={r1[i]:.3f}"
+                    f" recall@10={float(m.retrieval['recall_at_10'][i]):.3f}"
+                    f" mrr={float(m.retrieval['mrr'][i]):.3f}")
+        log.line(round_end, carry.params, float(m.encoding_std[-1]), seg_ms,
+                 extra)
+
+    log.lap_ms()
+    params, opt_state, _ = engine.run(
+        params, opt_state, args.seed, args.rounds - start_round,
+        start_round=start_round, on_segment=on_segment,
+        ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every,
+        ckpt_name=args.arch, drift_state=drift_state,
+        buffer_state=buffer_state)
+    return params, opt_state
+
+
+def _loop_rounds(args, cfg, de_cfg, ds, params, opt, opt_state, objective,
+                 channel, drift_state, start_round, ckpt_dir, log):
+    """``--mode fused|protocol``: one Python iteration a round, each
+    round's loss read on the host, as the reference's loops do; returns
+    (params, opt_state)."""
+    device, leaf = log.device, input_leaf(cfg)
+    k = args.clients_per_round
+    if args.mode == "fused":
+        tcfg = TrainConfig(global_batch=k * args.samples_per_client,
+                           samples_per_client=args.samples_per_client,
+                           dcco_impl="fused")
+        step = steps_lib.make_dcco_train_step(
+            cfg, de_cfg, tcfg, opt.opt, num_microbatches=args.micro)
+    else:
+        apply = make_apply(cfg, de_cfg)
+    log.lap_ms()
+    for r in range(start_round, args.rounds):
+        # the engine's round seeds (module docstring)
+        round_seed = args.seed * round_engine._ROUND_SEED_STRIDE + r
+        gen = utils.generator(round_seed, device)
+        if args.mode == "protocol":
+            batch, sizes = ds.round_batch(gen, k, device)
+            out = fed_sim.stats_round(
+                apply, params, opt_state, opt, batch, sizes,
+                objective=objective, client_lr=args.client_lr,
+                local_steps=args.local_steps, prox_mu=args.fedprox_mu,
+                scaffold_state=drift_state, channel=channel,
+                channel_key=None if channel is None else utils.fold_in(
+                    round_seed, round_engine._CHANNEL_SALT))
+            del batch
+            if args.scaffold:
+                params, opt_state, drift_state, m = out
+            else:
+                params, opt_state, m = out
+            if channel is not None:
+                channel.finalize_rounds(1)
+            loss, enc_std = m.loss, m.encoding_std
+            log.wire.append(float(m.wire_bytes))
+            log.edge_wire.append(float(m.edge_bytes))
+        else:
+            flat, _ = ds.flat_round_batch(gen, k, device)
+            batch = {"view1": {leaf: flat["v1"]},
+                     "view2": {leaf: flat["v2"]}}
+            del flat
+            params, opt_state, m = step(params, opt_state, batch)
+            del batch
+            loss, enc_std = m["loss"], m["encoding_std"]
+        log.history.append(float(loss))
+        log.applied.append(1.0)
+        log.round_ms.append(log.lap_ms())
+        if args.eval_every and (r + 1) % args.eval_every == 0:
+            log.line(r + 1, params, float(enc_std), log.round_ms[-1])
+        if args.ckpt_every and (r + 1) % args.ckpt_every == 0:
+            blob = {"params": params, "opt": opt_state}
+            if args.scaffold:
+                blob["drift"] = drift_state
+            save_checkpoint(os.path.join(ckpt_dir, f"{args.arch}.msgpack"),
+                            blob, r + 1)
+            log.lap_ms()
+    return params, opt_state
+
+
 def run(args: argparse.Namespace, *, algorithm: str = "dcco") -> dict:
-    """Train the run ``args`` describes with the engine's ``algorithm``
-    body (``round_engine.ALGORITHMS``); returns ``main``'s summary. The
+    """Train the run ``args`` describes (``--mode``) with the engine's
+    ``algorithm`` body (``round_engine.ALGORITHMS``; the fused and
+    protocol modes train "dcco" only); returns ``main``'s summary. The
     non-stats bodies (``fedavg_contrastive``, ``fedavg_byol``) refuse an
     ``--objective``."""
     if (algorithm in ("fedavg_contrastive", "fedavg_byol")
             and args.objective != "dcco"):
         raise SystemExit(f"--objective {args.objective} would be silently "
                          f"ignored: {algorithm} trains a non-stats loss")
+    if args.mode != "engine" and algorithm != "dcco":
+        raise SystemExit(f"--mode {args.mode} trains D-CCO; the {algorithm} "
+                         f"body runs on the round engine only")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     de_cfg = DualEncoderConfig(
@@ -544,117 +876,20 @@ def run(args: argparse.Namespace, *, algorithm: str = "dcco") -> dict:
             args.edges, client_channel=channel,
             edge_channel=comm.get_channel(args.edge_channel,
                                           dropout_p=args.dropout_p))
-    latency = None
-    if args.async_k and args.latency_tail > 0:
-        latency = latency_lib.LatencyModel(
-            "heavytail", horizon=8, tail=args.latency_tail, seed=args.seed)
-    retrieval_eval = None
-    if args.retrieval_eval:
-        # held-out split: the first nc items are indexed as the corpus,
-        # the next nq serve as queries (label-match relevance)
-        nc, nq = args.retrieval_corpus, args.retrieval_queries
-
-        def embed(p, batch):
-            z, _ = dual_encoder.encode(cfg, de_cfg, p, batch)
-            return z
-
-        retrieval_eval = retrieval_lib.make_retrieval_eval(
-            embed, {leaf: data[:nc]}, labels_t[:nc],
-            {leaf: data[nc:nc + nq]}, labels_t[nc:nc + nq],
-            chunk=min(256, nc),
-            index_dtype=(torch.bfloat16 if args.retrieval_dtype
-                         == "bfloat16" else torch.float32))
-    if algorithm in ("fedavg_contrastive", "fedavg_byol"):
-        objective = None
-    ecfg = round_engine.EngineConfig(
-        algorithm=algorithm, objective=objective, lam=args.lam,
-        client_lr=args.client_lr, local_steps=args.local_steps,
-        chunk_rounds=args.chunk_rounds or args.eval_every or 25,
-        stats_kernel=args.stats_kernel, channel=channel, server_update=opt,
-        compute_dtype=args.compute_dtype, prox_mu=args.fedprox_mu,
-        scaffold=args.scaffold,
-        num_clusters=args.clusters, cluster_iters=args.cluster_iters,
-        async_k=args.async_k, staleness_fn=args.staleness, latency=latency,
-        retrieval_eval=retrieval_eval,
-        retrieval_every=args.retrieval_every)
-    if args.async_k:
-        sampler = ds.make_async_round_sampler(args.clients_per_round, device,
-                                              latency)
-    else:
-        sampler = ds.make_round_sampler(args.clients_per_round, device)
-    engine = round_engine.RoundEngine(make_apply(cfg, de_cfg), opt, sampler,
-                                      ecfg)
-    buffer_state = None
-    if args.resume and engine._async_real:
-        # second pass over the blob: the buffer's template needs the built
-        # engine, whose sampler sizes it
-        try:
-            b, _ = restore_checkpoint(
-                args.resume, {"buffer": engine._init_async_state(params)},
-                device)
-            buffer_state = b["buffer"]
-        except KeyError:
-            print("resume checkpoint holds no buffer state (written by the "
-                  "synchronous engine) — starting the buffered run with an "
-                  "empty buffer", flush=True)
     ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(),
                                              "repro_ckpt")
     os.makedirs(ckpt_dir, exist_ok=True)
-
-    history, round_ms, probes, wire, edge_wire = [], [], [], [], []
-    applied = []
-    retrieval = {}
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    sync()
-    t_seg = [time.perf_counter()]
-
-    def on_segment(round_end, carry, m):
-        sync()
-        seg_ms = (time.perf_counter() - t_seg[0]) * 1e3 / m.loss.shape[0]
-        round_ms.extend([seg_ms] * m.loss.shape[0])
-        history.extend(float(x) for x in m.loss.cpu())
-        wire.extend(float(x) for x in m.wire_bytes.cpu())
-        edge_wire.extend(float(x) for x in m.edge_bytes.cpu())
-        applied.extend(float(x) for x in m.applied.cpu())
-        acc = evaluate(carry.params)
-        probes.append(acc)
-        extra = ""
-        if device.type == "cuda":
-            extra += (" peak_mem="
-                      f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f}"
-                      "GiB")
-        if args.async_k:
-            extra = (f" updates={int(sum(applied[-m.loss.shape[0]:]))}"
-                     f"/{m.loss.shape[0]}t")
-        for key, x in m.retrieval.items():
-            retrieval.setdefault(key, []).extend(float(v) for v in x.cpu())
-        if m.retrieval:
-            # latest evaluated round in this segment (skipped = NaN)
-            r1 = m.retrieval["recall_at_1"].cpu().numpy()
-            live = np.flatnonzero(~np.isnan(r1))
-            if live.size:
-                i = live[-1]
-                extra += (
-                    f" recall@1={r1[i]:.3f}"
-                    f" recall@10={float(m.retrieval['recall_at_10'][i]):.3f}"
-                    f" mrr={float(m.retrieval['mrr'][i]):.3f}")
-        print(f"round {round_end:5d} loss={history[-1]:9.4f} "
-              f"enc_std={float(m.encoding_std[-1]):.4f} "
-              f"probe_acc={acc:.3f}{extra} ({seg_ms:.1f} ms/round)",
-              flush=True)
-        sync()
-        t_seg[0] = time.perf_counter()
-
-    params, opt_state, _ = engine.run(
-        params, opt_state, args.seed, args.rounds - start_round,
-        start_round=start_round, on_segment=on_segment,
-        ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every,
-        ckpt_name=args.arch, drift_state=drift_state,
-        buffer_state=buffer_state)
+    log = _RunLog(device, evaluate)
+    if args.mode == "engine":
+        params, opt_state = _engine_rounds(
+            args, algorithm, cfg, de_cfg, ds, data, labels_t, params, opt,
+            opt_state, objective, channel, drift_state, start_round,
+            ckpt_dir, log)
+    else:
+        params, opt_state = _loop_rounds(
+            args, cfg, de_cfg, ds, params, opt, opt_state, objective,
+            channel, drift_state, start_round, ckpt_dir, log)
+    history, wire, edge_wire = log.history, log.wire, log.edge_wire
     probe = evaluate(params)
     if history:
         print(f"final loss {history[-1]:.4f}; first {history[0]:.4f}; "
@@ -678,11 +913,11 @@ def run(args: argparse.Namespace, *, algorithm: str = "dcco") -> dict:
     if history:
         with open(os.path.join(ckpt_dir, "history.json"), "w") as f:
             json.dump(history, f)
-    return {"history": history, "round_ms": round_ms, "probe": probe,
-            "probes": probes, "params": params, "opt_state": opt_state,
+    return {"history": history, "round_ms": log.round_ms, "probe": probe,
+            "probes": log.probes, "params": params, "opt_state": opt_state,
             "device": str(device),
             "wire_bytes": wire_bytes, "edge_bytes": edge_bytes,
-            "updates": int(sum(applied)), "retrieval": retrieval,
+            "updates": int(sum(log.applied)), "retrieval": log.retrieval,
             "loss_finite": bool(np.all(np.isfinite(history)))}
 
 

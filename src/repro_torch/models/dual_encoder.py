@@ -82,3 +82,10 @@ def encode(cfg, de_cfg, params, view, tower: str = "f"):
         pooled = _pool(hidden, view.get("mask"))
     z = mlp(proj_p, pooled.to(dtype_of(cfg.dtype)))
     return at_least_f32(z), {}
+
+
+def encode_pair(cfg, de_cfg, params, view1, view2):
+    """Encode both views (towers F and G) -> (zf, zg, aux)."""
+    zf, aux1 = encode(cfg, de_cfg, params, view1, tower="f")
+    zg, aux2 = encode(cfg, de_cfg, params, view2, tower="g")
+    return zf, zg, {k: aux1[k] + aux2[k] for k in aux1}

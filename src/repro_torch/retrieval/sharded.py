@@ -21,7 +21,7 @@ shards included.
 ``mesh=None`` simulates the S shards on one device: one launch of the
 kernel's shard-local form per shard. A multi-device corpus (the
 reference's ``shard_map`` over a mesh axis) needs ``torch.distributed``
-and waits for ROADMAP §1, item 4.
+and waits for ROADMAP §1, item 6.
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ I32 = torch.int32
 
 _MESH_PENDING = (
     "a corpus sharded over devices needs torch.distributed, which the port "
-    "does not use yet (ROADMAP §1, item 4, 'Sharded and streaming "
+    "does not use yet (ROADMAP §1, item 6, 'Sharded and streaming "
     "cohorts'); pass mesh=None to simulate the shards on one device")
 
 

@@ -162,9 +162,9 @@ def test_mips_refusals():
         mips_topk(q, torch.zeros(10, 5), 3)
     with pytest.raises(ValueError, match="2\\^30"):
         mips_topk(q, c, 3, index_offset=0, n_total=2 ** 30)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         retrieval.ShardedCorpusIndex(c, 2, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         retrieval.sharded_mips_topk(q, c.reshape(2, 150, 4), 3, n_total=300,
                                     mesh=object())
 

@@ -190,8 +190,10 @@ def test_augment_tokens_given_reference_draws():
     # the port's own draws have the reference's ranges
     d = augment.draw_augment_tokens(torch.Generator().manual_seed(0), 64, 20)
     assert d.mask.shape == (64, 20) and d.shift.max() < 5
-    v1, v2 = augment.two_views_tokens(torch.Generator().manual_seed(0),
-                                      torch.from_numpy(toks))
+    gen = torch.Generator().manual_seed(0)
+    v1, v2 = (augment.augment_tokens(
+        torch.from_numpy(toks), augment.draw_augment_tokens(gen, *toks.shape))
+        for _ in range(2))
     assert v1.shape == v2.shape == toks.shape and not torch.equal(v1, v2)
 
 
