@@ -151,9 +151,36 @@ Phases (each prints its lines; any failure exits non-zero):
      microbatch: phase 1, the checkpointed forward and its recompute),
      then the micro FUSED_MICRO step's gradient against the micro 1
      step's on GRAD_B sequences, within GRAD_TOL.
+  12. the DeepSeek family at full config, weights from seed 0 drawn on the
+     card: (a) the flash kernel's (Dqk 192, Dv 128) instance against its
+     plain version at MLA's prefill shape (B = DS_B, H = KVH = 16, S =
+     DS_PROMPT, causal, bf16) and in f32, timed beside its bound and SDPA
+     ("none" where no backend takes Dv != Dqk); (b) deepseek-moe-16b (28
+     layers, GQA, 64 + 2 experts, top 6) served through
+     ``serve.generate``: prefill of DS_B x DS_PROMPT and DS_DECODE greedy
+     steps with the model-dtype and the int8 cache, each in a window of
+     its own (flash 28 a prefill, none in decode), prefill ms, decode ms
+     a token, peak GiB and the dropped share of the routing at the
+     published capacity factor 1.25 (prefill groups of 512, decode
+     groups of B: capacity 1); then the decode gate at a capacity factor
+     with no drops: every step's logits against a full forward over the
+     same tokens with the serving path's top-k picks imposed, all held to
+     SRV_TOL, and against the free forward, the (sequence, step) pairs
+     whose picks flip between the two printed and the rest held to
+     SRV_TOL; 4 decode steps under ``torch.profiler``; (c)
+     deepseek-v2-lite-16b (27 layers, MLA) the same with the model-dtype
+     cache (the MLA cache ignores kv_cache_dtype: checked), its prefill
+     on the (192, 128) instance (27 a prefill), decode absorbed over the
+     latent cache, and one absorbed step against one naive step; (d)
+     D-CCO through ``train --num-layers 2 --cohort-chunk DS_CHUNK`` on
+     each tower cut to its dense prologue and one MoE layer at full
+     width (~0.9B parameters), DS_K clients x 2 sequences of 128,
+     DS_ROUNDS rounds: losses finite, ms a round, peak GiB, flash 8 a
+     chunk. Each tower is freed before the next.
 Then one JSON line of kernel figures, and the device line last.
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
+import dataclasses
 import gc
 import json
 from pathlib import Path
@@ -189,7 +216,10 @@ from repro_torch.kernels.segment_sum import segment_sum  # noqa: E402
 from repro_torch.launch import serve as serve_cli, train  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.launch.profile_round import device_time  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import dual_encoder, transformer  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.common import embed, rmsnorm  # noqa: E402
 from repro_torch.objectives import get_objective  # noqa: E402
 from repro_torch.optim import optimizers as opt_lib  # noqa: E402
 from repro_torch import retrieval  # noqa: E402
@@ -678,14 +708,16 @@ def appendix_a(device, objective="dcco"):
              f"f32 loss 1e-4)")
 
 
-def flash_bound_ms(q, k, valid):
-    """q, k, v read once, the output and the f32 row log-sum-exp written
-    once; 4 Dh operations (two products) for each score the mask keeps,
-    at the peak of the inputs' type (the bf16 tensor rate, or the f32
-    non-tensor rate)."""
+def flash_bound_ms(q, k, v, valid):
+    """q, k, v read once, the output (B, H, Sq, Dv) and the f32 row
+    log-sum-exp written once; 2 (Dqk + Dv) operations (two products) for
+    each score the mask keeps, at the peak of the inputs' type (the bf16
+    tensor rate, or the f32 non-tensor rate)."""
     b, h, sq, dh = q.shape
-    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 4 * b * h * sq
-    ops = 4 * b * h * dh * int(valid.sum())
+    dv = v.shape[3]
+    moved = ((q.numel() + k.numel() + v.numel() + b * h * sq * dv)
+             * q.element_size() + 4 * b * h * sq)
+    ops = 2 * b * h * (dh + dv) * int(valid.sum())
     peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_F32
     t_bytes, t_ops = moved / PEAK_BYTES, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -693,26 +725,29 @@ def flash_bound_ms(q, k, valid):
 
 
 def check_flash(b, h, kvh, sq, skv, dh, dtype, label, *, causal=True,
-                window=0, seed=0):
-    """Kernel vs plain version at one shape: the output to FLASH_TOL of its
-    type and the row log-sum-exp to 2e-5 (1 + |lse|); returns (max_abs_err,
-    ms, plain_ms, library_ms, bound). The kernel and the plain version are
-    timed in CUDA graphs; the yardstick is one
-    ``scaled_dot_product_attention(..., enable_gqa=True)``, causal where
-    its top-left causal mask is the kernel's (Sq == Skv, no window), else
-    with the kernel's mask passed in."""
+                window=0, seed=0, dv=None):
+    """Kernel vs plain version at one shape (v ``dv`` wide, by default
+    ``dh``): the output to FLASH_TOL of its type and the row log-sum-exp
+    to 2e-5 (1 + |lse|); returns (max_abs_err, ms, plain_ms, library_ms,
+    bound). The kernel and the plain version are timed in CUDA graphs;
+    the yardstick is one ``scaled_dot_product_attention(...,
+    enable_gqa=True)``, causal where its top-left causal mask is the
+    kernel's (Sq == Skv, no window), else with the kernel's mask passed
+    in; library_ms is None where no SDPA backend takes the shapes."""
     dev = torch.device("cuda")
+    dv = dh if dv is None else dv
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, h, sq, dh, generator=gen, device=dev).to(dtype)
     k = torch.randn(b, kvh, skv, dh, generator=gen, device=dev).to(dtype)
-    v = torch.randn(b, kvh, skv, dh, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, kvh, skv, dv, generator=gen, device=dev).to(dtype)
     kw = {"causal": causal, "window": window, "scale": 1.0 / dh ** 0.5}
     out, lse = FlashAttention.apply(q, k, v, causal, window, kw["scale"])
     again = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     plain, plain_lse = ref.flash_attention_ref(q, k, v, return_lse=True,
                                                **kw)
-    if out.shape != q.shape or out.dtype != dtype or not out.is_cuda:
+    if (out.shape != (b, h, sq, dv) or out.dtype != dtype
+            or not out.is_cuda):
         fail(f"flash_attention {label}: {tuple(out.shape)} {out.dtype} on "
              f"{out.device}")
     err = float((out.float() - plain.float()).abs().max())
@@ -720,24 +755,31 @@ def check_flash(b, h, kvh, sq, skv, dh, dtype, label, *, causal=True,
     same = torch.equal(out, again)
     del again, plain, plain_lse, lse
     valid = ref.flash_attention_mask(sq, skv, causal, window, dev)
-    bnd = flash_bound_ms(q, k, valid)
+    bnd = flash_bound_ms(q, k, v, valid)
     ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
                                          window=window), 20, 10)
     plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 5, 4)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if causal and window == 0 and sq == skv:
-        lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                      enable_gqa=True), 20, 10)
+        mask = {"is_causal": True}
     else:
-        lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=valid,
-                                      enable_gqa=True), 20, 10)
+        mask = {"attn_mask": valid}
+    try:
+        lib_ms = time_ms(lambda: sdpa(q, k, v, enable_gqa=True, **mask),
+                         20, 10)
+    except RuntimeError as e:          # no backend takes these shapes
+        print(f"sdpa at {label}: {str(e).splitlines()[0][:160]}",
+              flush=True)
+        lib_ms = None
+    torch.cuda.synchronize()
     tol = FLASH_TOL[dtype]
     print(f"flash_attention {label} B={b} H={h} KVH={kvh} Sq={sq} Skv={skv} "
-          f"Dh={dh} {str(dtype).replace('torch.', '')} causal={causal} "
-          f"window={window}: max_abs_err={err:.3e} (tol {tol:g}), lse "
-          f"rel err {lse_err:.3e} (tol 2e-5), run-to-run equal {same}; "
-          f"device ms: kernel {ms:.5f} plain {plain_ms:.5f} sdpa "
-          f"{lib_ms:.5f} bound {bnd[0]:.5f} ({bnd[1]})", flush=True)
+          f"Dh={dh} Dv={dv} {str(dtype).replace('torch.', '')} "
+          f"causal={causal} window={window}: max_abs_err={err:.3e} (tol "
+          f"{tol:g}), lse rel err {lse_err:.3e} (tol 2e-5), run-to-run "
+          f"equal {same}; device ms: kernel {ms:.5f} plain {plain_ms:.5f} "
+          f"sdpa {'none' if lib_ms is None else f'{lib_ms:.5f}'} bound "
+          f"{bnd[0]:.5f} ({bnd[1]})", flush=True)
     if not (err <= tol and lse_err <= 2e-5 and same):
         fail(f"flash_attention {label} disagrees with its plain version or "
              f"with itself")
@@ -1782,6 +1824,263 @@ def streaming_and_modes(device, dcco_ref):
     return counts
 
 
+# phase 12: the DeepSeek family at full config (bf16 weights from seed 0).
+# Serving: DS_B prompts of DS_PROMPT tokens, then DS_DECODE greedy decode
+# steps. D-CCO: each tower cut to its dense prologue and one MoE layer
+# (first_k_dense + 1 = 2 layers, widths kept): one f32 copy of a 16B tower
+# is 65 GB, so a round's deltas and the server state cannot sit beside
+# the full tower on 80 GB. DS_K clients x TOK_N sequences of TOK_S in
+# chunks of DS_CHUNK, DS_ROUNDS rounds.
+DS_ARCHS = ("deepseek-moe-16b", "deepseek-v2-lite-16b")
+DS_B, DS_PROMPT, DS_DECODE = 4, 128, 8
+DS_K, DS_CHUNK, DS_ROUNDS = 8, 4, 2
+
+
+def dropped_share(routes, group, cap, experts):
+    """The share of (token, rank) picks past their expert's capacity, from
+    recorded routes (each (B, S, k)) with the tokens cut into groups of
+    ``group`` as ``moe_forward`` cuts them: an expert keeps the first
+    ``cap`` picks of its queue, so a group keeps sum_e min(picks_e, cap).
+    It is the reference's ``dropped_frac``, averaged over the calls."""
+    kept = total = 0
+    for r in routes:
+        picks = r.reshape(-1, group * r.shape[-1]).long()
+        counts = (picks[..., None] == torch.arange(
+            experts, device=picks.device)).sum(1)
+        kept += int(counts.clamp(max=cap).sum())
+        total += picks.numel()
+    return 1.0 - kept / total
+
+
+def _init_tower(cfg, device):
+    """A full-config tower from seed 0, timed; freed by the caller."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tower = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                    device)
+    torch.cuda.synchronize()
+    n = sum(x.numel() for x in utils.tree_leaves(tower))
+    print(f"{cfg.name}: {n / 1e9:.3f}B parameters ({cfg.num_layers} layers, "
+          f"{cfg.dtype}) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return tower
+
+
+def _no_drop(cfg):
+    """``cfg`` with the capacity factor raised to E / k: every group's
+    capacity is then at least its token count, so no grouping drops."""
+    m = cfg.moe
+    return cfg.replace(moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+
+
+def decode_gate(label, cfg, tower, prompt):
+    """Prefill and DS_DECODE greedy steps of ``cfg`` (a capacity with no
+    drops), each step's logits against the last position of a full
+    forward over the same tokens, one sequence at a time (B x S tokens
+    must fill whole groups). In bf16, rounding flips top-k picks whose
+    probabilities nearly tie between the two computations (other matrix
+    shapes, the int8 cache's quantization), which moves a token's FFN by
+    a whole expert. So each pair (sequence, step) is held twice: the free
+    forward, where the pairs whose picks flip in some layer are printed
+    with their layers and the others held to SRV_TOL x max(1, max
+    |logits|); and the forward with the serving path's own picks imposed
+    at every position and layer (``moe.force_routes``), every pair held
+    to the same bound. Fails if a held pair departs."""
+    n_moe = cfg.num_superblocks
+    with moe_mod.record_routes() as served:
+        out = serve_cli.generate(cfg, tower, prompt, DS_DECODE + 1)
+    agree, flipped, worst, forced_worst, scale = 0, [], 0.0, 0.0, 1.0
+    for j, logits in enumerate(out["logits"]):
+        for i in range(prompt.shape[0]):
+            seq = torch.cat([prompt[i], out["tokens"][i, :j]])[None]
+            # the serving path's picks at each position: the prefill's,
+            # then decode steps 1..j
+            picks = [torch.cat([served[layer][i:i + 1]]
+                               + [served[n_moe * t + layer][i:i + 1]
+                                  for t in range(1, j + 1)], dim=1)
+                     for layer in range(n_moe)]
+            with moe_mod.record_routes() as full:
+                want = _forward_logits(cfg, tower, seq)[0]
+            with moe_mod.force_routes(picks):
+                forced = _forward_logits(cfg, tower, seq)[0]
+            scale = max(scale, float(want.abs().max()),
+                        float(forced.abs().max()))
+            forced_worst = max(forced_worst,
+                               float((logits[i] - forced).abs().max()))
+            layers = [
+                layer for layer, (a, b) in enumerate(zip(picks, full))
+                if not torch.equal(torch.sort(a[0, -1]).values,
+                                   torch.sort(b[0, -1]).values)]
+            if layers:
+                flipped.append((i, j, layers))
+                continue
+            agree += 1
+            worst = max(worst, float((logits[i] - want).abs().max()))
+    pairs = prompt.shape[0] * (DS_DECODE + 1)
+    print(f"{label}: decode gate at capacity factor "
+          f"{cfg.moe.capacity_factor:.4g} (no drops), {pairs} (sequence, "
+          f"step) pairs, tol {SRV_TOL * scale:.4e} (= {SRV_TOL} x "
+          f"{scale:.3f}): the serving path's picks imposed, |logits - "
+          f"full forward| worst {forced_worst:.4e} over all pairs; free "
+          f"forward, {agree} pairs pick alike in every layer, worst "
+          f"{worst:.4e}; flipped pairs (sequence, step: MoE layers) "
+          f"{flipped or 'none'}", flush=True)
+    if not (forced_worst <= SRV_TOL * scale and worst <= SRV_TOL * scale):
+        fail(f"{label}: decode departs from a full forward")
+
+
+def serve_deepseek(device, arch):
+    """(b) or (c) of phase 12 on the full-config ``arch``: prefill and
+    decode through ``serve.generate`` at the published capacity factor
+    (the model-dtype cache and, for GQA, the int8 cache), each in a window
+    of its own (flash once a layer in the prefill, none in decode), with
+    prefill ms, decode ms a token, peak GiB and the dropped share of the
+    prefill's and the decode steps' routing; then the decode gate; for
+    MLA, one absorbed decode step against a naive one. Returns the
+    windows' counts."""
+    cfg = get_config(arch)
+    tower = _init_tower(cfg, device)
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (DS_B, DS_PROMPT),
+                           generator=gen, dtype=torch.int32).to(device)
+    serve_cli.generate(cfg, tower, prompt[:, :16], 2)     # cuBLAS warm-up
+    m, n_moe = cfg.moe, cfg.num_superblocks
+    caches = ("model",) if cfg.use_mla else ("model", "int8")
+    windows = []
+    for kv in caches:
+        c = cfg.replace(kv_cache_dtype=kv)
+        torch.cuda.reset_peak_memory_stats()
+        with moe_mod.record_routes() as routes:
+            out, counts = _window(
+                f"serve {arch} ({kv} cache)",
+                lambda: serve_cli.generate(c, tower, prompt, DS_DECODE + 1),
+                {"flash": cfg.num_layers})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        windows.append(counts)
+        group = min(512, DS_B * DS_PROMPT)
+        pre = dropped_share(routes[:n_moe], group,
+                            moe_mod._capacity(group, m), m.num_experts)
+        dec = dropped_share(routes[n_moe:], DS_B,
+                            moe_mod._capacity(DS_B, m), m.num_experts)
+        cache_mib = sum(x.numel() * x.element_size() for x in
+                        utils.tree_leaves(out["cache"])) / 2 ** 20
+        finite = all(bool(torch.isfinite(x).all()) for x in out["logits"])
+        print(f"serve {arch} ({kv} KV cache, {cache_mib:.1f} MiB): prefill "
+              f"{DS_B}x{DS_PROMPT} {out['prefill_ms']:.3f} ms, decode "
+              f"{out['decode_ms']:.3f} ms/token over {DS_DECODE} steps x "
+              f"{DS_B}; peak device memory {peak:.2f} GiB; launches "
+              f"{counts}; dropped_frac at capacity factor "
+              f"{m.capacity_factor}: prefill {pre:.4f} (groups of {group}, "
+              f"capacity {moe_mod._capacity(group, m)}), decode {dec:.4f} "
+              f"(groups of {DS_B}, capacity {moe_mod._capacity(DS_B, m)}); "
+              f"logits finite {finite}", flush=True)
+        if not (finite and out["tokens"].shape == (DS_B, DS_DECODE + 1)):
+            fail(f"serving {arch} with the {kv} cache")
+        del out
+        decode_gate(f"serve {arch} ({kv} cache)", _no_drop(c), tower, prompt)
+    profile_decode(cfg, tower, prompt, "model", steps=4)
+    if cfg.use_mla:
+        check_mla_absorb(cfg, tower, prompt)
+        int8 = transformer.init_cache(cfg.replace(kv_cache_dtype="int8"),
+                                      DS_B, 8, device)
+        kinds = sorted({str(x.dtype) for x in utils.tree_leaves(int8)})
+        print(f"serve {arch}: the MLA cache ignores kv_cache_dtype (int8 "
+              f"asked, leaves {kinds}), as the reference's does", flush=True)
+        if "torch.int8" in kinds:
+            fail("the MLA cache took kv_cache_dtype")
+    del tower
+    gc.collect()
+    torch.cuda.empty_cache()
+    return windows
+
+
+def check_mla_absorb(cfg, tower, prompt):
+    """One decode step of the first layer's MLA over its prefilled cache,
+    absorbed (attention in the latent space) against naive (the cache
+    expanded to per-head K/V), held to SRV_TOL x max(1, max |naive|) and
+    each timed (CUDA events around 20 steps on a copy of the cache)."""
+    c = transformer.init_cache(cfg, DS_B, DS_PROMPT + 1, prompt.device)
+    transformer.prefill(cfg, tower, prompt, c)
+    p = tower["prologue"][0]
+    with torch.no_grad():
+        x = rmsnorm(p["ln1"], embed(tower["embed"], prompt[:, -1:]),
+                    cfg.norm_eps)
+        outs, ms = {}, {}
+        for absorb in (True, False):
+            cache = {k: v.clone() for k, v in c["prologue"][0].items()}
+            run = lambda: attn_mod.mla_decode(cfg, p["attn"], x, c["pos"],  # noqa: E731
+                                              cache, absorb=absorb)[0]
+            outs[absorb] = run()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                run()
+            end.record()
+            torch.cuda.synchronize()
+            ms[absorb] = start.elapsed_time(end) / 20
+    err = float((outs[True].float() - outs[False].float()).abs().max())
+    scale = max(1.0, float(outs[False].float().abs().max()))
+    print(f"mla decode, layer 0 at position {DS_PROMPT}, B={DS_B}: absorbed "
+          f"vs naive |diff| {err:.4e} (tol {SRV_TOL * scale:.4e}); ms a "
+          f"step (CUDA events around 20 steps, the host's issue "
+          f"included): absorbed "
+          f"{ms[True]:.4f}, naive {ms[False]:.4f}", flush=True)
+    if not err <= SRV_TOL * scale:
+        fail("the absorbed MLA decode departs from the naive one")
+
+
+def deepseek_phase(device):
+    """Phase 12 (see the module docstring). Returns (the (192, 128) flash
+    instance's figures at MLA's prefill shape in bf16, the windows'
+    counts, the flash launches of the MLA paths)."""
+    torch.cuda.empty_cache()
+    mla = get_config("deepseek-v2-lite-16b")
+    dqk = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    figures = check_flash(DS_B, mla.num_heads, mla.num_heads, DS_PROMPT,
+                          DS_PROMPT, dqk, torch.bfloat16,
+                          "MLA prefill (deepseek-v2-lite-16b)", seed=40,
+                          dv=mla.v_head_dim)
+    check_flash(2, 8, 8, 100, 100, dqk, torch.float32, "MLA dims, f32",
+                seed=41, dv=mla.v_head_dim)
+    counts, mla_flash = [], 0
+    for arch in DS_ARCHS:
+        c = serve_deepseek(device, arch)
+        counts += c
+        if arch == "deepseek-v2-lite-16b":
+            mla_flash += sum(x["flash"] for x in c)
+    peaks = {}
+    for arch in DS_ARCHS:
+        cfg = get_config(arch)
+        layers = cfg.num_prologue + 1
+        c, res = train_path(
+            f"{arch} dcco, {layers} layers",
+            ["--arch", arch, "--num-layers", str(layers), "--seq-len",
+             str(TOK_S), "--samples-per-client", str(TOK_N),
+             "--clients-per-round", str(DS_K), "--cohort-chunk",
+             str(DS_CHUNK)], DS_ROUNDS,
+            {"flash": 2 * 2 * layers * (DS_K // DS_CHUNK) * DS_ROUNDS})
+        counts.append(c)
+        if cfg.use_mla:
+            mla_flash += c["flash"]
+        n = sum(x.numel() for x in utils.tree_leaves(res["params"]))
+        peaks[arch] = (res["peak_gib"], n)
+        release(res)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("deepseek dcco at full width, cut depth: " + "; ".join(
+        f"{a} {n / 1e9:.3f}B parameters, peak {g:.2f} GiB"
+        for a, (g, n) in peaks.items()), flush=True)
+    err, ms, plain_ms, lib_ms, (b_ms, b_by) = figures
+    print(f"flash (Dqk {dqk}, Dv {mla.v_head_dim}) at MLA's prefill shape: "
+          f"kernel {ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}), sdpa "
+          f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms'}, plain "
+          f"{plain_ms:.5f} ms; launches on the MLA paths {mla_flash}",
+          flush=True)
+    return figures, counts, mla_flash
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1963,6 +2262,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     runs += streaming_and_modes(device, dcco_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, ds_counts, _ = deepseek_phase(device)
+    runs += ds_counts
     print(f"tinyllama peak device memory: fedavg_contrastive "
           f"{tok_fedavg['peak_gib']:.2f} GiB, dcco "
           f"{tok_dcco['peak_gib']:.2f} GiB, dcco fedprox (2 local steps) "

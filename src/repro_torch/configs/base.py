@@ -1,20 +1,33 @@
 """Model configuration dataclasses and the architecture registry.
 
-The ResNet family and the dense GQA transformers are ported; the fields
-kept are the ones their dual encoders read, with the reference's names
-and defaults. The reference's mesh-only fields (``act_shard_axes``,
-``fsdp_model_size``), its layer-scan options (``scan_layers``,
-``layer_chunks``, ``remat``), ``attn_block``, ``parallel_block``,
-``tie_embeddings`` (every dense config ties), the dual encoder's ``pool``
-(always the mean) and the MLA, MoE, SSM and xLSTM sub-configs have no
-counterpart: no ported config sets them away from the default.
+The ResNet family, the dense GQA transformers and the DeepSeek family
+(MoE FFN, MLA attention) are ported; the fields kept are the ones their
+dual encoders read, with the reference's names and defaults. The
+reference's mesh-only fields (``act_shard_axes``, ``fsdp_model_size``),
+its layer-scan options (``scan_layers``, ``layer_chunks``, ``remat``),
+``attn_block``, ``parallel_block``, ``tie_embeddings`` (every ported
+config ties), the dual encoder's ``pool`` (always the mean) and the SSM
+and xLSTM sub-configs have no counterpart: no ported config sets them
+away from the default.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 import importlib
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0            # routed experts
+    num_shared_experts: int = 0     # always-on experts (DeepSeek style)
+    top_k: int = 0
+    d_ff: int = 0                   # per-expert hidden dim
+    capacity_factor: float = 1.25
+    balance_weight: float = 0.01    # aux load-balance loss weight
+    first_k_dense: int = 0          # first K layers use a dense FFN instead
+    dense_d_ff: int = 0             # hidden dim of those dense layers
 
 
 @dataclass(frozen=True)
@@ -35,8 +48,19 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10000.0
     sliding_window: int = 0         # 0 = full attention
+    # MLA (DeepSeek-V2 multi-head latent attention)
+    use_mla: bool = False
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0            # kept for the reference's configs; no
+                                    # config sets it (wq is full rank)
+    qk_rope_head_dim: int = 64
+    qk_nope_head_dim: int = 128
+    v_head_dim: int = 128
+    # routed-expert FFN (DeepSeekMoE); None = a dense SwiGLU FFN
+    moe: Optional[MoEConfig] = None
     # decode KV cache storage: "model" (the model's dtype) or "int8"
-    # (max-abs per position and head, one f32 scale each)
+    # (max-abs per position and head, one f32 scale each); the MLA cache
+    # ignores it, as the reference's does
     kv_cache_dtype: str = "model"
     # modality ("text" only in the port)
     modality: str = "text"
@@ -58,11 +82,16 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.num_heads
 
     @property
+    def num_prologue(self) -> int:
+        return self.moe.first_k_dense if self.moe is not None else 0
+
+    @property
     def num_superblocks(self) -> int:
-        assert self.num_layers % len(self.block_pattern) == 0, (
-            f"{self.name}: layers {self.num_layers} not divisible by "
+        scanned = self.num_layers - self.num_prologue
+        assert scanned % len(self.block_pattern) == 0, (
+            f"{self.name}: scanned layers {scanned} not divisible by "
             f"pattern len {len(self.block_pattern)}")
-        return self.num_layers // len(self.block_pattern)
+        return scanned // len(self.block_pattern)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -97,7 +126,8 @@ ARCH_IDS = (
     "resnet14-cifar",
 )
 PORTED_ARCHS = ("resnet14-cifar", "tinyllama-1.1b", "qwen3-1.7b",
-                "qwen3-8b", "granite-3-8b")
+                "qwen3-8b", "granite-3-8b", "deepseek-moe-16b",
+                "deepseek-v2-lite-16b")
 
 
 def _module(arch_id: str):
@@ -105,7 +135,7 @@ def _module(arch_id: str):
         raise KeyError(f"unknown arch '{arch_id}'; known: {ARCH_IDS}")
     if arch_id not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"arch '{arch_id}' is an MLA, MoE, hybrid, SSM, vision-text or "
+            f"arch '{arch_id}' is a hybrid, SSM, xLSTM, vision-text or "
             f"audio model; the PyTorch port has only {PORTED_ARCHS} so far "
             f"(ROADMAP §1, 'Transformer families')")
     return importlib.import_module(

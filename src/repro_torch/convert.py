@@ -9,7 +9,13 @@ is what these functions take and give back. Layouts:
 * linear weights keep the reference's ``(d_in, d_out)`` layout in the port
   (``models.common.linear`` is ``x @ w + b``), so they carry across as is,
   also stacked on the transformer's leading layer axis (``(L, d_in,
-  d_out)`` leaves under ``"layers"``);
+  d_out)`` leaves under ``"layers"``) and in the unstacked ``"prologue"``
+  list of an MoE tower's dense layers;
+* an MoE layer's expert stacks (4-D ``(L, E, d, d_ff)`` leaves named
+  ``"gate"``/``"up"``, ``(L, E, d_ff, d)`` named ``"down"``: not ``"w"``,
+  so never transposed) and the MLA weights (the linears ``wq``,
+  ``w_dkv``, ``w_uk``, ``w_uv``, ``wo`` and the ``kv_norm`` scale) carry
+  across unchanged too;
 * every other leaf (GroupNorm and RMSNorm scales, biases, the embedding
   table) is copied unchanged, in its own type (bf16 included).
 """

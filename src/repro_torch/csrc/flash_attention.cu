@@ -2,10 +2,11 @@
 // Hopper (sm_90a): bf16 on the tensor cores, f32 on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py:
-// _flash_kernel, launched by flash_attention_pallas. On q (B, H, Sq, Dh)
-// and k, v (B, KVH, Skv, Dh), query head h reading kv head h / (H / KVH),
-// with the queries the last Sq of the Skv positions (q_offset = Skv - Sq):
-//   s    = (q . k) * scale, in f32 (scale 1 / sqrt(Dh) by default)
+// _flash_kernel, launched by flash_attention_pallas. On q (B, H, Sq, Dqk),
+// k (B, KVH, Skv, Dqk) and v (B, KVH, Skv, Dv), query head h reading kv
+// head h / (H / KVH), with the queries the last Sq of the Skv positions
+// (q_offset = Skv - Sq), the output (B, H, Sq, Dv):
+//   s    = (q . k) * scale, in f32 (scale 1 / sqrt(Dqk) by default)
 //   s    = NEG_INF = -1e30 where masked: kv_pos > q_pos when causal, and
 //          kv_pos <= q_pos - window when window > 0
 //   o    = softmax(s) v, accumulated over kv tiles as the Pallas body does:
@@ -16,7 +17,10 @@
 // model's jnp scan rounds p to v's type first). Departure: the Pallas
 // kernel asserts that the blocks divide Sq and Skv; here a ragged tail is
 // masked (rows past Sq are not written, kv rows past Skv get probability
-// 0).
+// 0). (Dqk, Dv) instances: (32, 32), (64, 64), (128, 128) and MLA's
+// (192, 128) (deepseek-v2-lite-16b's prefill: nope 128 + rope 64 for q
+// and k, 128 for v), one template over both dims; the Pallas kernel
+// takes one Dh, and the reference's MLA prefill runs its jnp scan.
 //
 // Both routes: the TPU kernel runs its grid in order on one core and
 // carries (m, l, acc) in VMEM scratch from one kv block to the next. Here
@@ -28,11 +32,12 @@
 // are wiped by the next valid tile's alpha = exp(-1e30 - m) = 0, so
 // skipping them changes nothing.
 //
-// Bound on an H100 SXM: 4 * B * H * (unmasked scores) * Dh FLOPs on
-// 2 * B * (H + KVH) * S * Dh elements read or written. At the TinyLlama
-// path's shape (B 8, H 32, KVH 4, S 128, Dh 64, bf16, causal) that is
-// 0.54 GFLOP and 9.6 MB: 0.55 us at the bf16 tensor rate, 2.9 us at 3.35
-// TB/s, so the bytes bound it; a block lives for 1-2 kv tiles at S = 128.
+// Bound on an H100 SXM: 2 * B * H * (unmasked scores) * (Dqk + Dv) FLOPs
+// on B * (H + KVH) * S * (Dqk + Dv) elements read or written. At the
+// TinyLlama path's shape (B 8, H 32, KVH 4, S 128, Dh 64, bf16, causal)
+// that is 0.54 GFLOP and 9.6 MB: 0.55 us at the bf16 tensor rate, 2.9 us
+// at 3.35 TB/s, so the bytes bound it; a block lives for 1-2 kv tiles at
+// S = 128.
 //
 // bf16 route (flash_fwd_bf16). The first design ran both products as f32
 // FMAs on the CUDA cores (~15 TFLOP/s reached), converted each element to
@@ -43,7 +48,9 @@
 //   ldmatrix reads them without bank conflicts, loaded with 16-byte
 //   cp.async (rows past Sq or Skv zero-filled). K/V tiles are double
 //   buffered: tile t + 2 loads while tile t + 1 waits and tile t computes.
-//   Shared memory: 46 KB at Dh 64, 87 KB at Dh 128.
+//   Shared memory: 46 KB at Dh 64, 87 KB at Dh 128, 112 KB at (Dqk 192,
+//   Dv 128) (Q and K rows of 400 bytes, V rows of 272), so two blocks an
+//   SM at most there.
 // - Warp w owns query rows 16w .. 16w + 15. Its Q fragments are loaded
 //   once (ldmatrix) and held in registers for the whole kv loop.
 // - S = Q K^T on mma.sync.m16n8k16 bf16 -> f32: products of bf16 values
@@ -58,14 +65,17 @@
 //   P = P_hi + P_lo, both bf16, and two MMAs run against V (exact in
 //   bf16); the dropped term is below 2^-16 |P|.
 // - The output is normalised in registers, staged through the warp's own
-//   rows of the Q tile and written with 16-byte stores.
+//   rows of the Q tile (Dv <= Dqk, so its rows hold them) and written with
+//   16-byte stores.
 // wgmma is not used: at S = 128 a block sees 1-2 kv tiles of 64 rows,
 // too little work a block to fill a warpgroup pipeline; mma.sync on the
 // register-resident fragments keeps P out of shared memory.
 //
 // f32 route (flash_fwd_f32, the smoke configs' Dh 32; no PyTorch f32
 // flash backend exists to beat): the Q tile is staged once, transposed, in
-// shared memory; each kv tile is staged as K transposed and V as is. 128
+// shared memory; each kv tile is staged as K transposed and V as is
+// (shared memory (2 Dqk + 64) x 68 + 64 Dv floats: 155 KB at (192, 128)).
+// 128
 // threads hold the 64 x 64 score tile as 16 row groups x 8 column groups:
 // a thread owns 4 rows and 8 columns, so each step over Dh reads three
 // float4s from shared memory for 32 FMAs. P goes through shared memory to
@@ -88,8 +98,10 @@ constexpr int MAX_GRID_Z = 65535;
 
 constexpr int LDT = 68;          // row stride (floats) of qT, kT and P
 
-template <int DH>
-constexpr int smem_floats_f32() { return 2 * DH * LDT + BKV * DH + BQ * LDT; }
+template <int DQK, int DV>
+constexpr int smem_floats_f32() {
+  return 2 * DQK * LDT + BKV * DV + BQ * LDT;
+}
 
 // Rows [row0, row0 + 64) of a (rows, DH) matrix into shared memory,
 // transposed (t[d * LDT + r]) or as is (t[r * DH + d]); rows at or past
@@ -105,30 +117,30 @@ __device__ __forceinline__ void stage(const float* __restrict__ src, int row0,
   }
 }
 
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
               float* __restrict__ lse, int H, int KVH, int Sq, int Skv,
               int causal, int window, float scale) {
   extern __shared__ float4 smem4[];
-  float* qT = reinterpret_cast<float*>(smem4);   // [DH][LDT]
-  float* kT = qT + DH * LDT;                      // [DH][LDT]
-  float* vs = kT + DH * LDT;                      // [BKV][DH]
-  float* ps = vs + BKV * DH;                      // [BQ][LDT]
-  constexpr int DJ = DH / 32;                     // output runs of 4 a thread holds
+  float* qT = reinterpret_cast<float*>(smem4);   // [DQK][LDT]
+  float* kT = qT + DQK * LDT;                     // [DQK][LDT]
+  float* vs = kT + DQK * LDT;                     // [BKV][DV]
+  float* ps = vs + BKV * DV;                      // [BQ][LDT]
+  constexpr int DJ = DV / 32;                     // output runs of 4 a thread holds
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KVH);
   const int64_t bh = (int64_t)b * H + h;
-  const float* qb = q + bh * Sq * DH;
-  const float* kb = k + ((int64_t)b * KVH + kvh) * Skv * DH;
-  const float* vb = v + ((int64_t)b * KVH + kvh) * Skv * DH;
+  const float* qb = q + bh * Sq * DQK;
+  const float* kb = k + ((int64_t)b * KVH + kvh) * Skv * DQK;
+  const float* vb = v + ((int64_t)b * KVH + kvh) * Skv * DV;
   const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
   const int q_offset = Skv - Sq;
 
-  stage<true, DH>(qb, q0, Sq, qT);
+  stage<true, DQK>(qb, q0, Sq, qT);
 
   float m[4], l[4], acc[4][DJ][4];
   int qpos[4];
@@ -151,8 +163,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();               // the last tile's kT, vs and ps are read
-    stage<true, DH>(kb, kv0, Skv, kT);
-    stage<false, DH>(vb, kv0, Skv, vs);
+    stage<true, DQK>(kb, kv0, Skv, kT);
+    stage<false, DV>(vb, kv0, Skv, vs);
     __syncthreads();
 
     // scores: rows ty*4 + i, columns 32*(j/4) + tx*4 + j%4 of the tile
@@ -162,7 +174,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       const float4 qa = *reinterpret_cast<const float4*>(qT + d * LDT + ty * 4);
       const float4 k0 = *reinterpret_cast<const float4*>(kT + d * LDT + tx * 4);
       const float4 k1 =
@@ -232,7 +244,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int jj = 0; jj < DJ; ++jj) {
           const float4 v4 = *reinterpret_cast<const float4*>(
-              vs + (c + cc) * DH + 32 * jj + tx * 4);
+              vs + (c + cc) * DV + 32 * jj + tx * 4);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             acc[i][jj][0] = fmaf(pr[i][cc], v4.x, acc[i][jj][0]);
@@ -250,7 +262,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    float* orow = o + (bh * Sq + row) * DH;
+    float* orow = o + (bh * Sq + row) * DV;
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj)
 #pragma unroll
@@ -328,9 +340,9 @@ __device__ __forceinline__ uint32_t split_bf16x2(float x0, float x1,
 template <int DH>
 __host__ __device__ constexpr int bf16_ld() { return DH + 8; }
 
-template <int DH>
-constexpr int smem_bytes_bf16() {
-  return 5 * 64 * bf16_ld<DH>() * (int)sizeof(bf16);   // Q, 2 x K, 2 x V
+template <int DQK, int DV>
+constexpr int smem_bytes_bf16() {   // Q, 2 x K, 2 x V
+  return (3 * bf16_ld<DQK>() + 2 * bf16_ld<DV>()) * 64 * (int)sizeof(bf16);
 }
 
 // Rows [row0, row0 + 64) of a (rows, DH) bf16 matrix into shared memory
@@ -351,27 +363,30 @@ __device__ __forceinline__ void load_tile(const bf16* __restrict__ src,
   }
 }
 
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o,
                float* __restrict__ lse, int H, int KVH, int Sq, int Skv,
                int causal, int window, float scale_log2) {
-  constexpr int LD = bf16_ld<DH>();
+  static_assert(DV <= DQK, "the output is staged in the Q tile's rows");
+  constexpr int LD = bf16_ld<DQK>();           // Q and K rows
+  constexpr int LDV = bf16_ld<DV>();           // V rows
   constexpr int TILE = 64 * LD;
-  constexpr int NT = DH / 8;                   // output n-tiles of 8 columns
+  constexpr int TILEV = 64 * LDV;
+  constexpr int NT = DV / 8;                   // output n-tiles of 8 columns
   extern __shared__ uint4 smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
   bf16* ks = qs + TILE;                          // [2][64][LD]
-  bf16* vs = ks + 2 * TILE;                      // [2][64][LD]
+  bf16* vs = ks + 2 * TILE;                      // [2][64][LDV]
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KVH);
   const int64_t bh = (int64_t)b * H + h;
-  const bf16* qb = q + bh * Sq * DH;
-  const bf16* kb = k + ((int64_t)b * KVH + kvh) * Skv * DH;
-  const bf16* vb = v + ((int64_t)b * KVH + kvh) * Skv * DH;
+  const bf16* qb = q + bh * Sq * DQK;
+  const bf16* kb = k + ((int64_t)b * KVH + kvh) * Skv * DQK;
+  const bf16* vb = v + ((int64_t)b * KVH + kvh) * Skv * DV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;     // fragment row, column pair
   const int q_offset = Skv - Sq;
@@ -384,13 +399,13 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = (kv_end - kv_begin + BKV - 1) / BKV;
 
   // group 0: Q and kv tile 0; group 1: kv tile 1 (empty if none)
-  load_tile<DH>(qb, q0, Sq, qs);
-  load_tile<DH>(kb, kv_begin, Skv, ks);
-  load_tile<DH>(vb, kv_begin, Skv, vs);
+  load_tile<DQK>(qb, q0, Sq, qs);
+  load_tile<DQK>(kb, kv_begin, Skv, ks);
+  load_tile<DV>(vb, kv_begin, Skv, vs);
   cp_async_commit();
   if (n_tiles > 1) {
-    load_tile<DH>(kb, kv_begin + BKV, Skv, ks + TILE);
-    load_tile<DH>(vb, kv_begin + BKV, Skv, vs + TILE);
+    load_tile<DQK>(kb, kv_begin + BKV, Skv, ks + TILE);
+    load_tile<DV>(vb, kv_begin + BKV, Skv, vs + TILEV);
   }
   cp_async_commit();
 
@@ -402,7 +417,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  uint32_t qf[DH / 16][4];
+  uint32_t qf[DQK / 16][4];
 
   // ldmatrix.x4 lane addressing: the A operand (16 rows x 16) and, for K,
   // two n-tiles of the B operand (8 rows x 16 each)
@@ -414,12 +429,12 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int kv0 = kv_begin + t * BKV;
     const bf16* kt = ks + (t & 1) * TILE;
-    const bf16* vt = vs + (t & 1) * TILE;
+    const bf16* vt = vs + (t & 1) * TILEV;
     cp_async_wait<1>();            // tile t has landed
     __syncthreads();
     if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
+      for (int kk = 0; kk < DQK / 16; ++kk)
         ldmatrix_x4(qf[kk], smem_u32(qs + (warp * 16 + a_row) * LD +
                                      kk * 16 + a_col));
     }
@@ -431,7 +446,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
 #pragma unroll
       for (int j = 0; j < 8; j += 2) {
         uint32_t kf[4];
@@ -503,7 +518,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NT; j += 2) {
         uint32_t vf[4];
-        ldmatrix_x4_trans(vf, smem_u32(vt + (kk * 16 + a_row) * LD + j * 8 +
+        ldmatrix_x4_trans(vf, smem_u32(vt + (kk * 16 + a_row) * LDV + j * 8 +
                                        a_col));
         mma_bf16(acc[j], ph, vf[0], vf[1]);
         mma_bf16(acc[j + 1], ph, vf[2], vf[3]);
@@ -514,8 +529,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     __syncthreads();               // every warp is done with buffer t & 1
     if (t + 2 < n_tiles) {
-      load_tile<DH>(kb, kv0 + 2 * BKV, Skv, ks + (t & 1) * TILE);
-      load_tile<DH>(vb, kv0 + 2 * BKV, Skv, vs + (t & 1) * TILE);
+      load_tile<DQK>(kb, kv0 + 2 * BKV, Skv, ks + (t & 1) * TILE);
+      load_tile<DV>(vb, kv0 + 2 * BKV, Skv, vs + (t & 1) * TILEV);
     }
     cp_async_commit();
   }
@@ -538,13 +553,13 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         __floats2bfloat162_rn(acc[j][2] / den[1], acc[j][3] / den[1]);
   }
   __syncwarp();
-  bf16* ob = o + bh * Sq * DH;
+  bf16* ob = o + bh * Sq * DV;
 #pragma unroll
-  for (int c = lane; c < 16 * (DH / 8); c += 32) {
-    const int r = c / (DH / 8), col = (c % (DH / 8)) * 8;
+  for (int c = lane; c < 16 * (DV / 8); c += 32) {
+    const int r = c / (DV / 8), col = (c % (DV / 8)) * 8;
     const int row = q0 + warp * 16 + r;
     if (row < Sq)
-      *reinterpret_cast<uint4*>(ob + (int64_t)row * DH + col) =
+      *reinterpret_cast<uint4*>(ob + (int64_t)row * DV + col) =
           *reinterpret_cast<const uint4*>(os + r * LD + col);
   }
   if (tig == 0) {
@@ -556,28 +571,28 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ------------------------------------------------------------- launches --
 
-template <int DH>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int bf16_in, int B, int H, int KVH, int Sq, int Skv, int causal,
            int window, float scale, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   if (bf16_in) {
-    const int bytes = smem_bytes_bf16<DH>();
+    const int bytes = smem_bytes_bf16<DQK, DV>();
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_bf16<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (e != cudaSuccess) return (int)e;
-    flash_fwd_bf16<DH><<<grid, THREADS, bytes, stream>>>(
+    flash_fwd_bf16<DQK, DV><<<grid, THREADS, bytes, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, KVH, Sq,
         Skv, causal, window, scale * LOG2E);
   } else {
-    const int bytes = smem_floats_f32<DH>() * (int)sizeof(float);
+    const int bytes = smem_floats_f32<DQK, DV>() * (int)sizeof(float);
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_f32<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (e != cudaSuccess) return (int)e;
-    flash_fwd_f32<DH><<<grid, THREADS, bytes, stream>>>(
+    flash_fwd_f32<DQK, DV><<<grid, THREADS, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, H, KVH, Sq,
         Skv, causal, window, scale);
@@ -587,17 +602,18 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
-// q (B, H, Sq, Dh), k and v (B, KVH, Skv, Dh), o like q, all contiguous
-// and of one type (bf16 != 0: __nv_bfloat16, 16-byte aligned; else
-// float); lse (B, H, Sq) f32. Dh is 32, 64 or 128; Sq <= Skv; H a multiple
-// of KVH; B <= 65535. Launches on `stream` and returns cudaGetLastError()
-// (0 on success), or cudaErrorInvalidValue for a shape it does not take;
-// it does not synchronise.
+// q (B, H, Sq, Dh), k (B, KVH, Skv, Dh), v (B, KVH, Skv, Dv), o (B, H, Sq,
+// Dv), all contiguous and of one type (bf16 != 0: __nv_bfloat16, 16-byte
+// aligned; else float); lse (B, H, Sq) f32. (Dh, Dv) is (32, 32), (64,
+// 64), (128, 128) or (192, 128); Sq <= Skv; H a multiple of KVH; B <=
+// 65535. Launches on `stream` and returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue for a shape it does not take; it
+// does not synchronise.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int bf16, int B, int H, int KVH, int Sq,
-                                   int Skv, int Dh, int causal, int window,
-                                   float scale, void* stream) {
+                                   int Skv, int Dh, int Dv, int causal,
+                                   int window, float scale, void* stream) {
   if (B <= 0 || B > MAX_GRID_Z || H <= 0 || KVH <= 0 || H % KVH != 0 ||
       Sq <= 0 || Skv < Sq)
     return (int)cudaErrorInvalidValue;
@@ -607,17 +623,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                 reinterpret_cast<uintptr_t>(o)) & 15))
     return (int)cudaErrorMisalignedAddress;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (Dh) {
-    case 32:
-      return launch<32>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv, causal,
-                        window, scale, s);
-    case 64:
-      return launch<64>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv, causal,
-                        window, scale, s);
-    case 128:
-      return launch<128>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv, causal,
-                         window, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (Dh == 32 && Dv == 32)
+    return launch<32, 32>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv, causal,
+                          window, scale, s);
+  if (Dh == 64 && Dv == 64)
+    return launch<64, 64>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv, causal,
+                          window, scale, s);
+  if (Dh == 128 && Dv == 128)
+    return launch<128, 128>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv,
+                            causal, window, scale, s);
+  if (Dh == 192 && Dv == 128)
+    return launch<192, 128>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv,
+                            causal, window, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

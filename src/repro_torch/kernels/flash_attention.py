@@ -2,9 +2,12 @@
 wrapper of ``csrc/flash_attention.cu``, and its gradient.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``
-(kernel body ``_flash_kernel``), in its layout: q (B, H, Sq, Dh), k and v
-(B, KVH, Skv, Dh) -> (B, H, Sq, Dh), query head h reading kv head
-``h // (H / KVH)``, the queries the last Sq of the Skv positions. See the
+(kernel body ``_flash_kernel``), in its layout: q (B, H, Sq, Dqk), k
+(B, KVH, Skv, Dqk) and v (B, KVH, Skv, Dv) -> (B, H, Sq, Dv), query head h
+reading kv head ``h // (H / KVH)``, the queries the last Sq of the Skv
+positions. The kernel's (Dqk, Dv) instances are ``HEAD_DIMS``: equal
+dims 32, 64 and 128, and MLA's (192, 128) (the reference's MLA prefill
+runs its jnp scan at those dims; the Pallas kernel takes one Dh). See the
 source for the design and its bound on the card. The Pallas kernel's
 ``block_q``, ``block_kv`` and ``interpret`` have no counterpart: there is
 one route. A ragged Sq or Skv is masked, where the Pallas kernel asserts
@@ -34,7 +37,8 @@ import torch
 from repro_torch.kernels import _build, ref
 
 F32 = torch.float32
-HEAD_DIMS = (32, 64, 128)      # the kernel's template instances
+# the kernel's (Dqk, Dv) template instances
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
 MAX_BATCH = 65535              # B is the grid's z dimension
 
 
@@ -44,7 +48,7 @@ def _device_type(t: torch.Tensor) -> str:
 
 def _kernel():
     fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -52,13 +56,15 @@ def _kernel():
 
 def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"q, k and v must be 4-D (B, H, S, Dh), got "
+        raise ValueError(f"q, k and v must be 4-D (B, H, S, D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, h, sq, dh = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh:
-        raise ValueError(f"k and v must be (B={b}, KVH, Skv, Dh={dh}), got "
-                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != b
+            or k.shape[3] != dh):
+        raise ValueError(f"k and v must be (B={b}, KVH, Skv, Dqk={dh}) and "
+                         f"(B={b}, KVH, Skv, Dv), got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
     kvh, skv = k.shape[1], k.shape[2]
     if kvh == 0 or h % kvh:
         raise ValueError(f"{h} query heads do not split into {kvh} groups")
@@ -86,7 +92,7 @@ def _forward(q, k, v, causal: bool, window: int, scale: float):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale, return_lse=True)
     if kind == "meta":
-        return (torch.empty_like(q), torch.empty(
+        return (q.new_empty(q.shape[:3] + v.shape[3:]), torch.empty(
             q.shape[:3], dtype=torch.promote_types(q.dtype, F32),
             device=q.device))
     if kind != "cuda":
@@ -95,22 +101,24 @@ def _forward(q, k, v, causal: bool, window: int, scale: float):
     if q.dtype not in (F32, torch.bfloat16):
         raise TypeError(f"the kernel takes f32 or bf16, got {q.dtype}")
     b, h, sq, dh = q.shape
-    kvh, skv = k.shape[1], k.shape[2]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} is not one of the kernel's "
-                         f"{HEAD_DIMS}")
+    kvh, skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (dh, dv) not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh}"
+                         + (f" with v head dim {dv}" if dv != dh else "")
+                         + f" is not one of the kernel's (Dqk, Dv) "
+                           f"{HEAD_DIMS}")
     if b > MAX_BATCH:
         raise ValueError(f"B={b} exceeds the kernel's grid limit "
                          f"{MAX_BATCH}")
     fn = _kernel()
     q, k, v = (_aligned(x.contiguous()) for x in (q, k, v))
-    o = torch.empty_like(q)
+    o = q.new_empty((b, h, sq, dv))
     lse = torch.empty((b, h, sq), dtype=F32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), int(q.dtype == torch.bfloat16), b, h, kvh,
-                 sq, skv, dh, int(causal), int(window), scale, stream)
+                 sq, skv, dh, dv, int(causal), int(window), scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -126,13 +134,13 @@ def attention_backward(q, k, v, o, lse, do, causal: bool, window: int,
     = ds^T q scale``, the kv gradients summed over each head group. In f32
     (f64 for f64 inputs), cast to the inputs' types."""
     b, h, sq, dh = q.shape
-    kvh, skv = k.shape[1], k.shape[2]
+    kvh, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // kvh
     wide = torch.promote_types(q.dtype, F32)
     qg = q.reshape(b, kvh, g, sq, dh).to(wide)
     kw, vw = k.to(wide), v.to(wide)
-    dog = do.reshape(b, kvh, g, sq, dh).to(wide)
-    og = o.reshape(b, kvh, g, sq, dh).to(wide)
+    dog = do.reshape(b, kvh, g, sq, dv).to(wide)
+    og = o.reshape(b, kvh, g, sq, dv).to(wide)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, kw) * scale
     valid = ref.flash_attention_mask(sq, skv, causal, window, q.device)
     s = torch.where(valid, s, torch.full_like(s, ref.NEG_INF))
@@ -189,8 +197,9 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale=None) -> torch.Tensor:
-    """q: (B, H, Sq, Dh), k and v: (B, KVH, Skv, Dh) -> (B, H, Sq, Dh) in
-    q's type. Differentiable (see :class:`FlashAttention`)."""
+    """q: (B, H, Sq, Dqk), k: (B, KVH, Skv, Dqk), v: (B, KVH, Skv, Dv) ->
+    (B, H, Sq, Dv) in q's type; the scale defaults to 1 / sqrt(Dqk).
+    Differentiable (see :class:`FlashAttention`)."""
     _check(q, k, v)
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     return FlashAttention.apply(q, k, v, bool(causal), int(window),

@@ -199,11 +199,12 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         scale=None, return_lse: bool = False):
     """The flash-attention kernel's function.
 
-    q: (B, H, Sq, Dh), k and v: (B, KVH, Skv, Dh), query head h reading kv
-    head ``h // (H / KVH)``; the queries are the last Sq of the Skv
-    positions. Scores ``q.k * scale`` (default ``1 / sqrt(Dh)``) and the
-    product with v are computed in f32 (f64 for f64 inputs); masked scores
-    are ``NEG_INF``. Returns the output (B, H, Sq, Dh) in q's type and,
+    q: (B, H, Sq, Dqk), k: (B, KVH, Skv, Dqk), v: (B, KVH, Skv, Dv), query
+    head h reading kv head ``h // (H / KVH)``; the queries are the last Sq
+    of the Skv positions. Scores ``q.k * scale`` (default ``1 /
+    sqrt(Dqk)``) and the product with v are computed in f32 (f64 for f64
+    inputs); masked scores are ``NEG_INF``. Returns the output (B, H, Sq,
+    Dv) in q's type and,
     with ``return_lse``, the row log-sum-exp (B, H, Sq) in f32 (f64)."""
     b, h, sq, dh = q.shape
     kvh, skv = k.shape[1], k.shape[2]
@@ -217,5 +218,5 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(wide))
-    o = o.reshape(b, h, sq, dh).to(q.dtype)
+    o = o.reshape(b, h, sq, v.shape[3]).to(q.dtype)
     return (o, lse.reshape(b, h, sq)) if return_lse else o

@@ -1,11 +1,12 @@
 """Serving entry point: batched prefill and autoregressive decode of a
-dense transformer tower, or dual-encoder retrieval serving.
+transformer tower, or dual-encoder retrieval serving.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch tinyllama-1.1b --smoke --batch 2 --prompt-len 16 --gen 8
 
 (``--arch tinyllama-1.1b`` is the default; the dense configs
-``qwen3-1.7b``, ``qwen3-8b`` and ``granite-3-8b`` serve too.) Prefill runs
+``qwen3-1.7b``, ``qwen3-8b`` and ``granite-3-8b`` and the DeepSeek towers
+``deepseek-moe-16b`` and ``deepseek-v2-lite-16b`` serve too.) Prefill runs
 the prompt through the tower, every layer's attention on the CUDA
 flash-attention kernel, and fills the KV cache
 (``ModelConfig.kv_cache_dtype``: the model's dtype or int8); each decode

@@ -64,9 +64,10 @@ def make_dcco_train_step(cfg, de_cfg, tcfg, server_opt,
     microbatch's tower at a time. (A naive microbatched CCO would compute
     small-batch statistics, the degradation the paper exists to avoid.)
 
-    The reference adds the MoE towers' balance and router terms to the
-    loss; no ported tower is an MoE (ROADMAP §1, item 7, 'Transformer
-    families'), so there is no such term here.
+    An MoE tower's loss adds ``balance_weight * balance + 1e-4 *
+    router_z`` of its two views (``add_aux``, the reference's), at micro 1
+    and in each microbatch's phase-2 loss; ``metrics["loss"]`` includes
+    it, as the reference's does.
     """
     lam = de_cfg.lambda_cco
     clients = 0
@@ -74,12 +75,18 @@ def make_dcco_train_step(cfg, de_cfg, tcfg, server_opt,
         clients = tcfg.global_batch // tcfg.samples_per_client
     nm = num_microbatches
 
+    def add_aux(loss, aux):
+        if cfg.moe is not None and cfg.moe.num_experts > 0:
+            loss = loss + cfg.moe.balance_weight * aux["balance"] \
+                + 1e-4 * aux["router_z"]
+        return loss
+
     def single_grads(params, batch):
         p = _trainable(params)
-        zf, zg, _ = dual_encoder.encode_pair(cfg, de_cfg, p, batch["view1"],
-                                             batch["view2"])
-        loss = dcco.dcco_loss(zf, zg, lam, impl=tcfg.dcco_impl,
-                              clients=clients)
+        zf, zg, aux = dual_encoder.encode_pair(cfg, de_cfg, p,
+                                               batch["view1"], batch["view2"])
+        loss = add_aux(dcco.dcco_loss(zf, zg, lam, impl=tcfg.dcco_impl,
+                                      clients=clients), aux)
         grads = _grads(loss, p)
         return grads, {"loss": loss.detach(),
                        "encoding_std": _encoding_std(zf.detach())}
@@ -106,14 +113,18 @@ def make_dcco_train_step(cfg, de_cfg, tcfg, server_opt,
 
         def tower(name):
             return lambda v: dual_encoder.encode(cfg, de_cfg, p, v,
-                                                 tower=name)[0]
+                                                 tower=name)
 
         acc, losses, stds = None, [], []
         for mb in micro:
-            zf = checkpoint(tower("f"), mb["view1"], use_reentrant=False)
-            zg = checkpoint(tower("g"), mb["view2"], use_reentrant=False)
+            zf, aux1 = checkpoint(tower("f"), mb["view1"],
+                                  use_reentrant=False)
+            zg, aux2 = checkpoint(tower("g"), mb["view2"],
+                                  use_reentrant=False)
             local = cco.encoding_stats(zf, zg)
-            loss = cco.cco_loss_from_stats(cco.dcco_combine(local, agg), lam)
+            loss = add_aux(
+                cco.cco_loss_from_stats(cco.dcco_combine(local, agg), lam),
+                {k: aux1[k] + aux2[k] for k in aux1})
             g = _grads(loss, p)
             with torch.no_grad():
                 if acc is None:

@@ -1,7 +1,9 @@
 """Training driver: federated stats-objective pretraining
 (``--objective dcco|dvicreg|dwmse``) of the ResNet-14 dual encoder or, with
-``--arch tinyllama-1.1b|qwen3-1.7b|qwen3-8b|granite-3-8b``, of a dense
-transformer's token dual encoder (``--seq-len`` tokens a sequence), rounds
+``--arch tinyllama-1.1b|qwen3-1.7b|qwen3-8b|granite-3-8b`` (dense) or
+``deepseek-moe-16b|deepseek-v2-lite-16b`` (MoE, MLA), of a transformer's
+token dual encoder (``--seq-len`` tokens a sequence, ``--num-layers`` to
+cut its depth), rounds
 driven by :class:`repro_torch.core.round_engine.RoundEngine` (``--mode
 engine``, the default; the other modes are below), optionally over a
 lossy client uplink (``--channel``), through a two-level client -> edge
@@ -439,6 +441,11 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--num-classes", type=int, default=5)
     g.add_argument("--seq-len", type=int, default=64,
                    help="tokens a sequence (token archs)")
+    g.add_argument("--num-layers", type=int, default=0,
+                   help="cut a token arch's depth to this many layers, its "
+                        "widths kept (0 = the config's depth; an MoE "
+                        "arch's dense prologue stays, so it needs more "
+                        "layers than its prologue)")
 
     g = ap.add_argument_group("engine")
     g.add_argument("--chunk-rounds", type=int, default=0,
@@ -590,13 +597,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = build_parser()
     args = ap.parse_args(argv)
     validate_flags(ap, args)
-    if is_resnet(get_config(args.arch, smoke=args.smoke)):
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if is_resnet(cfg):
         _forbid_ignored_flags(
-            ap, args, ["seq_len"],
-            f"--seq-len sets the token archs' sequences; {args.arch} "
-            f"encodes images")
+            ap, args, ["seq_len", "num_layers"],
+            f"--seq-len and --num-layers set the token archs' sequences "
+            f"and depth; {args.arch} encodes images")
     elif args.seq_len < 1:
         raise SystemExit(f"--seq-len {args.seq_len} must be >= 1")
+    elif args.num_layers and not args.num_layers > cfg.num_prologue:
+        raise SystemExit(f"--num-layers {args.num_layers} must exceed the "
+                         f"{cfg.num_prologue} dense prologue layers of "
+                         f"{args.arch} (and be >= 1)")
     return args
 
 
@@ -821,6 +833,8 @@ def run(args: argparse.Namespace, *, algorithm: str = "dcco") -> dict:
                          f"body runs on the round engine only")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.num_layers:
+        cfg = cfg.replace(num_layers=args.num_layers)
     de_cfg = DualEncoderConfig(
         proj_dims=(64, 64) if args.smoke else
         get_dual_encoder_config(args.arch).proj_dims,

@@ -1,4 +1,5 @@
-"""Attention: GQA with optional QK-RMSNorm, RoPE and a sliding window.
+"""Attention: GQA with optional QK-RMSNorm, RoPE and a sliding window,
+and MLA (DeepSeek-V2 multi-head latent attention).
 
 Layouts are the reference's: q (B, Sq, H, Dh), k and v (B, Skv, KVH, Dh),
 query head h reading kv head ``h // (H / KVH)``, positions (B, S).
@@ -26,7 +27,20 @@ values with one f32 max-abs scale per (position, head) in
 scan carries it the same way, donated). Prefill attends over the full
 sequence on the flash kernel; a decode step's one query attends to the
 cache in plain torch (``naive_attention``), as the reference's decode
-does outside any Pallas kernel. MLA is not ported yet (ROADMAP §1).
+does outside any Pallas kernel.
+
+MLA (the reference's ``mla_*``): one down-projection gives a latent of
+``kv_lora_rank`` (RMS-normalised) and a rotary key of
+``qk_rope_head_dim`` shared by the heads; per-head keys (nope + rope,
+``qk_nope_head_dim + qk_rope_head_dim`` wide) and values
+(``v_head_dim``) are expanded from the latent, and attention runs at
+scale 1 / sqrt(dn + dr) through ``attention_math``: for Sq > 1 the flash
+kernel with Dqk != Dv (192 and 128 at deepseek-v2-lite-16b). The decode
+cache holds the latent and the rotary key (``latent`` (B, L, r),
+``k_rope`` (B, L, dr), ``kv_pos``) in the model's dtype: it ignores
+``kv_cache_dtype``, as the reference's does. ``mla_decode`` with
+``absorb=True`` (the default) attends in the latent space, the cache
+never expanded; ``absorb=False`` expands the cache every step.
 """
 from __future__ import annotations
 
@@ -252,4 +266,140 @@ def gqa_decode(cfg, p, x, pos, cache):
     k_full, v_full = _cache_read(cfg, cache, k.dtype)
     out = naive_attention(q, k_full, v_full, positions, cache["kv_pos"],
                           cfg.sliding_window)
+    return linear(p["wo"], out.reshape(b, 1, -1)), cache
+
+
+# =========================================================================
+# MLA (multi-head latent attention, DeepSeek-V2) block
+# =========================================================================
+
+def mla_init(gen, cfg, dtype, device="cpu"):
+    d, h = cfg.d_model, cfg.num_heads
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    return {
+        "wq": linear_init(gen, d, h * (dn + dr), dtype, device=device),
+        # latent + shared rope key
+        "w_dkv": linear_init(gen, d, r + dr, dtype, device=device),
+        "kv_norm": rmsnorm_init(r, device),
+        "w_uk": linear_init(gen, r, h * dn, dtype, device=device),
+        "w_uv": linear_init(gen, r, h * dv, dtype, device=device),
+        "wo": linear_init(gen, h * dv, d, dtype, device=device),
+    }
+
+
+def _mla_latent(cfg, p, x, positions):
+    """(latent (B, S, r) normalised, k_rope (B, S, 1, dr) rotated)."""
+    r = cfg.kv_lora_rank
+    ckv = linear(p["w_dkv"], x)
+    latent = rmsnorm(p["kv_norm"], ckv[..., :r], cfg.norm_eps)
+    k_rope = apply_rope(ckv[..., None, r:], positions, cfg.rope_theta)
+    return latent, k_rope
+
+
+def _mla_q(cfg, p, x, positions):
+    b, s, _ = x.shape
+    h, dn, dr = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = linear(p["wq"], x).reshape(b, s, h, dn + dr)
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_expand_kv(cfg, p, latent, k_rope):
+    """Per-head K (nope + rope) and V, expanded from the latent."""
+    b, s, _ = latent.shape
+    h, dn, dv = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    k_nope = linear(p["w_uk"], latent).reshape(b, s, h, dn)
+    v = linear(p["w_uv"], latent).reshape(b, s, h, dv)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, k_rope.shape[-1])], -1)
+    return k, v
+
+
+def _mla_scale(cfg) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def _mla_attend(cfg, p, x, positions, latent, k_rope):
+    b, s, _ = x.shape
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    k, v = _mla_expand_kv(cfg, p, latent, k_rope)
+    q = torch.cat([q_nope, q_rope], -1)
+    out = attention_math(cfg, q, k, v, positions, positions,
+                         scale=_mla_scale(cfg))
+    return linear(p["wo"], out.reshape(b, s, -1))
+
+
+def mla_forward(cfg, p, x, positions):
+    """Self-attention over a full sequence. x: (B,S,D); positions: (B,S)."""
+    latent, k_rope = _mla_latent(cfg, p, x, positions)
+    return _mla_attend(cfg, p, x, positions, latent, k_rope)
+
+
+def mla_cache_init(cfg, batch: int, max_len: int, dtype, device="cpu"):
+    """One layer's empty MLA cache, in ``dtype`` whatever
+    ``cfg.kv_cache_dtype`` says."""
+    return {
+        "latent": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                              dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+        "kv_pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                             device=device),
+    }
+
+
+def _mla_cache_write(cache, latent, k_rope, positions, slots):
+    for name, x in (("latent", latent), ("k_rope", k_rope[:, :, 0]),
+                    ("kv_pos", positions)):
+        cache[name].index_copy_(1, slots, x.to(cache[name].dtype))
+
+
+def mla_prefill(cfg, p, x, positions, cache):
+    """``mla_forward`` that also writes the prompt's latent and rotary
+    key into the cache from position 0, in place."""
+    latent, k_rope = _mla_latent(cfg, p, x, positions)
+    out = _mla_attend(cfg, p, x, positions, latent, k_rope)
+    _mla_cache_write(cache, latent, k_rope, positions,
+                     torch.arange(x.shape[1], device=x.device))
+    return out, cache
+
+
+def mla_decode(cfg, p, x, pos, cache, absorb: bool = True):
+    """One-token MLA decode. x: (B, 1, D); pos: () int tensor.
+
+    ``absorb=True`` folds W_uk into the query and W_uv into the output,
+    so attention runs over the cached latent itself (scores =
+    (q_nope W_uk^T) . latent + q_rope . k_rope); ``absorb=False``
+    expands the whole cache to per-head K/V every step. The products
+    accumulate in f32 and round where the reference's do."""
+    b = x.shape[0]
+    h, dn, dv = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    scale = _mla_scale(cfg)
+    positions = pos.reshape(1, 1).expand(b, 1)
+    latent, k_rope = _mla_latent(cfg, p, x, positions)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    _mla_cache_write(cache, latent, k_rope, positions,
+                     pos.reshape(1).long())
+    lat, krope_c, kv_pos = cache["latent"], cache["k_rope"], cache["kv_pos"]
+    if absorb:
+        wide = torch.promote_types(x.dtype, F32)
+        wuk = p["w_uk"]["w"].reshape(r, h, dn)
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.to(wide), wuk.to(wide))
+        s_lat = torch.einsum("bqhr,bsr->bhqs", q_lat.to(lat.dtype).to(wide),
+                             lat.to(wide))
+        s_rope = torch.einsum("bqhd,bsd->bhqs", q_rope.to(wide),
+                              krope_c.to(wide))
+        scores = (s_lat + s_rope) * scale
+        m = _mask(positions, kv_pos, 0)[:, None]
+        scores = torch.where(m, scores, torch.full_like(scores, NEG_INF))
+        pr = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhqs,bsr->bqhr", pr.to(lat.dtype).to(wide),
+                             lat.to(wide))                    # (B,1,h,r)
+        wuv = p["w_uv"]["w"].reshape(r, h, dv)
+        out = torch.einsum("bqhr,rhd->bqhd", o_lat.to(x.dtype).to(wide),
+                           wuv.to(wide)).to(x.dtype)
+    else:
+        k, v = _mla_expand_kv(cfg, p, lat, krope_c[:, :, None, :])
+        q = torch.cat([q_nope, q_rope], -1)
+        out = naive_attention(q, k, v, positions, kv_pos, 0, scale=scale)
     return linear(p["wo"], out.reshape(b, 1, -1)), cache

@@ -4,8 +4,9 @@ Conventions (the reference's): every creator takes a ``torch.Generator``
 and returns the param dict; linear weights keep the reference's
 ``(d_in, d_out)`` layout, so ``linear`` is ``x @ w + b`` and parameters
 carry across from JAX without a transpose. Initialisation draws on the
-CPU generator and then moves to ``device``, so a seed gives the same
-parameters on every device.
+generator's device and then moves to ``device``: with a CPU generator
+(the dense towers' and the ResNet's) a seed gives the same parameters on
+every device.
 """
 from __future__ import annotations
 
@@ -26,9 +27,11 @@ def dtype_of(name: str):
 
 def truncated_normal(gen: torch.Generator, shape, lo: float = -2.0,
                      hi: float = 2.0) -> torch.Tensor:
-    """Standard normal truncated to [lo, hi], by inverse CDF (f32, CPU)."""
+    """Standard normal truncated to [lo, hi], by inverse CDF (f32, on the
+    generator's device)."""
     cdf = lambda v: 0.5 * (1.0 + math.erf(v / math.sqrt(2.0)))  # noqa: E731
-    u = torch.rand(shape, generator=gen, dtype=torch.float64)
+    u = torch.rand(shape, generator=gen, dtype=torch.float64,
+                   device=gen.device)
     # in place, in the order cdf(lo) + u (cdf(hi) - cdf(lo)), then
     # sqrt(2) erfinv(2u - 1): a billion-parameter tower draws in one pass
     u.mul_(cdf(hi) - cdf(lo)).add_(cdf(lo)).mul_(2.0).sub_(1.0)
@@ -122,7 +125,8 @@ def apply_rope(x, positions, theta: float = 10000.0):
 
 def embedding_init(gen, vocab: int, d_model: int, dtype=torch.bfloat16,
                    device="cpu"):
-    emb = torch.randn((vocab, d_model), generator=gen, dtype=F32) * 0.02
+    emb = torch.randn((vocab, d_model), generator=gen, dtype=F32,
+                      device=gen.device) * 0.02
     return {"table": emb.to(device, dtype)}
 
 

@@ -1,8 +1,9 @@
 """Dual encoding model (paper Fig. 1): tower(s) + pooling + projection head.
 
-Towers: the paper's ResNet over images, and the dense transformers over
-tokens (mean-pooled, with an optional (B, S) mask); the vision-text and
-audio towers are not ported yet (ROADMAP §1, "Transformer families"). The
+Towers: the paper's ResNet over images, and the text transformers (dense,
+MoE, MLA) over tokens (mean-pooled, with an optional (B, S) mask); the
+vision-text and audio towers are not ported yet (ROADMAP §1,
+"Transformer families"). The
 projection network follows Sec 4.2: a 3-layer MLP that *increases*
 dimensionality before the CCO loss.
 """
@@ -68,20 +69,24 @@ def encode(cfg, de_cfg, params, view, tower: str = "f"):
 
     view: dict with 'images' (B,H,W,C) for the ResNet tower, or 'tokens'
     (B,S) and an optional 'mask' (B,S) for a transformer tower. ``aux``
-    holds the MoE towers' auxiliary losses in the reference and is empty
-    here (no ported tower has any).
+    is an MoE tower's ``{"balance", "router_z"}`` (its losses summed over
+    the layers, as the reference's), and empty for every other tower.
     """
     shared = tower == "f" or de_cfg.shared_towers
     tower_p = params["tower"] if shared else params["tower_g"]
     proj_p = params["proj"] if shared else params["proj_g"]
     x = view[input_leaf(cfg)]
+    aux = {}
     if is_resnet(cfg):
         pooled = resnet_mod.resnet_forward(cfg, tower_p, x)
+    elif cfg.moe is not None:
+        hidden, aux = transformer.forward(cfg, tower_p, x, return_aux=True)
+        pooled = _pool(hidden, view.get("mask"))
     else:
         hidden = transformer.forward(cfg, tower_p, x)
         pooled = _pool(hidden, view.get("mask"))
     z = mlp(proj_p, pooled.to(dtype_of(cfg.dtype)))
-    return at_least_f32(z), {}
+    return at_least_f32(z), aux
 
 
 def encode_pair(cfg, de_cfg, params, view1, view2):

@@ -1,0 +1,176 @@
+"""Mixture-of-Experts FFN: a top-k router and capacity-based dispatch.
+
+Port of ``repro/models/moe.py`` (DeepSeekMoE): ``num_shared_experts``
+always-on experts fused into one wider SwiGLU, plus fine-grained routed
+experts, top-k softmax gating with the weights renormalised over the
+chosen experts. Tokens are split into groups of ``group_size``; each
+group routes on its own into (experts, capacity) slots, every shape
+static, as in the reference's GShard-style einsum dispatch. The
+reference computes all of this outside any Pallas kernel, so the port's
+torch ops are its counterpart.
+
+Semantics kept from the reference, bit for bit where the arithmetic is
+exact:
+  * selection order: descending probability, the lowest expert index
+    first on ties (``jax.lax.top_k``'s order);
+  * queue order within an expert: token-major, then by rank k (the
+    reference flattens (s, k) before its cumsum; its comment says "by k
+    then s", its code does this), and a (token, rank) past the capacity
+    is dropped;
+  * ``dispatch = combine > 0``, so a kept token whose weight underflows
+    to 0 is not sent (its contribution is 0 either way).
+One-hots are comparisons against ``torch.arange`` (``F.one_hot`` checks
+its indices' values, which ``torch.func.vmap`` refuses), and the k axis
+of the reference's (G, S, K, E, C) one-hot is folded first: a token
+picks an expert at most once, so each sum over k has one term.
+
+:func:`record_routes` collects the experts each call picks and
+:func:`force_routes` imposes picks on the calls, for checks that hold two
+computations to each other: in bf16, rounding alone flips top-k picks
+whose probabilities nearly tie, which moves a token's output by a whole
+expert.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import F32, swiglu, swiglu_init, \
+    truncated_normal
+
+_routes = None     # a list while record_routes() is open, else None
+_forced = None     # an iterator while force_routes() is open, else None
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Within the block, every :func:`moe_forward` call appends its chosen
+    experts, an int tensor (B, S, top_k) in selection order, to the list
+    it yields."""
+    global _routes
+    prev, _routes = _routes, []
+    try:
+        yield _routes
+    finally:
+        _routes = prev
+
+
+@contextlib.contextmanager
+def force_routes(routes):
+    """Within the block, the i-th :func:`moe_forward` call takes
+    ``routes[i]`` (B, S, top_k), as :func:`record_routes` gives them, for
+    its picks in place of its own top-k; their weights are still its own
+    probabilities, renormalised over the picks."""
+    global _forced
+    prev, _forced = _forced, iter(routes)
+    try:
+        yield
+    finally:
+        _forced = prev
+
+
+def moe_init(gen, d_model: int, moe_cfg, dtype, device="cpu"):
+    e, dff = moe_cfg.num_experts, moe_cfg.d_ff
+    std = 1.0 / math.sqrt(d_model)
+
+    def experts(shape, scale):
+        return (truncated_normal(gen, shape) * scale).to(device, dtype)
+
+    p = {
+        "router": {"w": (torch.randn((d_model, e), generator=gen, dtype=F32,
+                                     device=gen.device) * std).to(device)},
+        # stacked expert weights, leading dim = experts
+        "experts": {
+            "gate": experts((e, d_model, dff), std),
+            "up": experts((e, d_model, dff), std),
+            "down": experts((e, dff, d_model), 1.0 / math.sqrt(dff)),
+        },
+    }
+    if moe_cfg.num_shared_experts > 0:
+        p["shared"] = swiglu_init(gen, d_model,
+                                  moe_cfg.num_shared_experts * dff, dtype,
+                                  device)
+    return p
+
+
+def _capacity(tokens_per_group: int, moe_cfg) -> int:
+    c = int(np.ceil(tokens_per_group * moe_cfg.top_k / moe_cfg.num_experts
+                    * moe_cfg.capacity_factor))
+    return max(c, 1)
+
+
+def _top_k(probs, k: int):
+    """The k largest of the last axis, descending, the lowest index first
+    among equal values."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_forward(p, x, moe_cfg, group_size: int = 512):
+    """x: (B, S, D) -> (y (B, S, D), aux) with aux the f32 scalars
+    ``balance`` (the load-balance loss), ``router_z`` (the router
+    z-loss) and ``dropped_frac`` (the share of (token, rank) choices
+    past their expert's capacity).
+
+    The B*S tokens are cut into groups of ``min(group_size, B*S)``, which
+    must divide B*S (a ValueError, where the reference asserts)."""
+    b, s, d = x.shape
+    e, k = moe_cfg.num_experts, moe_cfg.top_k
+    t = b * s
+    g_sz = min(group_size, t)
+    if t % g_sz:
+        raise ValueError(f"tokens {t} not divisible by group {g_sz}")
+    g = t // g_sz
+    xt = x.reshape(g, g_sz, d)
+    wide = torch.promote_types(x.dtype, F32)
+
+    logits = xt.to(wide) @ p["router"]["w"].to(wide)          # (G,S,E)
+    probs = torch.softmax(logits, dim=-1)
+    if _forced is not None:
+        topk_idx = next(_forced).reshape(g, g_sz, k).to(x.device)
+        topk_p = torch.gather(probs, -1, topk_idx)
+    else:
+        topk_p, topk_idx = _top_k(probs, k)                    # (G,S,K)
+    if _routes is not None:
+        _routes.append(topk_idx.reshape(b, s, k))
+    topk_w = topk_p / torch.clamp(topk_p.sum(-1, keepdim=True), min=1e-9)
+
+    cap = _capacity(g_sz, moe_cfg)
+    experts = torch.arange(e, device=x.device)
+    sel = (topk_idx[..., None] == experts).to(wide)            # (G,S,K,E)
+    # position of each (token, k) in its expert's queue: token-major
+    pos_in_e = torch.cumsum(sel.reshape(g, g_sz * k, e), dim=1).reshape(
+        g, g_sz, k, e) - 1.0
+    keep = (pos_in_e < cap).to(wide) * sel                     # drop overflow
+    # fold k (one term each): the weight and the slot of each kept pick
+    w_e = (topk_w[..., None] * keep).sum(2)                    # (G,S,E)
+    pos_e = (pos_in_e * keep).sum(2)
+    kept = keep.sum(2) > 0
+    slots = torch.arange(cap, device=x.device, dtype=wide)
+    combine = w_e[..., None] * ((pos_e[..., None] == slots)
+                                & kept[..., None]).to(wide)    # (G,S,E,C)
+    dispatch = (combine > 0).to(x.dtype)
+
+    xe = torch.einsum("gsec,gsd->gecd", dispatch, xt)
+    we = p["experts"]
+    h = torch.einsum("gecd,edf->gecf", xe, we["gate"])
+    u = torch.einsum("gecd,edf->gecf", xe, we["up"])
+    h = (torch.nn.functional.silu(h.to(wide)) * u.to(wide)).to(x.dtype)
+    ye = torch.einsum("gecf,efd->gecd", h, we["down"])
+    y = torch.einsum("gsec,gecd->gsd", combine, ye.to(wide)).to(x.dtype)
+    y = y.reshape(b, s, d)
+
+    if "shared" in p:
+        y = y + swiglu(p["shared"], x)
+
+    # aux losses: load balance (Shazeer/GShard) + router z-loss
+    me = probs.mean(dim=(0, 1))                                # mean prob
+    ce = sel.sum(2).mean(dim=(0, 1))                           # routed share
+    balance = e * (me * ce).sum() / k
+    z = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    aux = {"balance": balance, "router_z": z,
+           "dropped_frac": 1.0 - keep.sum() / (sel.sum() + 1e-9)}
+    return y, aux

@@ -1,28 +1,43 @@
-"""Backbone assembly of the dense transformers: embedding, a stack of
-``"attn"`` blocks (GQA attention + SwiGLU FFN, pre-RMSNorm), final norm.
+"""Backbone assembly of the text transformers: embedding, the dense
+prologue, a stack of ``"attn"`` blocks (GQA or MLA attention + a SwiGLU
+or MoE FFN, pre-RMSNorm), final norm.
 
 As in the reference, the parameters of all superblocks are stacked along a
 leading layer axis under ``params["layers"]``; the reference's
 ``lax.scan`` over that axis becomes a Python loop over the unbound
-layers. The reference's activation and FSDP sharding constraints are
-mesh-only and have no counterpart; nor do its ``remat`` (a round's phase 2
-runs under ``torch.func.grad``, which refuses ``torch.utils.checkpoint``),
-its parallel block and its untied unembedding, which no dense config sets.
+layers. An MoE config's first ``moe.first_k_dense`` layers are the
+``params["prologue"]`` list of unstacked blocks with a dense FFN of
+``moe.dense_d_ff``; every stacked layer then has the MoE FFN
+(:mod:`repro_torch.models.moe`). The reference's activation and FSDP
+sharding constraints are mesh-only and have no counterpart; nor do its
+``remat`` (a round's phase 2 runs under ``torch.func.grad``, which refuses
+``torch.utils.checkpoint``), its parallel block and its untied
+unembedding, which no ported config sets.
+
+An MoE tower's parameters (16B at full width) draw on ``device``, from a
+generator seeded by one draw of ``gen``: the CPU could not draw them in
+the time of a run. Its parameters therefore depend on the device type;
+every other tower's are the same on every device.
 
 Public entry points:
   init_params(cfg, gen, device)              -> params
-  forward(cfg, params, tokens)               -> hidden (B, S, D)
+  forward(cfg, params, tokens, return_aux)   -> hidden (B, S, D)
+                                                [, aux]
   logits_from_hidden(cfg, params, hidden)    -> f32 logits (tied unembed)
   init_cache(cfg, batch, max_len, device)    -> cache
   prefill(cfg, params, tokens, cache)        -> (last logits (B, V), cache)
   decode_step(cfg, params, cache, token_ids) -> (logits (B, V), cache)
 
 The cache is the reference's tree, ``{"layers": {"b0": {leaf: (L, ...)}},
-"pos": () int32}``, its per-layer leaves stacked on the layer axis as the
-parameters are. Prefill and decode run without autograd and update it in
-place, layer by layer through views of the stacked leaves, so no second
-stacked copy is made; they return the same dict. The MLA/MoE/SSM/xLSTM
-blocks and the vision-text front end are not ported yet (ROADMAP §1).
+"pos": () int32}`` plus ``"prologue"``, a list of per-layer caches, with
+a prologue; the stacked leaves sit on the layer axis as the parameters
+do. Prefill and decode run without autograd and update it in place,
+layer by layer through views of the stacked leaves, so no second
+stacked copy is made; they return the same dict. The MoE FFN routes a
+prefill's tokens in groups of 512 and a decode step's B tokens as one
+group, as the reference does (so decode, whose capacity is small, can
+drop tokens that a full forward keeps). The SSM/xLSTM blocks and the
+vision-text front end are not ported yet (ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -31,8 +46,8 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import utils
-from repro_torch.models import attention as attn
-from repro_torch.models.common import (dtype_of, embed, embedding_init,
+from repro_torch.models import attention as attn, moe as moe_mod
+from repro_torch.models.common import (F32, dtype_of, embed, embedding_init,
                                        rmsnorm, rmsnorm_init,
                                        swiglu, swiglu_init, unembed)
 
@@ -41,41 +56,83 @@ def _require_dense(cfg):
     if tuple(cfg.block_pattern) != ("attn",) or cfg.modality != "text":
         raise NotImplementedError(
             f"{cfg.name}: block pattern {cfg.block_pattern} / modality "
-            f"{cfg.modality!r} is not ported; the port runs dense text "
-            f"transformers (ROADMAP §1, 'Transformer families')")
+            f"{cfg.modality!r} is not ported; the port runs text "
+            f"transformers of attention blocks (ROADMAP §1, 'Transformer "
+            f"families')")
 
 
-def _block_init(gen, cfg, dtype, device):
-    d_ff = cfg.d_ff if cfg.d_ff > 0 else 4 * cfg.d_model
-    return {"ln1": rmsnorm_init(cfg.d_model, device),
-            "ln2": rmsnorm_init(cfg.d_model, device),
-            "attn": attn.gqa_init(gen, cfg, dtype, device),
-            "ffn": swiglu_init(gen, cfg.d_model, d_ff, dtype, device)}
+def _moe_flags(cfg):
+    """Which stacked pattern slots use the MoE FFN (the first_k_dense
+    layers are the prologue, so every stacked attn slot is MoE)."""
+    return [cfg.moe is not None and cfg.moe.num_experts > 0 and k == "attn"
+            for k in cfg.block_pattern]
+
+
+def _block_init(gen, cfg, dtype, device, moe_layer: bool):
+    p = {"ln1": rmsnorm_init(cfg.d_model, device),
+         "ln2": rmsnorm_init(cfg.d_model, device),
+         "attn": (attn.mla_init if cfg.use_mla else attn.gqa_init)(
+             gen, cfg, dtype, device)}
+    if moe_layer:
+        p["moe"] = moe_mod.moe_init(gen, cfg.d_model, cfg.moe, dtype, device)
+    else:
+        d_ff = cfg.d_ff if cfg.d_ff > 0 else 4 * cfg.d_model
+        if cfg.moe is not None and cfg.moe.dense_d_ff > 0:
+            d_ff = cfg.moe.dense_d_ff
+        p["ffn"] = swiglu_init(gen, cfg.d_model, d_ff, dtype, device)
+    return p
+
+
+def _ffn(cfg, p, h, group_size: int = 512):
+    """The block's FFN: (y, aux), aux the MoE's losses or {}."""
+    if "moe" in p:
+        return moe_mod.moe_forward(p["moe"], h, cfg.moe, group_size)
+    return swiglu(p["ffn"], h), {}
 
 
 def _block_forward(cfg, p, x, positions):
-    """Full-sequence forward of one ``"attn"`` block."""
+    """Full-sequence forward of one ``"attn"`` block: (y, aux)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attn.gqa_forward(cfg, p["attn"], h, positions)
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + swiglu(p["ffn"], h)
+    attn_fn = attn.mla_forward if cfg.use_mla else attn.gqa_forward
+    x = x + attn_fn(cfg, p["attn"], h, positions)
+    y, aux = _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + y, aux
+
+
+def _stacked(make, n: int):
+    """``n`` trees from ``make()``, stacked on a leading axis and filled a
+    layer at a time, so the stack is the only full copy."""
+    first = make()
+    out = utils.tree_map(lambda x: x.new_empty((n,) + x.shape), first)
+    for i in range(n):
+        blk = first if i == 0 else make()
+        utils.tree_map(lambda o, x: o[i].copy_(x), out, blk)
+    return out
 
 
 def init_params(cfg, gen, device="cpu") -> Dict[str, Any]:
-    """Random parameters from the CPU generator ``gen``, on ``device``;
+    """Random parameters from the CPU generator ``gen``, on ``device``
+    (an MoE tower's from a generator on ``device``, module docstring);
     each superblock's leaves stacked on a leading axis under
-    ``"layers"`` (``{"b0": block}``, the reference's tree)."""
+    ``"layers"`` (``{"b0": block}``, the reference's tree), the dense
+    prologue under ``"prologue"``."""
     _require_dense(cfg)
     dtype = dtype_of(cfg.dtype)
+    if cfg.moe is not None:
+        gen = utils.generator(
+            int(torch.randint(0, 2 ** 62, (), generator=gen)), device)
     params: Dict[str, Any] = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype,
                                 device),
         "final_norm": rmsnorm_init(cfg.d_model, device),
     }
-    blocks = [_block_init(gen, cfg, dtype, device)
-              for _ in range(cfg.num_superblocks)]
-    params["layers"] = {"b0": utils.tree_map(
-        lambda *xs: torch.stack(xs), *blocks)}
+    if cfg.num_prologue:
+        params["prologue"] = [_block_init(gen, cfg, dtype, device, False)
+                              for _ in range(cfg.num_prologue)]
+    moe_layer = _moe_flags(cfg)[0]
+    params["layers"] = {"b0": _stacked(
+        lambda: _block_init(gen, cfg, dtype, device, moe_layer),
+        cfg.num_superblocks)}
     return params
 
 
@@ -95,15 +152,23 @@ def _unstack(tree, n: int):
     return layers
 
 
-def forward(cfg, params, tokens):
-    """tokens: (B, S) int -> hidden (B, S, D) after the final norm."""
+def forward(cfg, params, tokens, return_aux: bool = False):
+    """tokens: (B, S) int -> hidden (B, S, D) after the final norm; with
+    ``return_aux`` also ``{"balance", "router_z"}``, the MoE losses summed
+    over the stacked layers (zeros without MoE)."""
     _require_dense(cfg)
     x = embed(params["embed"], tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    for p in params.get("prologue", []):
+        x, _ = _block_forward(cfg, p, x, positions)
+    tot = {k: torch.zeros((), dtype=F32, device=x.device)
+           for k in ("balance", "router_z")}
     for sp in _unstack(params["layers"], cfg.num_superblocks):
-        x = _superblock_forward(cfg, sp, x, positions)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        x, aux = _superblock_forward(cfg, sp, x, positions)
+        tot = {k: tot[k] + aux[k] if k in aux else tot[k] for k in tot}
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return (x, tot) if return_aux else x
 
 
 def logits_from_hidden(cfg, params, hidden):
@@ -113,16 +178,24 @@ def logits_from_hidden(cfg, params, hidden):
 
 # ------------------------------------------------------------------ cache ---
 
+def _block_cache_init(cfg, batch, max_len, device):
+    cache_init = attn.mla_cache_init if cfg.use_mla else attn.gqa_cache_init
+    return cache_init(cfg, batch, max_len, dtype_of(cfg.dtype), device)
+
+
 def init_cache(cfg, batch: int, max_len: int, device="cpu"):
     """An empty decode cache for ``batch`` sequences of up to ``max_len``
     positions (a ring of ``cfg.sliding_window`` slots with a window)."""
     _require_dense(cfg)
-    proto = attn.gqa_cache_init(cfg, batch, max_len, dtype_of(cfg.dtype),
-                                device)
+    proto = _block_cache_init(cfg, batch, max_len, device)
     n = cfg.num_superblocks
-    return {"layers": {"b0": {k: v.expand((n,) + v.shape).clone()
-                              for k, v in proto.items()}},
-            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    cache = {"layers": {"b0": {k: v.expand((n,) + v.shape).clone()
+                               for k, v in proto.items()}},
+             "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.num_prologue:
+        cache["prologue"] = [_block_cache_init(cfg, batch, max_len, device)
+                             for _ in range(cfg.num_prologue)]
+    return cache
 
 
 def _layer_caches(cache, n: int):
@@ -131,20 +204,33 @@ def _layer_caches(cache, n: int):
     return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
 
 
+def _blocks_and_caches(cfg, params, cache):
+    """(block params, its cache) for each layer in order, prologue
+    first."""
+    n = cfg.num_superblocks
+    return (list(zip(params.get("prologue", []), cache.get("prologue", [])))
+            + [(sp["b0"], c) for sp, c in zip(_unstack(params["layers"], n),
+                                              _layer_caches(cache, n))])
+
+
 def _block_prefill(cfg, p, x, positions, cache):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    y, cache = attn.gqa_prefill(cfg, p["attn"], h, positions, cache)
+    pre_fn = attn.mla_prefill if cfg.use_mla else attn.gqa_prefill
+    y, cache = pre_fn(cfg, p["attn"], h, positions, cache)
     x = x + y
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + swiglu(p["ffn"], h)
+    y, _ = _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + y
 
 
 def _block_decode(cfg, p, x, pos, cache):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    y, cache = attn.gqa_decode(cfg, p["attn"], h, pos, cache)
+    dec_fn = attn.mla_decode if cfg.use_mla else attn.gqa_decode
+    y, cache = dec_fn(cfg, p["attn"], h, pos, cache)
     x = x + y
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + swiglu(p["ffn"], h)
+    # the decode step's B tokens route as one group
+    y, _ = _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps),
+                group_size=x.shape[0])
+    return x + y
 
 
 @torch.no_grad()
@@ -155,9 +241,8 @@ def prefill(cfg, params, tokens, cache):
     x = embed(params["embed"], tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    n = cfg.num_superblocks
-    for sp, c in zip(_unstack(params["layers"], n), _layer_caches(cache, n)):
-        x = _block_prefill(cfg, sp["b0"], x, positions, c)
+    for p, c in _blocks_and_caches(cfg, params, cache):
+        x = _block_prefill(cfg, p, x, positions, c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     cache["pos"].fill_(s)
     return logits_from_hidden(cfg, params, x[:, -1]), cache
@@ -170,9 +255,8 @@ def decode_step(cfg, params, cache, token_ids):
     _require_dense(cfg)
     x = embed(params["embed"], token_ids)
     pos = cache["pos"]
-    n = cfg.num_superblocks
-    for sp, c in zip(_unstack(params["layers"], n), _layer_caches(cache, n)):
-        x = _block_decode(cfg, sp["b0"], x, pos, c)
+    for p, c in _blocks_and_caches(cfg, params, cache):
+        x = _block_decode(cfg, p, x, pos, c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_from_hidden(cfg, params, x[:, 0])
     pos.add_(1)

@@ -421,6 +421,69 @@ def test_flash_bf16_tile_edges(cuda_device, sq, skv, dh, h, kvh, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kvh,sq,skv,dtype,causal,window", [
+    (4, 16, 16, 128, 128, torch.bfloat16, True, 0),   # MLA prefill's shape
+    (4, 16, 16, 128, 128, torch.float32, True, 0),
+    (2, 8, 8, 100, 100, torch.bfloat16, True, 0),     # ragged S
+    (2, 8, 2, 65, 200, torch.bfloat16, False, 0),     # Sq < Skv, groups
+    (1, 4, 4, 129, 129, torch.bfloat16, True, 40),    # a window
+    (1, 4, 2, 37, 101, torch.float32, False, 20),     # ragged, window
+])
+def test_flash_kernel_mla_head_dims(cuda_device, b, h, kvh, sq, skv, dtype,
+                                    causal, window):
+    """The (Dqk 192, Dv 128) instance of both routes against the plain
+    version (the tolerances above), bit-equal on a second run."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + skv)
+    q = torch.randn(b, h, sq, 192, generator=gen, device=cuda_device)
+    k = torch.randn(b, kvh, skv, 192, generator=gen, device=cuda_device)
+    v = torch.randn(b, kvh, skv, 128, generator=gen, device=cuda_device)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    scale = 192 ** -0.5
+    before = flash_attention.launches["forward"]
+    out, lse = FlashAttention.apply(q, k, v, causal, window, scale)
+    again, _ = FlashAttention.apply(q, k, v, causal, window, scale)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["forward"] == before + 2
+    assert out.shape == (b, h, sq, 128) and out.dtype == dtype
+    plain, plain_lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window,
+                                               return_lse=True)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    assert float(((lse - plain_lse).abs()
+                  / (1 + plain_lse.abs())).max()) <= 2e-5
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_flash_mla_gradient_and_vmap_on_card(cuda_device):
+    """At (192, 128) in f32: the Function's backward against autograd of
+    the plain version, and ``vmap(grad)`` over 2 clients in one launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q = torch.randn(4, 4, 64, 192, generator=gen, device=cuda_device)
+    k = torch.randn(4, 4, 64, 192, generator=gen, device=cuda_device)
+    v = torch.randn(4, 4, 64, 128, generator=gen, device=cuda_device)
+    w = torch.randn(4, 4, 64, 128, generator=gen, device=cuda_device)
+    grads = []
+    for fn in (flash_attention, ref.flash_attention_ref):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        (fn(*xs) * w).sum().backward()
+        grads.append([x.grad for x in xs])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+    def loss(qc, kc, vc):
+        return (flash_attention(qc, kc, vc) ** 2).sum()
+
+    before = flash_attention.launches["forward"]
+    g = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(
+        *(x.reshape(2, 2, *x.shape[1:]) for x in (q, k, v)))
+    assert flash_attention.launches["forward"] == before + 1
+    assert g[2].shape == (2, 2, 4, 64, 128)
+
+
+@pytest.mark.cuda
 def test_flash_bf16_takes_misaligned_inputs(cuda_device):
     """bf16 inputs whose data start off a 16-byte boundary are copied to
     an aligned buffer by the wrapper (the kernel stages 16-byte copies)."""
