@@ -177,6 +177,35 @@ Phases (each prints its lines; any failure exits non-zero):
      width (~0.9B parameters), DS_K clients x 2 sequences of 128,
      DS_ROUNDS rounds: losses finite, ms a round, peak GiB, flash 8 a
      chunk. Each tower is freed before the next.
+  13. the recurrent families at full config, weights from seed 0 drawn on
+     the card: (a) the flash kernel's (80, 80) instance against its plain
+     version at zamba2's attention shape (B = REC_B, H = KVH = 32, S =
+     REC_PROMPT, causal, bf16) and in f32 at a ragged Sq 100 of Skv 150,
+     timed beside its bound and SDPA; (b) zamba2-2.7b (54 layers: 9
+     superblocks of 5 Mamba2 + 1 attention block) served through
+     ``serve.generate``: prefill of REC_B x REC_PROMPT and REC_DECODE
+     greedy steps with the model-dtype and the int8 cache, each in a
+     window of its own (flash 9 a prefill, none in decode): parameter
+     count, prefill ms, decode ms a token, peak GiB; (c) xlstm-350m (24
+     layers: 12 mLSTM + 12 sLSTM) the same with one cache (the recurrent
+     states ignore kv_cache_dtype: checked; no flash launch); the decode
+     gate of (b) and (c): each step's logits against the last position
+     of a full forward over the same tokens (the forward's scans as one
+     chunk of the sequence's length, as the reference asserts the chunk
+     divides it). In bf16 the distances are printed a step,
+     beside the bf16 noise floor (two full forwards of the same tokens,
+     their f32 scans chunked differently) and block by block: rounding
+     compounded over the depth moves the logits by several percent, so
+     they are not gated.
+     The gate serves the same weights in f32 compute with each cache and
+     holds every step within SRV_TOL x max(1, max |logits|), printing the
+     distance block by block if a step departs; (d) D-CCO through ``train
+     --stats-kernel fused`` (materialized, ``cco_stats`` once a round) on
+     xlstm-350m at its full config and zamba2-2.7b cut to one superblock
+     (``--num-layers 6``), REC_K clients x 2 sequences of 128, bf16,
+     REC_ROUNDS rounds: losses finite, ms a round, peak GiB, the
+     ``cco_stats`` and flash launches a round. Each tower is freed before
+     the next.
 Then one JSON line of kernel figures, and the device line last.
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -2081,6 +2110,247 @@ def deepseek_phase(device):
     return figures, counts, mla_flash
 
 
+
+# phase 13: the recurrent families at full config (bf16 weights from seed
+# 0, drawn on the card). Serving: REC_B prompts of REC_PROMPT tokens, then
+# REC_DECODE greedy decode steps. D-CCO: REC_K clients x TOK_N sequences
+# of TOK_S, materialized, REC_ROUNDS rounds; zamba2-2.7b cut to one
+# superblock (ZAMBA_CUT = 6 layers, widths kept): the whole 2.8B tower
+# at K = 4 would hold K f32 deltas and the server's state beside it,
+# where TinyLlama's 1.1B already peaks at ~58 GiB of the 80.
+REC_ARCHS = ("zamba2-2.7b", "xlstm-350m")
+REC_B, REC_PROMPT, REC_DECODE = 4, 128, 16
+REC_K, REC_ROUNDS, ZAMBA_CUT = 4, 2, 6
+
+
+def _whole(cfg, s):
+    """``cfg`` with each recurrent chunk set to ``s``: a full forward over
+    ``s`` tokens as one chunk. The scans assert that the chunk divides the
+    sequence (the reference's too), which a decode-gate length such as
+    131 meets only at 1 or itself; any chunk is the same recurrence."""
+    if cfg.ssm is not None:
+        cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk=s))
+    if cfg.xlstm is not None:
+        cfg = cfg.replace(xlstm=dataclasses.replace(cfg.xlstm, chunk=s))
+    return cfg
+
+
+def layer_distances(cfg, tower, seq):
+    """The last position's hidden state after each block: a prefill of
+    ``seq[:, :-1]`` and one decode step against a full forward over
+    ``seq``; for each block in order, (kind, max |difference|, the
+    difference's RMS over the forward's)."""
+    b, s = seq.shape
+    full_cfg = _whole(cfg, s)
+    with torch.no_grad():
+        cache = transformer.init_cache(cfg, b, s, seq.device)
+        transformer.prefill(_whole(cfg, s - 1), tower, seq[:, :-1], cache)
+        xd = embed(tower["embed"], seq[:, -1:])
+        xf = embed(tower["embed"], seq)
+        positions = torch.arange(s, device=seq.device)[None].expand(b, s)
+        dists = []
+        for kind, p, c in transformer._blocks_and_caches(cfg, tower, cache):
+            xd = transformer._block_decode(cfg, kind, p, xd, cache["pos"], c)
+            xf, _ = transformer._block_forward(full_cfg, kind, p, xf,
+                                               positions)
+            d = xd[:, 0].float() - xf[:, -1].float()
+            dists.append((kind, float(d.abs().max()), float(
+                d.pow(2).mean().sqrt()
+                / xf[:, -1].float().pow(2).mean().sqrt())))
+    return dists
+
+
+def _layer_line(dists):
+    return ", ".join(f"{i}:{k} {d:.2e} ({r:.1e})"
+                     for i, (k, d, r) in enumerate(dists))
+
+
+def step_distances(cfg, tower, prompt, out):
+    """Each step's logits (the prefill's first) against the last position
+    of a full forward over the same tokens: (max |difference| a step, the
+    scale max(1, max |forward logits|))."""
+    errs, scale = [], 1.0
+    for j, logits in enumerate(out["logits"]):
+        seq = torch.cat([prompt, out["tokens"][:, :j]], dim=1)
+        want = _forward_logits(_whole(cfg, seq.shape[1]), tower, seq)
+        scale = max(scale, float(want.abs().max()))
+        errs.append(float((logits - want).abs().max()))
+    return errs, scale
+
+
+def bf16_noise_floor(cfg, tower, seq):
+    """Two bf16 full forwards over ``seq`` that differ only in the
+    recurrent chunk (the whole sequence, and its largest proper divisor):
+    the scans' f32 sums in another order, every bf16 rounding point and
+    matrix product the same. Their max |difference| at the last
+    position."""
+    s = seq.shape[1]
+    half = max(d for d in range(1, s) if s % d == 0)
+    a = _forward_logits(_whole(cfg, s), tower, seq)
+    b = _forward_logits(_whole(cfg, half), tower, seq)
+    return float((a - b).abs().max())
+
+
+def serve_recurrent(device, arch):
+    """(b) or (c) of phase 13 on the full-config ``arch``: prefill and
+    decode through ``serve.generate`` with each cache (the int8 one only
+    where the tower has attention slots), each in a window of its own
+    (flash once an attention layer in the prefill, none in decode), with
+    the parameter count, prefill ms, decode ms a token and peak GiB. Then
+    the decode gate. The bf16 steps' distance from a bf16 full forward is
+    printed beside the bf16 noise floor (two forwards of the same tokens
+    whose f32 scans are chunked differently) and the block-by-block
+    distance: at random init, bf16 rounding of the matrix products'
+    outputs, compounded over the depth and through the exponential gates,
+    moves the logits by several percent (PERF.md §6), so it is not gated.
+    The gate serves the same weights in f32
+    compute (the bf16 values widened, f32 states as in bf16) and holds
+    every step of each cache to a full f32 forward within SRV_TOL x
+    max(1, max |logits|): the chunked scan against the step recurrence,
+    with the rounding out of the way. Returns the windows' counts."""
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    tower = _init_tower(cfg, device)
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (REC_B, REC_PROMPT),
+                           generator=gen, dtype=torch.int32).to(device)
+    serve_cli.generate(cfg, tower, prompt[:, :16], 2)     # cuBLAS warm-up
+    n_attn = cfg.num_superblocks * cfg.block_pattern.count("attn")
+    caches = ("model", "int8") if n_attn else ("model",)
+    windows, outs = [], {}
+    for kv in caches:
+        c = cfg.replace(kv_cache_dtype=kv)
+        torch.cuda.reset_peak_memory_stats()
+        out, counts = _window(
+            f"serve {arch} ({kv} cache)",
+            lambda: serve_cli.generate(c, tower, prompt, REC_DECODE + 1),
+            {"flash": n_attn})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        windows.append(counts)
+        cache_mib = sum(x.numel() * x.element_size() for x in
+                        utils.tree_leaves(out.pop("cache"))) / 2 ** 20
+        finite = all(bool(torch.isfinite(x).all()) for x in out["logits"])
+        print(f"serve {arch} ({kv} cache, {cache_mib:.1f} MiB): prefill "
+              f"{REC_B}x{REC_PROMPT} {out['prefill_ms']:.3f} ms, decode "
+              f"{out['decode_ms']:.3f} ms/token over {REC_DECODE} steps x "
+              f"{REC_B}; peak device memory {peak:.2f} GiB; launches "
+              f"{counts} (flash {n_attn} a prefill, 0 a decode step); "
+              f"logits finite {finite}", flush=True)
+        if not (finite and out["tokens"].shape == (REC_B, REC_DECODE + 1)):
+            fail(f"serving {arch} with the {kv} cache")
+        outs[kv] = out
+    last = torch.cat([prompt, outs["model"]["tokens"][:, :-1]], dim=1)
+    floor = bf16_noise_floor(cfg, tower, last)
+    for kv in caches:
+        errs, scale = step_distances(cfg.replace(kv_cache_dtype=kv), tower,
+                                     prompt, outs[kv])
+        print(f"serve {arch} ({kv} cache, bf16): |logits - bf16 full "
+              f"forward| a step / scale {scale:.3f}: " + " ".join(
+                  f"{e / scale:.4f}" for e in errs) + f"; bf16 noise floor "
+              f"(two full forwards, the chunk {last.shape[1]} and "
+              f"{last.shape[1] // 2}) {floor / scale:.4f}",
+              flush=True)
+    print(f"serve {arch} (model cache, bf16): block by block at step "
+          f"{REC_DECODE}, max |decode - forward| (RMS over the forward's): "
+          + _layer_line(layer_distances(cfg, tower, last)), flush=True)
+    wide = utils.tree_map(lambda x: x.float() if x.is_floating_point()
+                          else x, tower)
+    del tower, outs
+    torch.cuda.empty_cache()
+    for kv in caches:
+        c32 = cfg.replace(dtype="float32", kv_cache_dtype=kv)
+        out = serve_cli.generate(c32, wide, prompt, REC_DECODE + 1)
+        errs, scale = step_distances(c32, wide, prompt, out)
+        print(f"serve {arch} ({kv} cache, f32 compute): decode gate over "
+              f"{len(errs)} steps x {REC_B}, |logits - full forward| worst "
+              f"{max(errs):.4e} (prefill {errs[0]:.4e}, last step "
+              f"{errs[-1]:.4e}), tol {SRV_TOL * scale:.4e} (= {SRV_TOL} x "
+              f"{scale:.3f})", flush=True)
+        bad = [j for j, e in enumerate(errs) if e > SRV_TOL * scale]
+        if bad:
+            if bad[0] > 0:
+                seq = torch.cat([prompt, out["tokens"][:, :bad[0]]], dim=1)
+                print(f"serve {arch} ({kv} cache, f32 compute): step "
+                      f"{bad[0]} departs; block by block: "
+                      + _layer_line(layer_distances(c32, wide, seq)),
+                      flush=True)
+            fail(f"serve {arch} ({kv} cache): decode departs from a full "
+                 f"forward")
+        del out
+    if not n_attn:
+        int8 = transformer.init_cache(cfg.replace(kv_cache_dtype="int8"),
+                                      REC_B, 8, device)
+        kinds = sorted({str(x.dtype) for x in utils.tree_leaves(int8)})
+        print(f"serve {arch}: the recurrent states ignore kv_cache_dtype "
+              f"(int8 asked, leaves {kinds}), as the reference's do",
+              flush=True)
+        if "torch.int8" in kinds:
+            fail("a recurrent state took kv_cache_dtype")
+    del wide
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve {arch}: {time.perf_counter() - t0:.1f} s with its gates",
+          flush=True)
+    return windows
+
+
+def recurrent_phase(device):
+    """Phase 13 (see the module docstring). Returns (the (80, 80) flash
+    instance's figures at zamba2's prefill shape in bf16, the windows'
+    counts)."""
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    zamba = get_config("zamba2-2.7b")
+    dh = zamba.resolved_head_dim
+    figures = check_flash(REC_B, zamba.num_heads, zamba.num_kv_heads,
+                          REC_PROMPT, REC_PROMPT, dh, torch.bfloat16,
+                          "zamba2 prefill (Dh 80)", seed=50)
+    check_flash(2, 8, 4, 100, 150, dh, torch.float32,
+                "Dh 80, f32, ragged Sq 100 of Skv 150", seed=51)
+    counts, dh80 = [], 0
+    for arch in REC_ARCHS:
+        c = serve_recurrent(device, arch)
+        counts += c
+        dh80 += sum(x["flash"] for x in c)
+    peaks = {}
+    for arch in REC_ARCHS:
+        cfg = get_config(arch)
+        flags = ["--arch", arch, "--seq-len", str(TOK_S),
+                 "--samples-per-client", str(TOK_N), "--clients-per-round",
+                 str(REC_K), "--stats-kernel", "fused"]
+        if arch == "zamba2-2.7b":
+            cfg = cfg.replace(num_layers=ZAMBA_CUT)
+            flags += ["--num-layers", str(ZAMBA_CUT)]
+        n_attn = cfg.num_superblocks * cfg.block_pattern.count("attn")
+        # phase 1 and phase 2 (K clients folded into one launch) each run
+        # both views' forwards
+        t0 = time.perf_counter()
+        c, res = train_path(
+            f"{arch} dcco, {cfg.num_layers} layers", flags, REC_ROUNDS,
+            {"flash": 2 * 2 * n_attn * REC_ROUNDS, "cross": REC_ROUNDS})
+        counts.append(c)
+        dh80 += c["flash"]
+        n = sum(x.numel() for x in utils.tree_leaves(res["params"]))
+        steady = sorted(res["round_ms"][1:])
+        peaks[arch] = (res["peak_gib"], n, steady[len(steady) // 2],
+                       {k: v / REC_ROUNDS for k, v in c.items() if v},
+                       time.perf_counter() - t0)
+        release(res)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("recurrent dcco at full width: " + "; ".join(
+        f"{a} {n / 1e9:.3f}B parameters, {ms:.1f} ms/round (median after "
+        f"the first), peak {g:.2f} GiB, launches a round {per}, {sec:.1f} s "
+        f"in all" for a, (g, n, ms, per, sec) in peaks.items()), flush=True)
+    err, ms, plain_ms, lib_ms, (b_ms, b_by) = figures
+    print(f"flash (80, 80) at zamba2's prefill shape: kernel {ms:.5f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by}), sdpa "
+          f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms'}, plain "
+          f"{plain_ms:.5f} ms; launches on the zamba2 paths {dh80}; phase "
+          f"13 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return figures, counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -2266,6 +2536,10 @@ def main():
     torch.cuda.empty_cache()
     _, ds_counts, _ = deepseek_phase(device)
     runs += ds_counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, rec_counts = recurrent_phase(device)
+    runs += rec_counts
     print(f"tinyllama peak device memory: fedavg_contrastive "
           f"{tok_fedavg['peak_gib']:.2f} GiB, dcco "
           f"{tok_dcco['peak_gib']:.2f} GiB, dcco fedprox (2 local steps) "

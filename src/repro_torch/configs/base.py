@@ -1,14 +1,15 @@
 """Model configuration dataclasses and the architecture registry.
 
-The ResNet family, the dense GQA transformers and the DeepSeek family
-(MoE FFN, MLA attention) are ported; the fields kept are the ones their
-dual encoders read, with the reference's names and defaults. The
-reference's mesh-only fields (``act_shard_axes``, ``fsdp_model_size``),
-its layer-scan options (``scan_layers``, ``layer_chunks``, ``remat``),
-``attn_block``, ``parallel_block``, ``tie_embeddings`` (every ported
-config ties), the dual encoder's ``pool`` (always the mean) and the SSM
-and xLSTM sub-configs have no counterpart: no ported config sets them
-away from the default.
+The ResNet family, the dense GQA transformers, the DeepSeek family (MoE
+FFN, MLA attention) and the recurrent families (zamba2-2.7b's Mamba2
+hybrid, xlstm-350m's mLSTM/sLSTM) are ported; the fields kept are the
+ones their dual encoders read, with the reference's names and defaults.
+The reference's mesh-only fields (``act_shard_axes``,
+``fsdp_model_size``), its layer-scan options (``scan_layers``,
+``layer_chunks``, ``remat``), ``attn_block``, ``parallel_block``,
+``tie_embeddings`` (every ported config ties) and the dual encoder's
+``pool`` (always the mean) have no counterpart: no ported config sets
+them away from the default.
 """
 from __future__ import annotations
 
@@ -31,6 +32,23 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    state: int = 64                 # N: SSM state size
+    expand: int = 2                 # d_inner = expand * d_model
+    conv_width: int = 4
+    head_dim: int = 64              # Mamba2 head dim (d_inner / heads)
+    chunk: int = 128                # chunked-scan block length
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    # mLSTM / sLSTM cell sizes; heads come from ModelConfig.num_heads.
+    chunk: int = 128                # mLSTM chunkwise-recurrent block length
+    proj_factor_mlstm: float = 2.0  # pre-up-projection factor for mLSTM blocks
+    proj_factor_slstm: float = 1.333  # post-up-projection (ffn) factor for sLSTM
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
     family: str = "dense"
@@ -42,7 +60,8 @@ class ModelConfig:
     d_ff: int = 1024
     vocab_size: int = 1024
     head_dim: int = 0               # 0 -> d_model // num_heads
-    # block pattern, cycled over layers; the port runs "attn" blocks only
+    # block pattern, cycled over layers (stacked per superblock slot):
+    # "attn" (attention + FFN/MoE), "mamba2", "mlstm", "slstm"
     block_pattern: Tuple[str, ...] = ("attn",)
     # attention details
     qk_norm: bool = False
@@ -58,9 +77,12 @@ class ModelConfig:
     v_head_dim: int = 128
     # routed-expert FFN (DeepSeekMoE); None = a dense SwiGLU FFN
     moe: Optional[MoEConfig] = None
+    # recurrent blocks: Mamba2 (SSD) and xLSTM cell sizes
+    ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
     # decode KV cache storage: "model" (the model's dtype) or "int8"
     # (max-abs per position and head, one f32 scale each); the MLA cache
-    # ignores it, as the reference's does
+    # and the recurrent blocks' states ignore it, as the reference's do
     kv_cache_dtype: str = "model"
     # modality ("text" only in the port)
     modality: str = "text"
@@ -127,7 +149,7 @@ ARCH_IDS = (
 )
 PORTED_ARCHS = ("resnet14-cifar", "tinyllama-1.1b", "qwen3-1.7b",
                 "qwen3-8b", "granite-3-8b", "deepseek-moe-16b",
-                "deepseek-v2-lite-16b")
+                "deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-350m")
 
 
 def _module(arch_id: str):
@@ -135,8 +157,8 @@ def _module(arch_id: str):
         raise KeyError(f"unknown arch '{arch_id}'; known: {ARCH_IDS}")
     if arch_id not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"arch '{arch_id}' is a hybrid, SSM, xLSTM, vision-text or "
-            f"audio model; the PyTorch port has only {PORTED_ARCHS} so far "
+            f"arch '{arch_id}' is a vision-text or audio model; the "
+            f"PyTorch port has only {PORTED_ARCHS} so far "
             f"(ROADMAP §1, 'Transformer families')")
     return importlib.import_module(
         "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))

@@ -16,6 +16,11 @@ is what these functions take and give back. Layouts:
   so never transposed) and the MLA weights (the linears ``wq``,
   ``w_dkv``, ``w_uk``, ``w_uv``, ``wo`` and the ``kv_norm`` scale) carry
   across unchanged too;
+* the recurrent blocks' leaves carry across unchanged: Mamba2's
+  ``conv_w`` (stacked (L, W, conv_dim)) and its f32 ``A_log``, ``D`` and
+  ``dt_bias``, and the sLSTM's per-head recurrent matrices ``r_i``,
+  ``r_f``, ``r_z``, ``r_o`` (stacked (L, h, dh, dh): 4-D, but not named
+  ``"w"``, so never transposed);
 * every other leaf (GroupNorm and RMSNorm scales, biases, the embedding
   table) is copied unchanged, in its own type (bf16 included).
 """

@@ -17,10 +17,11 @@
 // model's jnp scan rounds p to v's type first). Departure: the Pallas
 // kernel asserts that the blocks divide Sq and Skv; here a ragged tail is
 // masked (rows past Sq are not written, kv rows past Skv get probability
-// 0). (Dqk, Dv) instances: (32, 32), (64, 64), (128, 128) and MLA's
-// (192, 128) (deepseek-v2-lite-16b's prefill: nope 128 + rope 64 for q
-// and k, 128 for v), one template over both dims; the Pallas kernel
-// takes one Dh, and the reference's MLA prefill runs its jnp scan.
+// 0). (Dqk, Dv) instances: (32, 32), (64, 64), (80, 80) (zamba2-2.7b's
+// attention blocks), (128, 128) and MLA's (192, 128)
+// (deepseek-v2-lite-16b's prefill: nope 128 + rope 64 for q and k, 128
+// for v), one template over both dims; the Pallas kernel takes one Dh,
+// and the reference's MLA prefill runs its jnp scan.
 //
 // Both routes: the TPU kernel runs its grid in order on one core and
 // carries (m, l, acc) in VMEM scratch from one kv block to the next. Here
@@ -48,11 +49,16 @@
 //   ldmatrix reads them without bank conflicts, loaded with 16-byte
 //   cp.async (rows past Sq or Skv zero-filled). K/V tiles are double
 //   buffered: tile t + 2 loads while tile t + 1 waits and tile t computes.
-//   Shared memory: 46 KB at Dh 64, 87 KB at Dh 128, 112 KB at (Dqk 192,
-//   Dv 128) (Q and K rows of 400 bytes, V rows of 272), so two blocks an
-//   SM at most there.
+//   Shared memory: 46 KB at Dh 64, 55 KB at Dh 80 (rows of 88 elements,
+//   176 bytes: 16-byte aligned, and 8 rows start on 8 distinct 4-bank
+//   groups, so ldmatrix is conflict-free), 87 KB at Dh 128, 112 KB at
+//   (Dqk 192, Dv 128) (Q and K rows of 400 bytes, V rows of 272), so two
+//   blocks an SM at most there.
 // - Warp w owns query rows 16w .. 16w + 15. Its Q fragments are loaded
-//   once (ldmatrix) and held in registers for the whole kv loop.
+//   once (ldmatrix) and held in registers for the whole kv loop. Dqk is a
+//   whole number of MMA k-steps of 16 and Dv of pairs of n-tiles of 8
+//   (Dh 80: 5 k-steps, 10 n-tiles), so every loop that pairs tiles stays
+//   whole.
 // - S = Q K^T on mma.sync.m16n8k16 bf16 -> f32: products of bf16 values
 //   are exact in f32, so this is the Pallas body's f32 product up to
 //   summation order. Scale and mask act on the accumulator fragments, and
@@ -74,12 +80,15 @@
 // f32 route (flash_fwd_f32, the smoke configs' Dh 32; no PyTorch f32
 // flash backend exists to beat): the Q tile is staged once, transposed, in
 // shared memory; each kv tile is staged as K transposed and V as is
-// (shared memory (2 Dqk + 64) x 68 + 64 Dv floats: 155 KB at (192, 128)).
-// 128
-// threads hold the 64 x 64 score tile as 16 row groups x 8 column groups:
-// a thread owns 4 rows and 8 columns, so each step over Dh reads three
-// float4s from shared memory for 32 FMAs. P goes through shared memory to
-// the P . V product, with acc in registers.
+// (shared memory (2 Dqk + 64) x 68 + 64 Dv floats: 80 KB at Dh 80, 155 KB
+// at (192, 128)). 128 threads hold the 64 x 64 score tile as 16 row
+// groups x 8 column groups: a thread owns 4 rows and 8 columns, so each
+// step over Dh reads three float4s from shared memory for 32 FMAs. P goes
+// through shared memory to the P . V product, with acc in registers: a
+// thread owns columns 32 jj + 4 tx .. + 3 of each run jj of 32 output
+// columns, and where Dv is not a multiple of 32 (Dh 80: runs at 0, 32 and
+// a last run of 16) the threads past the last run's width hold nothing
+// there.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -128,7 +137,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* kT = qT + DQK * LDT;                     // [DQK][LDT]
   float* vs = kT + DQK * LDT;                     // [BKV][DV]
   float* ps = vs + BKV * DV;                      // [BQ][LDT]
-  constexpr int DJ = DV / 32;                     // output runs of 4 a thread holds
+  constexpr int DJ = (DV + 31) / 32;              // output runs of 4 a thread holds
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -139,6 +148,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + ((int64_t)b * KVH + kvh) * Skv * DV;
   const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
   const int q_offset = Skv - Sq;
+  // whether run jj's four columns exist (only a last, partial run of a
+  // Dv that is not a multiple of 32 leaves some threads out)
+  auto run_ok = [tx](int jj) { return 32 * jj + tx * 4 < DV; };
 
   stage<true, DQK>(qb, q0, Sq, qT);
 
@@ -243,6 +255,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int cc = 0; cc < 4; ++cc) {
 #pragma unroll
         for (int jj = 0; jj < DJ; ++jj) {
+          if (!run_ok(jj)) continue;
           const float4 v4 = *reinterpret_cast<const float4*>(
               vs + (c + cc) * DV + 32 * jj + tx * 4);
 #pragma unroll
@@ -264,10 +277,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);
     float* orow = o + (bh * Sq + row) * DV;
 #pragma unroll
-    for (int jj = 0; jj < DJ; ++jj)
+    for (int jj = 0; jj < DJ; ++jj) {
+      if (!run_ok(jj)) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         orow[32 * jj + tx * 4 + e] = acc[i][jj][e] / den;
+    }
     if (tx == 0) lse[bh * Sq + row] = m[i] + logf(den);
   }
 }
@@ -370,6 +385,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                float* __restrict__ lse, int H, int KVH, int Sq, int Skv,
                int causal, int window, float scale_log2) {
   static_assert(DV <= DQK, "the output is staged in the Q tile's rows");
+  static_assert(DQK % 16 == 0 && DV % 16 == 0,
+                "whole MMA k-steps of Q K^T and pairs of P V n-tiles");
   constexpr int LD = bf16_ld<DQK>();           // Q and K rows
   constexpr int LDV = bf16_ld<DV>();           // V rows
   constexpr int TILE = 64 * LD;
@@ -605,10 +622,10 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // q (B, H, Sq, Dh), k (B, KVH, Skv, Dh), v (B, KVH, Skv, Dv), o (B, H, Sq,
 // Dv), all contiguous and of one type (bf16 != 0: __nv_bfloat16, 16-byte
 // aligned; else float); lse (B, H, Sq) f32. (Dh, Dv) is (32, 32), (64,
-// 64), (128, 128) or (192, 128); Sq <= Skv; H a multiple of KVH; B <=
-// 65535. Launches on `stream` and returns cudaGetLastError() (0 on
-// success), or cudaErrorInvalidValue for a shape it does not take; it
-// does not synchronise.
+// 64), (80, 80), (128, 128) or (192, 128); Sq <= Skv; H a multiple of
+// KVH; B <= 65535. Launches on `stream` and returns cudaGetLastError()
+// (0 on success), or cudaErrorInvalidValue for a shape it does not take;
+// it does not synchronise.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int bf16, int B, int H, int KVH, int Sq,
@@ -628,6 +645,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                           window, scale, s);
   if (Dh == 64 && Dv == 64)
     return launch<64, 64>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv, causal,
+                          window, scale, s);
+  if (Dh == 80 && Dv == 80)
+    return launch<80, 80>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv, causal,
                           window, scale, s);
   if (Dh == 128 && Dv == 128)
     return launch<128, 128>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv,

@@ -6,8 +6,9 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``
 (B, KVH, Skv, Dqk) and v (B, KVH, Skv, Dv) -> (B, H, Sq, Dv), query head h
 reading kv head ``h // (H / KVH)``, the queries the last Sq of the Skv
 positions. The kernel's (Dqk, Dv) instances are ``HEAD_DIMS``: equal
-dims 32, 64 and 128, and MLA's (192, 128) (the reference's MLA prefill
-runs its jnp scan at those dims; the Pallas kernel takes one Dh). See the
+dims 32, 64, 80 (zamba2-2.7b's attention) and 128, and MLA's (192, 128)
+(the reference's MLA prefill runs its jnp scan at those dims; the Pallas
+kernel takes one Dh). See the
 source for the design and its bound on the card. The Pallas kernel's
 ``block_q``, ``block_kv`` and ``interpret`` have no counterpart: there is
 one route. A ragged Sq or Skv is masked, where the Pallas kernel asserts
@@ -38,7 +39,7 @@ from repro_torch.kernels import _build, ref
 
 F32 = torch.float32
 # the kernel's (Dqk, Dv) template instances
-HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
+HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (128, 128), (192, 128))
 MAX_BATCH = 65535              # B is the grid's z dimension
 
 

@@ -5,12 +5,14 @@ transformer tower, or dual-encoder retrieval serving.
       --arch tinyllama-1.1b --smoke --batch 2 --prompt-len 16 --gen 8
 
 (``--arch tinyllama-1.1b`` is the default; the dense configs
-``qwen3-1.7b``, ``qwen3-8b`` and ``granite-3-8b`` and the DeepSeek towers
-``deepseek-moe-16b`` and ``deepseek-v2-lite-16b`` serve too.) Prefill runs
-the prompt through the tower, every layer's attention on the CUDA
-flash-attention kernel, and fills the KV cache
-(``ModelConfig.kv_cache_dtype``: the model's dtype or int8); each decode
-step feeds one token a sequence against the cache. Decoding is greedy
+``qwen3-1.7b``, ``qwen3-8b`` and ``granite-3-8b``, the DeepSeek towers
+``deepseek-moe-16b`` and ``deepseek-v2-lite-16b`` and the recurrent
+towers ``zamba2-2.7b`` and ``xlstm-350m`` serve too.) Prefill runs the
+prompt through the tower, every attention layer on the CUDA
+flash-attention kernel, and fills the cache: the KV cache of each
+attention layer (``ModelConfig.kv_cache_dtype``: the model's dtype or
+int8), the O(1) state of each recurrent layer; each decode step feeds
+one token a sequence against the cache. Decoding is greedy
 (``argmax``), or samples at ``--temperature`` with ``torch.multinomial``
 on a generator seeded ``--seed``. ``--ckpt FILE`` restores the tower's
 parameters from a checkpoint (:mod:`repro_torch.checkpoint`) as the

@@ -1,9 +1,10 @@
 """Training driver: federated stats-objective pretraining
 (``--objective dcco|dvicreg|dwmse``) of the ResNet-14 dual encoder or, with
-``--arch tinyllama-1.1b|qwen3-1.7b|qwen3-8b|granite-3-8b`` (dense) or
-``deepseek-moe-16b|deepseek-v2-lite-16b`` (MoE, MLA), of a transformer's
-token dual encoder (``--seq-len`` tokens a sequence, ``--num-layers`` to
-cut its depth), rounds
+``--arch tinyllama-1.1b|qwen3-1.7b|qwen3-8b|granite-3-8b`` (dense),
+``deepseek-moe-16b|deepseek-v2-lite-16b`` (MoE, MLA) or
+``zamba2-2.7b|xlstm-350m`` (Mamba2 hybrid, mLSTM/sLSTM), of a token
+tower's dual encoder (``--seq-len`` tokens a sequence, ``--num-layers``
+to cut its depth to a whole number of superblocks), rounds
 driven by :class:`repro_torch.core.round_engine.RoundEngine` (``--mode
 engine``, the default; the other modes are below), optionally over a
 lossy client uplink (``--channel``), through a two-level client -> edge
@@ -445,7 +446,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cut a token arch's depth to this many layers, its "
                         "widths kept (0 = the config's depth; an MoE "
                         "arch's dense prologue stays, so it needs more "
-                        "layers than its prologue)")
+                        "layers than its prologue, and the layers after "
+                        "it must fill whole superblocks of the block "
+                        "pattern)")
 
     g = ap.add_argument_group("engine")
     g.add_argument("--chunk-rounds", type=int, default=0,
@@ -609,6 +612,15 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise SystemExit(f"--num-layers {args.num_layers} must exceed the "
                          f"{cfg.num_prologue} dense prologue layers of "
                          f"{args.arch} (and be >= 1)")
+    elif (args.num_layers
+          and (args.num_layers - cfg.num_prologue) % len(cfg.block_pattern)):
+        raise SystemExit(
+            f"--num-layers {args.num_layers}: the "
+            f"{args.num_layers - cfg.num_prologue} layers after the "
+            f"{cfg.num_prologue} prologue layers of "
+            f"{args.arch} are not a whole number of superblocks of its "
+            f"block pattern of length {len(cfg.block_pattern)} "
+            f"{cfg.block_pattern}")
     return args
 
 

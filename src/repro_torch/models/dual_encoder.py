@@ -1,9 +1,9 @@
 """Dual encoding model (paper Fig. 1): tower(s) + pooling + projection head.
 
-Towers: the paper's ResNet over images, and the text transformers (dense,
-MoE, MLA) over tokens (mean-pooled, with an optional (B, S) mask); the
-vision-text and audio towers are not ported yet (ROADMAP §1,
-"Transformer families"). The
+Towers: the paper's ResNet over images, and the token towers (dense, MoE,
+MLA transformers; the Mamba2 hybrid and the xLSTM) over tokens
+(mean-pooled, with an optional (B, S) mask); the vision-text and audio
+towers are not ported yet (ROADMAP §1, "Transformer families"). The
 projection network follows Sec 4.2: a 3-layer MLP that *increases*
 dimensionality before the CCO loss.
 """

@@ -1,23 +1,28 @@
-"""Backbone assembly of the text transformers: embedding, the dense
-prologue, a stack of ``"attn"`` blocks (GQA or MLA attention + a SwiGLU
-or MoE FFN, pre-RMSNorm), final norm.
+"""Backbone assembly of the text towers: embedding, the dense prologue,
+a stack of superblocks, final norm. A superblock is one pass through
+``cfg.block_pattern``, whose slots are ``"attn"`` (GQA or MLA attention +
+a SwiGLU or MoE FFN, pre-RMSNorm), ``"mamba2"`` (:mod:`.ssm`), ``"mlstm"``
+or ``"slstm"`` (:mod:`.xlstm`), each recurrent block pre-RMSNorm with a
+residual (zamba2-2.7b: 5 x mamba2 + attn; xlstm-350m: mlstm + slstm).
 
 As in the reference, the parameters of all superblocks are stacked along a
-leading layer axis under ``params["layers"]``; the reference's
-``lax.scan`` over that axis becomes a Python loop over the unbound
-layers. An MoE config's first ``moe.first_k_dense`` layers are the
+leading layer axis under ``params["layers"]``, one tree ``"b{i}"`` per
+pattern slot; the reference's ``lax.scan`` over that axis becomes a
+Python loop over the unbound layers, each running its slots in pattern
+order. An MoE config's first ``moe.first_k_dense`` layers are the
 ``params["prologue"]`` list of unstacked blocks with a dense FFN of
-``moe.dense_d_ff``; every stacked layer then has the MoE FFN
+``moe.dense_d_ff``; every stacked attention slot then has the MoE FFN
 (:mod:`repro_torch.models.moe`). The reference's activation and FSDP
 sharding constraints are mesh-only and have no counterpart; nor do its
 ``remat`` (a round's phase 2 runs under ``torch.func.grad``, which refuses
 ``torch.utils.checkpoint``), its parallel block and its untied
 unembedding, which no ported config sets.
 
-An MoE tower's parameters (16B at full width) draw on ``device``, from a
-generator seeded by one draw of ``gen``: the CPU could not draw them in
-the time of a run. Its parameters therefore depend on the device type;
-every other tower's are the same on every device.
+An MoE or recurrent tower's parameters (16B and 2.8B at full width) draw
+on ``device``, from a generator seeded by one draw of ``gen``: the CPU
+could not draw them in the time of a run. Their parameters therefore
+depend on the device type; every other tower's are the same on every
+device.
 
 Public entry points:
   init_params(cfg, gen, device)              -> params
@@ -28,16 +33,20 @@ Public entry points:
   prefill(cfg, params, tokens, cache)        -> (last logits (B, V), cache)
   decode_step(cfg, params, cache, token_ids) -> (logits (B, V), cache)
 
-The cache is the reference's tree, ``{"layers": {"b0": {leaf: (L, ...)}},
-"pos": () int32}`` plus ``"prologue"``, a list of per-layer caches, with
-a prologue; the stacked leaves sit on the layer axis as the parameters
-do. Prefill and decode run without autograd and update it in place,
-layer by layer through views of the stacked leaves, so no second
-stacked copy is made; they return the same dict. The MoE FFN routes a
-prefill's tokens in groups of 512 and a decode step's B tokens as one
-group, as the reference does (so decode, whose capacity is small, can
-drop tokens that a full forward keeps). The SSM/xLSTM blocks and the
-vision-text front end are not ported yet (ROADMAP §1).
+The cache is the reference's tree, ``{"layers": {"b{i}": {leaf: (L,
+...)}}, "pos": () int32}`` plus ``"prologue"``, a list of per-layer
+caches, with a prologue; the stacked leaves sit on the layer axis as the
+parameters do. An attention slot holds a KV cache; a recurrent slot its
+O(1) state (Mamba2's conv ring and SSM state, mLSTM's (C, n, m),
+sLSTM's (c, n, h, m)), which ignores ``kv_cache_dtype`` as in the
+reference. Prefill and decode run without autograd and update the cache
+in place, layer by layer through views of the stacked leaves (a
+recurrent state is written back with ``copy_``), so no second stacked
+copy is made; they return the same dict. The MoE FFN routes a prefill's
+tokens in groups of 512 and a decode step's B tokens as one group, as
+the reference does (so decode, whose capacity is small, can drop tokens
+that a full forward keeps). The vision-text and audio front ends are not
+ported yet (ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -46,19 +55,20 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import utils
-from repro_torch.models import attention as attn, moe as moe_mod
+from repro_torch.models import (attention as attn, moe as moe_mod,
+                                ssm as ssm_mod, xlstm as xlstm_mod)
 from repro_torch.models.common import (F32, dtype_of, embed, embedding_init,
                                        rmsnorm, rmsnorm_init,
                                        swiglu, swiglu_init, unembed)
 
+AUX_KEYS = ("balance", "router_z")
 
-def _require_dense(cfg):
-    if tuple(cfg.block_pattern) != ("attn",) or cfg.modality != "text":
+
+def _require_text(cfg):
+    if cfg.modality != "text":
         raise NotImplementedError(
-            f"{cfg.name}: block pattern {cfg.block_pattern} / modality "
-            f"{cfg.modality!r} is not ported; the port runs text "
-            f"transformers of attention blocks (ROADMAP §1, 'Transformer "
-            f"families')")
+            f"{cfg.name}: modality {cfg.modality!r} is not ported; the port "
+            f"runs text towers (ROADMAP §1, 'Transformer families')")
 
 
 def _moe_flags(cfg):
@@ -68,19 +78,28 @@ def _moe_flags(cfg):
             for k in cfg.block_pattern]
 
 
-def _block_init(gen, cfg, dtype, device, moe_layer: bool):
-    p = {"ln1": rmsnorm_init(cfg.d_model, device),
-         "ln2": rmsnorm_init(cfg.d_model, device),
-         "attn": (attn.mla_init if cfg.use_mla else attn.gqa_init)(
-             gen, cfg, dtype, device)}
-    if moe_layer:
-        p["moe"] = moe_mod.moe_init(gen, cfg.d_model, cfg.moe, dtype, device)
-    else:
-        d_ff = cfg.d_ff if cfg.d_ff > 0 else 4 * cfg.d_model
-        if cfg.moe is not None and cfg.moe.dense_d_ff > 0:
-            d_ff = cfg.moe.dense_d_ff
-        p["ffn"] = swiglu_init(gen, cfg.d_model, d_ff, dtype, device)
-    return p
+def _block_init(gen, cfg, kind: str, dtype, device, moe_layer: bool):
+    if kind == "attn":
+        p = {"ln1": rmsnorm_init(cfg.d_model, device),
+             "ln2": rmsnorm_init(cfg.d_model, device),
+             "attn": (attn.mla_init if cfg.use_mla else attn.gqa_init)(
+                 gen, cfg, dtype, device)}
+        if moe_layer:
+            p["moe"] = moe_mod.moe_init(gen, cfg.d_model, cfg.moe, dtype,
+                                        device)
+        else:
+            d_ff = cfg.d_ff if cfg.d_ff > 0 else 4 * cfg.d_model
+            if cfg.moe is not None and cfg.moe.dense_d_ff > 0:
+                d_ff = cfg.moe.dense_d_ff
+            p["ffn"] = swiglu_init(gen, cfg.d_model, d_ff, dtype, device)
+        return p
+    mixer_init = {"mamba2": ssm_mod.mamba2_init,
+                  "mlstm": xlstm_mod.mlstm_init,
+                  "slstm": xlstm_mod.slstm_init}.get(kind)
+    if mixer_init is None:
+        raise ValueError(f"unknown block kind {kind}")
+    return {"ln1": rmsnorm_init(cfg.d_model, device),
+            "mixer": mixer_init(gen, cfg, dtype, device)}
 
 
 def _ffn(cfg, p, h, group_size: int = 512):
@@ -90,13 +109,19 @@ def _ffn(cfg, p, h, group_size: int = 512):
     return swiglu(p["ffn"], h), {}
 
 
-def _block_forward(cfg, p, x, positions):
-    """Full-sequence forward of one ``"attn"`` block: (y, aux)."""
+def _block_forward(cfg, kind: str, p, x, positions):
+    """Full-sequence forward of one block: (y, aux)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    attn_fn = attn.mla_forward if cfg.use_mla else attn.gqa_forward
-    x = x + attn_fn(cfg, p["attn"], h, positions)
-    y, aux = _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps))
-    return x + y, aux
+    if kind == "attn":
+        attn_fn = attn.mla_forward if cfg.use_mla else attn.gqa_forward
+        x = x + attn_fn(cfg, p["attn"], h, positions)
+        y, aux = _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps))
+        return x + y, aux
+    if kind == "mamba2":
+        return x + ssm_mod.mamba2_forward(cfg, p["mixer"], h), {}
+    fwd = {"mlstm": xlstm_mod.mlstm_forward,
+           "slstm": xlstm_mod.slstm_forward}[kind]
+    return x + fwd(cfg, p["mixer"], h)[0], {}
 
 
 def _stacked(make, n: int):
@@ -112,13 +137,13 @@ def _stacked(make, n: int):
 
 def init_params(cfg, gen, device="cpu") -> Dict[str, Any]:
     """Random parameters from the CPU generator ``gen``, on ``device``
-    (an MoE tower's from a generator on ``device``, module docstring);
-    each superblock's leaves stacked on a leading axis under
-    ``"layers"`` (``{"b0": block}``, the reference's tree), the dense
-    prologue under ``"prologue"``."""
-    _require_dense(cfg)
+    (an MoE or recurrent tower's from a generator on ``device``, module
+    docstring); each superblock's leaves stacked on a leading axis under
+    ``"layers"`` (``{"b0": slot 0, ...}``, the reference's tree), the
+    dense prologue under ``"prologue"``."""
+    _require_text(cfg)
     dtype = dtype_of(cfg.dtype)
-    if cfg.moe is not None:
+    if cfg.moe is not None or set(cfg.block_pattern) != {"attn"}:
         gen = utils.generator(
             int(torch.randint(0, 2 ** 62, (), generator=gen)), device)
     params: Dict[str, Any] = {
@@ -127,17 +152,26 @@ def init_params(cfg, gen, device="cpu") -> Dict[str, Any]:
         "final_norm": rmsnorm_init(cfg.d_model, device),
     }
     if cfg.num_prologue:
-        params["prologue"] = [_block_init(gen, cfg, dtype, device, False)
-                              for _ in range(cfg.num_prologue)]
-    moe_layer = _moe_flags(cfg)[0]
-    params["layers"] = {"b0": _stacked(
-        lambda: _block_init(gen, cfg, dtype, device, moe_layer),
-        cfg.num_superblocks)}
+        params["prologue"] = [
+            _block_init(gen, cfg, "attn", dtype, device, False)
+            for _ in range(cfg.num_prologue)]
+    flags = _moe_flags(cfg)
+    params["layers"] = _stacked(
+        lambda: {f"b{i}": _block_init(gen, cfg, kind, dtype, device,
+                                      flags[i])
+                 for i, kind in enumerate(cfg.block_pattern)},
+        cfg.num_superblocks)
     return params
 
 
 def _superblock_forward(cfg, sp, x, positions):
-    return _block_forward(cfg, sp["b0"], x, positions)
+    """Every slot in pattern order; the MoE losses summed over them
+    (zeros where a slot has none)."""
+    tot = {k: torch.zeros((), dtype=F32, device=x.device) for k in AUX_KEYS}
+    for i, kind in enumerate(cfg.block_pattern):
+        x, aux = _block_forward(cfg, kind, sp[f"b{i}"], x, positions)
+        tot = {k: tot[k] + aux[k] if k in aux else tot[k] for k in tot}
+    return x, tot
 
 
 def _unstack(tree, n: int):
@@ -156,17 +190,16 @@ def forward(cfg, params, tokens, return_aux: bool = False):
     """tokens: (B, S) int -> hidden (B, S, D) after the final norm; with
     ``return_aux`` also ``{"balance", "router_z"}``, the MoE losses summed
     over the stacked layers (zeros without MoE)."""
-    _require_dense(cfg)
+    _require_text(cfg)
     x = embed(params["embed"], tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for p in params.get("prologue", []):
-        x, _ = _block_forward(cfg, p, x, positions)
-    tot = {k: torch.zeros((), dtype=F32, device=x.device)
-           for k in ("balance", "router_z")}
+        x, _ = _block_forward(cfg, "attn", p, x, positions)
+    tot = {k: torch.zeros((), dtype=F32, device=x.device) for k in AUX_KEYS}
     for sp in _unstack(params["layers"], cfg.num_superblocks):
         x, aux = _superblock_forward(cfg, sp, x, positions)
-        tot = {k: tot[k] + aux[k] if k in aux else tot[k] for k in tot}
+        tot = {k: tot[k] + aux[k] for k in tot}
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return (x, tot) if return_aux else x
 
@@ -178,71 +211,103 @@ def logits_from_hidden(cfg, params, hidden):
 
 # ------------------------------------------------------------------ cache ---
 
-def _block_cache_init(cfg, batch, max_len, device):
-    cache_init = attn.mla_cache_init if cfg.use_mla else attn.gqa_cache_init
-    return cache_init(cfg, batch, max_len, dtype_of(cfg.dtype), device)
+def _block_cache_init(cfg, kind, batch, max_len, device):
+    dtype = dtype_of(cfg.dtype)
+    if kind == "attn":
+        cache_init = attn.mla_cache_init if cfg.use_mla \
+            else attn.gqa_cache_init
+        return cache_init(cfg, batch, max_len, dtype, device)
+    if kind == "mamba2":
+        return ssm_mod.mamba2_cache_init(cfg, batch, dtype, device)
+    state_init = {"mlstm": xlstm_mod.mlstm_state_init,
+                  "slstm": xlstm_mod.slstm_state_init}[kind]
+    return state_init(cfg, batch, device,
+                      torch.promote_types(dtype, F32))
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cpu"):
     """An empty decode cache for ``batch`` sequences of up to ``max_len``
     positions (a ring of ``cfg.sliding_window`` slots with a window)."""
-    _require_dense(cfg)
-    proto = _block_cache_init(cfg, batch, max_len, device)
+    _require_text(cfg)
+    proto = {f"b{i}": _block_cache_init(cfg, kind, batch, max_len, device)
+             for i, kind in enumerate(cfg.block_pattern)}
     n = cfg.num_superblocks
-    cache = {"layers": {"b0": {k: v.expand((n,) + v.shape).clone()
-                               for k, v in proto.items()}},
+    cache = {"layers": utils.tree_map(
+                 lambda v: v.expand((n,) + v.shape).clone(), proto),
              "pos": torch.zeros((), dtype=torch.int32, device=device)}
     if cfg.num_prologue:
-        cache["prologue"] = [_block_cache_init(cfg, batch, max_len, device)
-                             for _ in range(cfg.num_prologue)]
+        cache["prologue"] = [
+            _block_cache_init(cfg, "attn", batch, max_len, device)
+            for _ in range(cfg.num_prologue)]
     return cache
 
 
-def _layer_caches(cache, n: int):
-    """Per-layer views of the stacked cache leaves (writes reach them)."""
-    stacked = cache["layers"]["b0"]
-    return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
-
-
 def _blocks_and_caches(cfg, params, cache):
-    """(block params, its cache) for each layer in order, prologue
-    first."""
+    """(kind, block params, its cache) for each block in order, prologue
+    first; a stacked block's cache is a dict of views of the stacked
+    leaves (writes reach them)."""
     n = cfg.num_superblocks
-    return (list(zip(params.get("prologue", []), cache.get("prologue", [])))
-            + [(sp["b0"], c) for sp, c in zip(_unstack(params["layers"], n),
-                                              _layer_caches(cache, n))])
+    out = [("attn", p, c) for p, c in zip(params.get("prologue", []),
+                                          cache.get("prologue", []))]
+    for i, sp in enumerate(_unstack(params["layers"], n)):
+        for j, kind in enumerate(cfg.block_pattern):
+            c = {k: v[i] for k, v in cache["layers"][f"b{j}"].items()}
+            out.append((kind, sp[f"b{j}"], c))
+    return out
 
 
-def _block_prefill(cfg, p, x, positions, cache):
+def _write_state(cache, state):
+    for k, v in state.items():
+        cache[k].copy_(v)
+
+
+def _block_prefill(cfg, kind, p, x, positions, cache):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    pre_fn = attn.mla_prefill if cfg.use_mla else attn.gqa_prefill
-    y, cache = pre_fn(cfg, p["attn"], h, positions, cache)
-    x = x + y
-    y, _ = _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps))
+    if kind == "attn":
+        pre_fn = attn.mla_prefill if cfg.use_mla else attn.gqa_prefill
+        y, _ = pre_fn(cfg, p["attn"], h, positions, cache)
+        x = x + y
+        y, _ = _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps))
+        return x + y
+    if kind == "mamba2":
+        y, state = ssm_mod.mamba2_prefill(cfg, p["mixer"], h, cache)
+    else:
+        fwd = {"mlstm": xlstm_mod.mlstm_forward,
+               "slstm": xlstm_mod.slstm_forward}[kind]
+        y, state = fwd(cfg, p["mixer"], h, cache)
+    _write_state(cache, state)
     return x + y
 
 
-def _block_decode(cfg, p, x, pos, cache):
+def _block_decode(cfg, kind, p, x, pos, cache):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    dec_fn = attn.mla_decode if cfg.use_mla else attn.gqa_decode
-    y, cache = dec_fn(cfg, p["attn"], h, pos, cache)
-    x = x + y
-    # the decode step's B tokens route as one group
-    y, _ = _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps),
-                group_size=x.shape[0])
+    if kind == "attn":
+        dec_fn = attn.mla_decode if cfg.use_mla else attn.gqa_decode
+        y, _ = dec_fn(cfg, p["attn"], h, pos, cache)
+        x = x + y
+        # the decode step's B tokens route as one group
+        y, _ = _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps),
+                    group_size=x.shape[0])
+        return x + y
+    dec = {"mamba2": ssm_mod.mamba2_decode,
+           "mlstm": xlstm_mod.mlstm_decode,
+           "slstm": xlstm_mod.slstm_decode}[kind]
+    y, state = dec(cfg, p["mixer"], h, cache)
+    _write_state(cache, state)
     return x + y
 
 
 @torch.no_grad()
 def prefill(cfg, params, tokens, cache):
     """Run the prompt ``tokens`` (B, S), filling ``cache`` from position
-    0. Returns (last-position f32 logits (B, V), cache)."""
-    _require_dense(cfg)
+    0 (a recurrent slot from its initial state). Returns (last-position
+    f32 logits (B, V), cache)."""
+    _require_text(cfg)
     x = embed(params["embed"], tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    for p, c in _blocks_and_caches(cfg, params, cache):
-        x = _block_prefill(cfg, p, x, positions, c)
+    for kind, p, c in _blocks_and_caches(cfg, params, cache):
+        x = _block_prefill(cfg, kind, p, x, positions, c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     cache["pos"].fill_(s)
     return logits_from_hidden(cfg, params, x[:, -1]), cache
@@ -252,11 +317,11 @@ def prefill(cfg, params, tokens, cache):
 def decode_step(cfg, params, cache, token_ids):
     """One token a sequence, ``token_ids`` (B, 1), at position
     ``cache["pos"]``. Returns (f32 logits (B, V), cache)."""
-    _require_dense(cfg)
+    _require_text(cfg)
     x = embed(params["embed"], token_ids)
     pos = cache["pos"]
-    for p, c in _blocks_and_caches(cfg, params, cache):
-        x = _block_decode(cfg, p, x, pos, c)
+    for kind, p, c in _blocks_and_caches(cfg, params, cache):
+        x = _block_decode(cfg, kind, p, x, pos, c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_from_hidden(cfg, params, x[:, 0])
     pos.add_(1)

@@ -457,6 +457,39 @@ def test_flash_kernel_mla_head_dims(cuda_device, b, h, kvh, sq, skv, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kvh,sq,skv,dtype,causal,window", [
+    (4, 32, 32, 128, 128, torch.bfloat16, True, 0),   # zamba2's prefill
+    (4, 32, 32, 128, 128, torch.float32, True, 0),
+    (2, 8, 8, 100, 100, torch.bfloat16, True, 0),     # ragged S
+    (2, 8, 2, 65, 200, torch.bfloat16, False, 0),     # Sq < Skv, groups
+    (1, 4, 4, 129, 129, torch.bfloat16, True, 40),    # a window
+    (2, 8, 4, 100, 150, torch.float32, True, 0),      # ragged Sq < Skv
+    (1, 4, 2, 37, 101, torch.float32, False, 20),     # ragged, window
+])
+def test_flash_kernel_head_dim_80(cuda_device, b, h, kvh, sq, skv, dtype,
+                                  causal, window):
+    """The (80, 80) instance of both routes (bf16: 5 k-steps, 10 n-tiles;
+    f32: output runs of 32, 32 and 16 columns) against the plain version
+    (the tolerances above), bit-equal on a second run."""
+    q, k, v = _qkv(cuda_device, b, h, kvh, sq, skv, 80, dtype, sq + skv)
+    before = flash_attention.launches["forward"]
+    out, lse = FlashAttention.apply(q, k, v, causal, window, 80 ** -0.5)
+    again, _ = FlashAttention.apply(q, k, v, causal, window, 80 ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["forward"] == before + 2
+    assert out.shape == (b, h, sq, 80) and out.dtype == dtype
+    plain, plain_lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window,
+                                               return_lse=True)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    assert float(((lse - plain_lse).abs()
+                  / (1 + plain_lse.abs())).max()) <= 2e-5
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
 def test_flash_mla_gradient_and_vmap_on_card(cuda_device):
     """At (192, 128) in f32: the Function's backward against autograd of
     the plain version, and ``vmap(grad)`` over 2 clients in one launch."""

@@ -51,7 +51,7 @@ def test_train_main_returns_a_summary_on_cpu():
 
 
 def test_train_rejects_unported_choices():
-    for arch in ("zamba2-2.7b", "xlstm-350m"):
+    for arch in ("internvl2-2b", "musicgen-large"):
         with pytest.raises(NotImplementedError, match="Transformer families"):
             train.main(["--device", "cpu", "--arch", arch, *SMALL])
     with pytest.raises(SystemExit):

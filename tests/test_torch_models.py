@@ -155,7 +155,7 @@ def test_port_init_has_reference_shapes():
 
 
 def test_transformer_arch_raises_naming_roadmap():
-    for arch in ("zamba2-2.7b", "xlstm-350m"):
+    for arch in ("internvl2-2b", "musicgen-large"):
         with pytest.raises(NotImplementedError, match="Transformer families"):
             get_config(arch)
     with pytest.raises(KeyError):
