@@ -206,12 +206,41 @@ Phases (each prints its lines; any failure exits non-zero):
      REC_ROUNDS rounds: losses finite, ms a round, peak GiB, the
      ``cco_stats`` and flash launches a round. Each tower is freed before
      the next.
+  14. the last two archs at full config, weights from seed 0 drawn on the
+     card: (a) the flash kernel against its plain version at the new
+     shapes, timed beside its bound and SDPA: internvl2-2b's prefill (B =
+     MM_B, H 16, KVH 8, Dh 128, 256 patches + MM_PROMPT tokens), its Fig.
+     1c view 2 (FIG1C_N sequences of 1 token + 256 patches, a ragged 257)
+     and musicgen-large's prefill (H = KVH = 32, Dh 64); ``cco_stats``
+     cross at internvl2-2b's projection width (8, 2048); (b) internvl2-2b
+     (24 layers, 1.7B) served through ``serve.generate`` with 256 random
+     patch embeddings: prefill and MM_DECODE greedy steps with the
+     model-dtype and the int8 cache, each in a window of its own (flash 24
+     a prefill, none in decode), the cache sized as the reference sizes it
+     (prompt + gen + 1: the patches overflow it, its distance from a full
+     forward printed, not gated); (c) musicgen-large (48 layers, 3.2B) the
+     same without patches (flash 48 a prefill); the decode gate of (b) and
+     (c) over a cache of every position, each step's logits against the
+     last position of a full forward over the same patches and tokens
+     within SRV_TOL x max(1, max |logits|), beside the bf16 noise floor
+     (two full forwards, attention on the flash kernel and in plain
+     torch); (d) D-CCO through ``train --stats-kernel
+     fused`` on each tower cut to MM_CUTS layers, MM_K clients x 2
+     sequences of 128, MM_ROUNDS rounds (internvl2-2b on its text views,
+     as the reference trains it: the patch projector stays as
+     initialised, checked): losses finite, ms a round, peak GiB, flash 4
+     a layer and round, ``cco_stats`` once a round (at d = 2048 for
+     internvl2-2b); (e) one ``steps.make_dcco_train_step`` step on the
+     internvl2-2b cut over the paper's cross-modal pair (Fig. 1c), the
+     batch laid out by ``launch.inputs.train_input_specs``: a finite
+     loss, a nonzero gradient of the patch projector, flash 2 a layer.
 Then one JSON line of kernel figures, and the device line last.
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
 import dataclasses
 import gc
 import json
+import math
 from pathlib import Path
 import shutil
 import subprocess
@@ -243,6 +272,7 @@ from repro_torch.kernels.quantize import quant_dequant  # noqa: E402
 from repro_torch.kernels.mips_topk import mips_topk  # noqa: E402
 from repro_torch.kernels.segment_sum import segment_sum  # noqa: E402
 from repro_torch.launch import serve as serve_cli, train  # noqa: E402
+from repro_torch.launch import inputs as inputs_lib  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.launch.profile_round import device_time  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
@@ -888,13 +918,14 @@ def _read_counts():
             "flash": flash_attention.launches["forward"]}
 
 
-def train_path(name, flags, rounds, expected, algorithm="dcco"):
+def train_path(name, flags, rounds, expected, algorithm="dcco",
+               d_out=MAIN_D):
     """``train --full`` through its entry point (``train.run`` with the
     engine's ``algorithm``; the CLI runs "dcco"), with every launch count
     set to 0 just before and read just after; fails unless the counts are
-    ``expected`` (kernel -> launches, the others 0). Returns the counts
-    and the summary ``train.run`` returns, with the peak device memory in
-    GiB under "peak_gib"."""
+    ``expected`` (kernel -> launches, the others 0) and the projection is
+    ``d_out`` wide. Returns the counts and the summary ``train.run``
+    returns, with the peak device memory in GiB under "peak_gib"."""
     args = train.parse_args([
         "--full", "--clients-per-round", str(K), "--samples-per-client",
         str(N_PER_CLIENT), "--dataset-size", str(DATASET), "--rounds",
@@ -910,9 +941,9 @@ def train_path(name, flags, rounds, expected, algorithm="dcco"):
         fail(f"{name}: training losses {res['history']}")
     if not all(x.is_cuda and bool(torch.isfinite(x).all()) for x in leaves):
         fail(f"{name}: trained parameters are not finite tensors on cuda")
-    d_out = res["params"]["proj"]["layers"][-1]["w"].shape[1]
-    if d_out != MAIN_D:
-        fail(f"{name}: projection width {d_out}, expected {MAIN_D}")
+    width = res["params"]["proj"]["layers"][-1]["w"].shape[1]
+    if width != d_out:
+        fail(f"{name}: projection width {width}, expected {d_out}")
     want = {k: expected.get(k, 0) for k in counts}
     if counts != want:
         fail(f"{name}: kernel launches {counts} in {rounds} rounds, "
@@ -2351,6 +2382,265 @@ def recurrent_phase(device):
     return figures, counts
 
 
+# phase 14: the last two archs at full config (bf16 weights from seed 0,
+# drawn on the card). Serving: MM_B prompts of MM_PROMPT tokens (after
+# internvl2-2b's 256 random patch embeddings), then MM_DECODE greedy
+# decode steps. D-CCO: MM_K clients x TOK_N sequences of TOK_S,
+# materialized, MM_ROUNDS rounds, each tower cut to MM_CUTS layers (widths
+# kept): K = 4 f32 deltas of the whole 1.7B / 3.2B tower beside the
+# server's state would not fit, where TinyLlama's 1.1B already peaks at
+# ~58 GiB of the 80. The Fig. 1c step: FIG1C_N pairs of (TOK_S text
+# tokens; one token and the patches).
+MM_ARCHS = ("internvl2-2b", "musicgen-large")
+MM_B, MM_PROMPT, MM_DECODE = 4, 128, 16
+MM_K, MM_ROUNDS = 4, 2
+MM_CUTS = {"internvl2-2b": 8, "musicgen-large": 12}
+FIG1C_N = TOK_K * TOK_N
+
+
+def _mm_logits(cfg, tower, tokens, patches):
+    """Last-position logits of a full forward over the patches (if any)
+    and ``tokens``."""
+    with torch.no_grad():
+        h = transformer.forward(cfg, tower, tokens, patches)
+        return transformer.logits_from_hidden(cfg, tower, h[:, -1])
+
+
+def mm_step_distances(cfg, tower, prompt, patches, out):
+    """Each step's logits (the prefill's first) against the last position
+    of a full forward over the same patches and tokens: (max |difference|
+    a step, the scale max(1, max |forward logits|))."""
+    errs, scale = [], 1.0
+    for j, logits in enumerate(out["logits"]):
+        seq = torch.cat([prompt, out["tokens"][:, :j]], dim=1)
+        want = _mm_logits(cfg, tower, seq, patches)
+        scale = max(scale, float(want.abs().max()))
+        errs.append(float((logits - want).abs().max()))
+    return errs, scale
+
+
+def mm_noise_floor(cfg, tower, seq, patches):
+    """Two bf16 full forwards over the same patches and tokens that differ
+    only in how attention sums: on the flash kernel, and in plain torch
+    over the materialized scores (``attn_impl="naive"``, as decode attends
+    over its cache). Their max |difference| at the last position."""
+    a = _mm_logits(cfg, tower, seq, patches)
+    b = _mm_logits(cfg.replace(attn_impl="naive"), tower, seq, patches)
+    return float((a - b).abs().max())
+
+
+def serve_multimodal(device, arch):
+    """(b) or (c) of phase 14 on the full-config ``arch``: prefill and
+    decode through ``serve.generate`` with the model-dtype and the int8
+    cache, each in a window of its own (flash once a layer in the prefill,
+    none in decode), with the parameter count, prefill ms, decode ms a
+    token and peak GiB. internvl2-2b serves as ``serve`` does, its cache
+    sized prompt + gen + 1 as the reference sizes it: the patches overflow
+    it, so decode attends to the last positions only; that run's distance
+    from a full forward is printed, not gated (ROADMAP §3). The decode
+    gate runs each cache over every position (P + prompt + gen + 1) and
+    holds each step's logits to the last position of a full forward over
+    the same patches and tokens, within SRV_TOL x max(1, max |logits|),
+    beside the noise floor of the model's dtype. Returns the serving
+    windows' counts."""
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    tower = _init_tower(cfg, device)
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (MM_B, MM_PROMPT),
+                           generator=gen, dtype=torch.int32).to(device)
+    patches, n_pre = None, MM_PROMPT
+    if cfg.modality == "vision_text":
+        patches = torch.randn((MM_B, cfg.vis_patches, cfg.vis_dim),
+                              generator=gen).to(device, torch.bfloat16)
+        n_pre += cfg.vis_patches
+    whole = n_pre + MM_DECODE + 2           # P + prompt + gen + 1
+    serve_cli.generate(cfg, tower, prompt[:, :16], 2,        # warm-up
+                       patch_embeds=patches)
+    windows, gate = [], {}
+    for kv in ("model", "int8"):
+        c = cfg.replace(kv_cache_dtype=kv)
+        torch.cuda.reset_peak_memory_stats()
+        out, counts = _window(
+            f"serve {arch} ({kv} cache)",
+            lambda: serve_cli.generate(c, tower, prompt, MM_DECODE + 1,
+                                       patch_embeds=patches),
+            {"flash": cfg.num_layers})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        windows.append(counts)
+        slots = out["cache"]["layers"]["b0"]["kv_pos"].shape[-1]
+        cache_mib = sum(x.numel() * x.element_size() for x in
+                        utils.tree_leaves(out.pop("cache"))) / 2 ** 20
+        finite = all(bool(torch.isfinite(x).all()) for x in out["logits"])
+        print(f"serve {arch} ({kv} cache of {slots} positions, "
+              f"{cache_mib:.1f} MiB): prefill {MM_B}x{n_pre} "
+              f"({n_pre - MM_PROMPT} patches + {MM_PROMPT} tokens) "
+              f"{out['prefill_ms']:.3f} ms, decode {out['decode_ms']:.3f} "
+              f"ms/token over {MM_DECODE} steps x {MM_B}; peak device "
+              f"memory {peak:.2f} GiB; launches {counts} (flash "
+              f"{cfg.num_layers} a prefill, 0 a decode step); logits "
+              f"finite {finite}", flush=True)
+        if not (finite and out["tokens"].shape == (MM_B, MM_DECODE + 1)):
+            fail(f"serving {arch} with the {kv} cache")
+        if slots < whole:
+            errs, scale = mm_step_distances(c, tower, prompt, patches, out)
+            print(f"serve {arch} ({kv} cache): the reference's cache of "
+                  f"prompt + gen + 1 = {slots} positions holds the last of "
+                  f"the {whole - 1} a sequence reaches: |logits - full "
+                  f"forward| / scale {scale:.3f} a step: " + " ".join(
+                      f"{e / scale:.4f}" for e in errs) + " (not gated: "
+                  f"the patches overflow it, as in the reference)",
+                  flush=True)
+            out = serve_cli.generate(c, tower, prompt, MM_DECODE + 1,
+                                     patch_embeds=patches, max_len=whole)
+        gate[kv] = mm_step_distances(c, tower, prompt, patches, out)
+    last = torch.cat([prompt, out["tokens"][:, :-1]], dim=1)
+    floor = mm_noise_floor(cfg, tower, last, patches)
+    for kv, (errs, scale) in gate.items():
+        print(f"serve {arch} ({kv} cache of {whole} positions, "
+              f"{cfg.dtype}): decode gate over {len(errs)} steps x {MM_B}, "
+              f"|logits - full forward| / scale {scale:.3f} a step: "
+              + " ".join(f"{e / scale:.4f}" for e in errs) + f"; worst "
+              f"{max(errs):.4e}, tol {SRV_TOL * scale:.4e} (= {SRV_TOL} x "
+              f"{scale:.3f}); noise floor (two full forwards, attention on "
+              f"the flash kernel and in plain torch) {floor / scale:.4f}",
+              flush=True)
+        if not max(errs) <= SRV_TOL * scale:
+            fail(f"serve {arch} ({kv} cache): decode departs from a full "
+                 f"forward")
+    del tower
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve {arch}: {time.perf_counter() - t0:.1f} s with its gates",
+          flush=True)
+    return windows
+
+
+def fig1c_step(device):
+    """(e) of phase 14: one fused D-CCO step (``steps.make_dcco_train_step``)
+    of internvl2-2b cut to MM_CUTS layers on the paper's cross-modal pair
+    (Fig. 1c), the batch laid out by ``launch.inputs.train_input_specs``
+    (view 1 text tokens, view 2 one token and the patch embeddings), in a
+    window of its own (flash once a layer and view; the backward
+    recomputes in plain torch), server Adam. Gates: a finite loss, and a
+    nonzero, finite gradient of ``vis_proj`` (read from Adam's first
+    moment, (1 - b1) g), which moved. Returns the window's counts."""
+    cut = MM_CUTS["internvl2-2b"]
+    cfg = get_config("internvl2-2b").replace(num_layers=cut)
+    de = get_dual_encoder_config("internvl2-2b")
+    params = dual_encoder.init_dual_encoder(0, cfg, de, device)
+    specs = inputs_lib.train_input_specs(
+        cfg, inputs_lib.InputShape("fig1c", TOK_S, FIG1C_N, "train"))
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def draw(spec):
+        if spec.dtype == torch.int32:
+            return torch.randint(0, cfg.vocab_size, spec.shape,
+                                 generator=gen, device=device,
+                                 dtype=torch.int32)
+        return torch.randn(spec.shape, generator=gen,
+                           device=device).to(spec.dtype)
+
+    batch = utils.tree_map(draw, specs)
+    layout = {v: {k: (tuple(x.shape), str(x.dtype).replace("torch.", ""))
+                  for k, x in batch[v].items()} for v in batch}
+    opt = opt_lib.adam(1e-4)
+    step = steps_lib.make_dcco_train_step(
+        cfg, de, TrainConfig(global_batch=FIG1C_N,
+                             samples_per_client=TOK_N), opt)
+    state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (new, state, metrics), counts = _window(
+        "fig1c step", lambda: step(params, state, batch), {"flash": 2 * cut})
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m = utils.tree_leaves(state["m"]["tower"]["vis_proj"])
+    g_norm = float(torch.sqrt(sum(x.float().pow(2).sum() for x in m))) / 0.1
+    moved = utils.tree_max_abs_diff(new["tower"]["vis_proj"],
+                                    params["tower"]["vis_proj"])
+    loss = float(metrics["loss"])
+    finite = all(bool(torch.isfinite(x).all()) for x in m)
+    print(f"fig1c step, internvl2-2b cut to {cut} layers, batch {layout}: "
+          f"loss {loss:.6g}, |grad vis_proj| {g_norm:.4e} (finite "
+          f"{finite}), vis_proj moved {moved:.4e}; {ms:.1f} ms (first "
+          f"call); peak device memory {peak:.2f} GiB; launches {counts}",
+          flush=True)
+    if not (math.isfinite(loss) and finite and g_norm > 0 and moved > 0):
+        fail("the Fig. 1c step: the loss or the patch projector's gradient")
+    del params, new, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def multimodal_phase(device):
+    """Phase 14 (see the module docstring). Returns (the figures of
+    ``cco_stats`` at internvl2-2b's projection width, the windows'
+    counts)."""
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    vlm, audio = get_config("internvl2-2b"), get_config("musicgen-large")
+    dh = vlm.resolved_head_dim
+    check_flash(MM_B, vlm.num_heads, vlm.num_kv_heads,
+                vlm.vis_patches + MM_PROMPT, vlm.vis_patches + MM_PROMPT, dh,
+                torch.bfloat16, "internvl2 prefill (256 patches + 128 "
+                "tokens)", seed=60)
+    check_flash(FIG1C_N, vlm.num_heads, vlm.num_kv_heads,
+                vlm.vis_patches + 1, vlm.vis_patches + 1, dh, torch.bfloat16,
+                "internvl2 Fig. 1c view 2 (1 token + 256 patches)", seed=61)
+    check_flash(MM_B, audio.num_heads, audio.num_kv_heads, MM_PROMPT,
+                MM_PROMPT, audio.resolved_head_dim, torch.bfloat16,
+                "musicgen prefill (KVH = H)", seed=62)
+    d = get_dual_encoder_config("internvl2-2b").proj_dims[-1]
+    stats = check_cco_stats(MM_K * TOK_N, d, MM_K * TOK_N, 63) + (
+        cco_stats_bound_ms(MM_K * TOK_N, d),)
+    counts = []
+    for arch in MM_ARCHS:
+        counts += serve_multimodal(device, arch)
+    peaks = {}
+    for arch in MM_ARCHS:
+        cut = MM_CUTS[arch]
+        de = get_dual_encoder_config(arch)
+        t0 = time.perf_counter()
+        c, res = train_path(
+            f"{arch} dcco, {cut} layers",
+            ["--arch", arch, "--num-layers", str(cut), "--seq-len",
+             str(TOK_S), "--samples-per-client", str(TOK_N),
+             "--clients-per-round", str(MM_K), "--stats-kernel", "fused"],
+            MM_ROUNDS, {"flash": 2 * 2 * cut * MM_ROUNDS,
+                        "cross": MM_ROUNDS}, d_out=de.proj_dims[-1])
+        counts.append(c)
+        n = sum(x.numel() for x in utils.tree_leaves(res["params"]))
+        steady = sorted(res["round_ms"][1:])
+        note = ""
+        if "vis_proj" in res["params"]["tower"]:
+            # the text views give the patch projector no gradient: Adam
+            # leaves it as initialised, as the reference's does
+            init = dual_encoder.init_dual_encoder(
+                0, get_config(arch).replace(num_layers=cut), de, device)
+            same = all(torch.equal(a, b) for a, b in zip(
+                utils.tree_leaves(res["params"]["tower"]["vis_proj"]),
+                utils.tree_leaves(init["tower"]["vis_proj"])))
+            del init
+            note = f", vis_proj as initialised {same}"
+            if not same:
+                fail(f"{arch}: the text views moved the patch projector")
+        peaks[arch] = (res["peak_gib"], n, steady[len(steady) // 2],
+                       time.perf_counter() - t0, note)
+        release(res)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("multimodal dcco at full width, cut depth: " + "; ".join(
+        f"{a} {MM_CUTS[a]} layers, {n / 1e9:.3f}B parameters, {ms:.1f} "
+        f"ms/round (median after the first), peak {g:.2f} GiB, {sec:.1f} s "
+        f"in all{note}" for a, (g, n, ms, sec, note) in peaks.items()),
+        flush=True)
+    counts.append(fig1c_step(device))
+    print(f"phase 14 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return stats, counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -2540,6 +2830,10 @@ def main():
     torch.cuda.empty_cache()
     _, rec_counts = recurrent_phase(device)
     runs += rec_counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, mm_counts = multimodal_phase(device)
+    runs += mm_counts
     print(f"tinyllama peak device memory: fedavg_contrastive "
           f"{tok_fedavg['peak_gib']:.2f} GiB, dcco "
           f"{tok_dcco['peak_gib']:.2f} GiB, dcco fedprox (2 local steps) "

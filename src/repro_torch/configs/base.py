@@ -1,9 +1,12 @@
 """Model configuration dataclasses and the architecture registry.
 
-The ResNet family, the dense GQA transformers, the DeepSeek family (MoE
-FFN, MLA attention) and the recurrent families (zamba2-2.7b's Mamba2
-hybrid, xlstm-350m's mLSTM/sLSTM) are ported; the fields kept are the
-ones their dual encoders read, with the reference's names and defaults.
+Every arch of the reference's registry is ported: the ResNet family, the
+dense GQA transformers, the DeepSeek family (MoE FFN, MLA attention), the
+recurrent families (zamba2-2.7b's Mamba2 hybrid, xlstm-350m's
+mLSTM/sLSTM), the vision-text tower (internvl2-2b: projected patch
+embeddings prepended to the tokens) and the audio decoder over codec
+tokens (musicgen-large); the fields kept are the ones their dual encoders
+read, with the reference's names and defaults.
 The reference's mesh-only fields (``act_shard_axes``,
 ``fsdp_model_size``), its layer-scan options (``scan_layers``,
 ``layer_chunks``, ``remat``), ``attn_block``, ``parallel_block``,
@@ -84,8 +87,10 @@ class ModelConfig:
     # (max-abs per position and head, one f32 scale each); the MLA cache
     # and the recurrent blocks' states ignore it, as the reference's do
     kv_cache_dtype: str = "model"
-    # modality ("text" only in the port)
+    # modality ("text" | "vision_text" | "audio_tokens")
     modality: str = "text"
+    vis_patches: int = 0            # VLM: number of patch embeddings prepended
+    vis_dim: int = 0                # VLM: stub ViT output dim
     # resnet (paper's own encoder; family == "resnet")
     resnet_stages: Tuple[int, ...] = ()
     resnet_channels: Tuple[int, ...] = ()
@@ -140,26 +145,17 @@ class TrainConfig:
     dcco_impl: str = "fused"
 
 
-# the reference's registry; only PORTED_ARCHS have a module here
+# the reference's registry, every arch with a module here
 ARCH_IDS = (
     "internvl2-2b", "granite-3-8b", "qwen3-8b", "qwen3-1.7b",
     "deepseek-v2-lite-16b", "zamba2-2.7b", "musicgen-large",
     "tinyllama-1.1b", "xlstm-350m", "deepseek-moe-16b",
     "resnet14-cifar",
 )
-PORTED_ARCHS = ("resnet14-cifar", "tinyllama-1.1b", "qwen3-1.7b",
-                "qwen3-8b", "granite-3-8b", "deepseek-moe-16b",
-                "deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-350m")
-
 
 def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch '{arch_id}'; known: {ARCH_IDS}")
-    if arch_id not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch '{arch_id}' is a vision-text or audio model; the "
-            f"PyTorch port has only {PORTED_ARCHS} so far "
-            f"(ROADMAP §1, 'Transformer families')")
     return importlib.import_module(
         "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
 

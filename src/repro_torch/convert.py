@@ -21,6 +21,8 @@ is what these functions take and give back. Layouts:
   ``dt_bias``, and the sLSTM's per-head recurrent matrices ``r_i``,
   ``r_f``, ``r_z``, ``r_o`` (stacked (L, h, dh, dh): 4-D, but not named
   ``"w"``, so never transposed);
+* a vision-text tower's patch projector ``vis_proj`` (an MLP whose
+  ``"w"`` leaves are 2-D linears) carries across unchanged;
 * every other leaf (GroupNorm and RMSNorm scales, biases, the embedding
   table) is copied unchanged, in its own type (bf16 included).
 """

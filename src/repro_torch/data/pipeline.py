@@ -32,8 +32,9 @@ class FederatedDataset:
         if set(data) not in ({"images"}, {"tokens"}):
             raise NotImplementedError(
                 f"the port takes one leaf, 'images' or 'tokens', got "
-                f"{sorted(data)} (patch embeddings come with ROADMAP §1, "
-                f"'Transformer families')")
+                f"{sorted(data)}: as in the reference, whose pipeline "
+                f"augments only those, a vision-text tower trains on its "
+                f"text views")
         self.leaf = next(iter(data))
         self.data = data
         self.labels = labels

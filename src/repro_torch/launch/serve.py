@@ -6,14 +6,21 @@ transformer tower, or dual-encoder retrieval serving.
 
 (``--arch tinyllama-1.1b`` is the default; the dense configs
 ``qwen3-1.7b``, ``qwen3-8b`` and ``granite-3-8b``, the DeepSeek towers
-``deepseek-moe-16b`` and ``deepseek-v2-lite-16b`` and the recurrent
-towers ``zamba2-2.7b`` and ``xlstm-350m`` serve too.) Prefill runs the
+``deepseek-moe-16b`` and ``deepseek-v2-lite-16b``, the recurrent
+towers ``zamba2-2.7b`` and ``xlstm-350m``, the audio decoder
+``musicgen-large`` and the vision-text tower ``internvl2-2b`` serve too;
+the last with ``vis_patches`` random patch embeddings a prompt, drawn
+bf16 from ``torch.randn``, projected and prepended.) Prefill runs the
 prompt through the tower, every attention layer on the CUDA
 flash-attention kernel, and fills the cache: the KV cache of each
 attention layer (``ModelConfig.kv_cache_dtype``: the model's dtype or
 int8), the O(1) state of each recurrent layer; each decode step feeds
-one token a sequence against the cache. Decoding is greedy
-(``argmax``), or samples at ``--temperature`` with ``torch.multinomial``
+one token a sequence against the cache, sized ``--prompt-len + --gen +
+1`` positions as the reference sizes it: a vision-text prompt's P
+patches do not fit beside the text, so the attention cache keeps the
+last positions and decode no longer sees the first patches (the
+reference's behaviour; ``generate(max_len=)`` sizes it whole). Decoding
+is greedy (``argmax``), or samples at ``--temperature`` with ``torch.multinomial``
 on a generator seeded ``--seed``. ``--ckpt FILE`` restores the tower's
 parameters from a checkpoint (:mod:`repro_torch.checkpoint`) as the
 reference does, from a file whose leaves sit under ``params/``.
@@ -136,14 +143,18 @@ def run_retrieval(args) -> list:
 
 
 def generate(cfg, params, prompt, gen: int, *, temperature: float = 0.0,
-             generator=None) -> dict:
-    """Prefill ``prompt`` (B, S) and decode ``gen`` tokens a sequence
-    (the first from the prefill's logits). Returns ``tokens`` (B, gen)
-    int32, the f32 ``logits`` each token was picked from (gen of (B, V)),
-    ``prefill_ms`` and ``decode_ms`` (per decoded token), host clock
-    around a synchronised device."""
+             generator=None, patch_embeds=None, max_len=None) -> dict:
+    """Prefill ``prompt`` (B, S), after a vision-text tower's
+    ``patch_embeds`` (B, P, vis_dim) where given, and decode ``gen``
+    tokens a sequence (the first from the prefill's logits), over a cache
+    of ``max_len`` positions (by default S + gen + 1, the reference's).
+    Returns ``tokens`` (B, gen) int32, the f32 ``logits`` each token was
+    picked from (gen of (B, V)), ``prefill_ms`` and ``decode_ms`` (per
+    decoded token), host clock around a synchronised device."""
     device = prompt.device
-    prefill = steps_lib.make_prefill_step(cfg, prompt.shape[1] + gen + 1)
+    if max_len is None:
+        max_len = prompt.shape[1] + gen + 1
+    prefill = steps_lib.make_prefill_step(cfg, max_len)
     serve = steps_lib.make_serve_step(cfg)
 
     def pick(logits):
@@ -155,7 +166,10 @@ def generate(cfg, params, prompt, gen: int, *, temperature: float = 0.0,
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompt})
+    batch = {"tokens": prompt}
+    if patch_embeds is not None:
+        batch["patch_embeds"] = patch_embeds
+    logits, cache = prefill(params, batch)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     tok = pick(logits)
@@ -214,7 +228,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     """Serve; returns ``run_retrieval``'s summaries with ``--retrieval``,
-    else ``generate``'s result with the ``prompt``."""
+    else ``generate``'s result with the ``prompt`` (and a vision-text
+    tower's ``patch_embeds``)."""
     ap = build_parser()
     args = ap.parse_args(argv)
 
@@ -231,9 +246,14 @@ def main(argv=None):
         params = _restore(args.ckpt, params, device, "tower")
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, dtype=torch.int32).to(device)
+    patches = None
+    if cfg.modality == "vision_text":
+        patches = torch.randn((args.batch, cfg.vis_patches, cfg.vis_dim),
+                              generator=gen).to(device, torch.bfloat16)
     sampler = torch.Generator(device=device).manual_seed(args.seed)
     out = generate(cfg, params, prompt, args.gen,
-                   temperature=args.temperature, generator=sampler)
+                   temperature=args.temperature, generator=sampler,
+                   patch_embeds=patches)
     print(f"prefill: {args.batch}x{args.prompt_len} in "
           f"{out['prefill_ms']:.1f}ms")
     print(f"decode: {args.gen} tokens x {args.batch} "
@@ -242,6 +262,8 @@ def main(argv=None):
         print(f"  seq{b}: prompt={prompt[b, :8].tolist()}... "
               f"-> {out['tokens'][b].tolist()}")
     out["prompt"] = prompt
+    if patches is not None:
+        out["patch_embeds"] = patches
     return out
 
 

@@ -178,13 +178,15 @@ def make_lm_train_step(cfg, server_opt):
 def make_prefill_step(cfg, max_len: int):
     """prefill_step(tower_params, batch) -> (last_logits, cache): a fresh
     cache of ``max_len`` positions on the tokens' device, filled with the
-    prompt ``batch["tokens"]`` (B, S)."""
+    prompt ``batch["tokens"]`` (B, S), after a vision-text tower's
+    ``batch["patch_embeds"]`` (B, P, vis_dim) where given."""
 
     def prefill_step(params, batch):
         tokens = batch["tokens"]
         cache = transformer.init_cache(cfg, tokens.shape[0], max_len,
                                        tokens.device)
-        return transformer.prefill(cfg, params, tokens, cache)
+        return transformer.prefill(cfg, params, tokens, cache,
+                                   patch_embeds=batch.get("patch_embeds"))
 
     return prefill_step
 

@@ -1,10 +1,13 @@
 """Training driver: federated stats-objective pretraining
 (``--objective dcco|dvicreg|dwmse``) of the ResNet-14 dual encoder or, with
 ``--arch tinyllama-1.1b|qwen3-1.7b|qwen3-8b|granite-3-8b`` (dense),
-``deepseek-moe-16b|deepseek-v2-lite-16b`` (MoE, MLA) or
-``zamba2-2.7b|xlstm-350m`` (Mamba2 hybrid, mLSTM/sLSTM), of a token
-tower's dual encoder (``--seq-len`` tokens a sequence, ``--num-layers``
-to cut its depth to a whole number of superblocks), rounds
+``deepseek-moe-16b|deepseek-v2-lite-16b`` (MoE, MLA),
+``zamba2-2.7b|xlstm-350m`` (Mamba2 hybrid, mLSTM/sLSTM),
+``musicgen-large`` (codec tokens) or ``internvl2-2b`` (its text views,
+as the reference trains it; the patch projector gets no gradient), of a
+token tower's dual encoder (``--seq-len`` tokens a sequence,
+``--num-layers`` to cut its depth to a whole number of superblocks),
+rounds
 driven by :class:`repro_torch.core.round_engine.RoundEngine` (``--mode
 engine``, the default; the other modes are below), optionally over a
 lossy client uplink (``--channel``), through a two-level client -> edge

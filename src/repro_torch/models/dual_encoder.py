@@ -1,9 +1,14 @@
 """Dual encoding model (paper Fig. 1): tower(s) + pooling + projection head.
 
+Supports the three wirings in the paper:
+  (a) shared tower, two augmented views of the same input (self-supervised)
+  (b) two different towers over two views
+  (c) two modality-specific views (VLM: vision patches vs text tokens)
+
 Towers: the paper's ResNet over images, and the token towers (dense, MoE,
-MLA transformers; the Mamba2 hybrid and the xLSTM) over tokens
-(mean-pooled, with an optional (B, S) mask); the vision-text and audio
-towers are not ported yet (ROADMAP §1, "Transformer families"). The
+MLA transformers; the Mamba2 hybrid and the xLSTM; the audio decoder over
+codec tokens) over tokens, a vision-text tower's view with its patch
+embeddings prepended (mean-pooled, with an optional (B, S) mask). The
 projection network follows Sec 4.2: a 3-layer MLP that *increases*
 dimensionality before the CCO loss.
 """
@@ -24,7 +29,8 @@ def is_resnet(cfg) -> bool:
 
 def input_leaf(cfg) -> str:
     """The view leaf the tower reads: ``"images"`` for the ResNet tower,
-    ``"tokens"`` for a transformer tower."""
+    ``"tokens"`` for a transformer tower (a vision-text view always has
+    tokens; its ``"patch_embeds"`` ride beside them)."""
     return "images" if is_resnet(cfg) else "tokens"
 
 
@@ -68,9 +74,11 @@ def encode(cfg, de_cfg, params, view, tower: str = "f"):
     """Encode one view -> (z (B, d_proj) f32 (f64 for an f64 model), aux).
 
     view: dict with 'images' (B,H,W,C) for the ResNet tower, or 'tokens'
-    (B,S) and an optional 'mask' (B,S) for a transformer tower. ``aux``
-    is an MoE tower's ``{"balance", "router_z"}`` (its losses summed over
-    the layers, as the reference's), and empty for every other tower.
+    (B,S), a vision-text tower's optional 'patch_embeds' (B,P,vis_dim)
+    (prepended) and an optional 'mask' (B,S) for a transformer tower.
+    ``aux`` is an MoE tower's ``{"balance", "router_z"}`` (its losses
+    summed over the layers, as the reference's), and empty for every
+    other tower.
     """
     shared = tower == "f" or de_cfg.shared_towers
     tower_p = params["tower"] if shared else params["tower_g"]
@@ -79,11 +87,12 @@ def encode(cfg, de_cfg, params, view, tower: str = "f"):
     aux = {}
     if is_resnet(cfg):
         pooled = resnet_mod.resnet_forward(cfg, tower_p, x)
-    elif cfg.moe is not None:
-        hidden, aux = transformer.forward(cfg, tower_p, x, return_aux=True)
-        pooled = _pool(hidden, view.get("mask"))
     else:
-        hidden = transformer.forward(cfg, tower_p, x)
+        hidden = transformer.forward(cfg, tower_p, x,
+                                     view.get("patch_embeds"),
+                                     return_aux=cfg.moe is not None)
+        if cfg.moe is not None:
+            hidden, aux = hidden
         pooled = _pool(hidden, view.get("mask"))
     z = mlp(proj_p, pooled.to(dtype_of(cfg.dtype)))
     return at_least_f32(z), aux

@@ -18,19 +18,20 @@ sharding constraints are mesh-only and have no counterpart; nor do its
 ``torch.utils.checkpoint``), its parallel block and its untied
 unembedding, which no ported config sets.
 
-An MoE or recurrent tower's parameters (16B and 2.8B at full width) draw
-on ``device``, from a generator seeded by one draw of ``gen``: the CPU
-could not draw them in the time of a run. Their parameters therefore
-depend on the device type; every other tower's are the same on every
-device.
+An MoE, recurrent, vision-text or audio tower's parameters (16B, 2.8B,
+1.7B and 3.2B at full width) draw on ``device``, from a generator seeded
+by one draw of ``gen``: the CPU could not draw them in the time of a run.
+Their parameters therefore depend on the device type; every other
+tower's (the dense text towers') are the same on every device.
 
 Public entry points:
   init_params(cfg, gen, device)              -> params
-  forward(cfg, params, tokens, return_aux)   -> hidden (B, S, D)
-                                                [, aux]
+  forward(cfg, params, tokens, patch_embeds, return_aux)
+                                             -> hidden (B, P + S, D) [, aux]
   logits_from_hidden(cfg, params, hidden)    -> f32 logits (tied unembed)
   init_cache(cfg, batch, max_len, device)    -> cache
-  prefill(cfg, params, tokens, cache)        -> (last logits (B, V), cache)
+  prefill(cfg, params, tokens, cache, patch_embeds)
+                                             -> (last logits (B, V), cache)
   decode_step(cfg, params, cache, token_ids) -> (logits (B, V), cache)
 
 The cache is the reference's tree, ``{"layers": {"b{i}": {leaf: (L,
@@ -45,8 +46,16 @@ recurrent state is written back with ``copy_``), so no second stacked
 copy is made; they return the same dict. The MoE FFN routes a prefill's
 tokens in groups of 512 and a decode step's B tokens as one group, as
 the reference does (so decode, whose capacity is small, can drop tokens
-that a full forward keeps). The vision-text and audio front ends are not
-ported yet (ROADMAP §1).
+that a full forward keeps).
+
+Modalities: ``"text"`` and ``"audio_tokens"`` (musicgen-large: codec
+token ids, the dense path) read token ids only. A ``"vision_text"`` tower
+(internvl2-2b) has ``params["vis_proj"]``, an MLP (vis_dim, d, d) with
+bias; ``forward`` and ``prefill`` given ``patch_embeds`` (B, P, vis_dim)
+project them, cast them to the model's dtype and prepend them to the
+tokens' embeddings, so the sequence has P + S positions, the patches
+first. Without ``patch_embeds`` the tower reads the tokens alone (the
+text view; ``vis_proj`` then gets no gradient).
 """
 from __future__ import annotations
 
@@ -58,17 +67,10 @@ from repro_torch import utils
 from repro_torch.models import (attention as attn, moe as moe_mod,
                                 ssm as ssm_mod, xlstm as xlstm_mod)
 from repro_torch.models.common import (F32, dtype_of, embed, embedding_init,
-                                       rmsnorm, rmsnorm_init,
+                                       mlp, mlp_init, rmsnorm, rmsnorm_init,
                                        swiglu, swiglu_init, unembed)
 
 AUX_KEYS = ("balance", "router_z")
-
-
-def _require_text(cfg):
-    if cfg.modality != "text":
-        raise NotImplementedError(
-            f"{cfg.name}: modality {cfg.modality!r} is not ported; the port "
-            f"runs text towers (ROADMAP §1, 'Transformer families')")
 
 
 def _moe_flags(cfg):
@@ -137,13 +139,15 @@ def _stacked(make, n: int):
 
 def init_params(cfg, gen, device="cpu") -> Dict[str, Any]:
     """Random parameters from the CPU generator ``gen``, on ``device``
-    (an MoE or recurrent tower's from a generator on ``device``, module
-    docstring); each superblock's leaves stacked on a leading axis under
-    ``"layers"`` (``{"b0": slot 0, ...}``, the reference's tree), the
-    dense prologue under ``"prologue"``."""
-    _require_text(cfg)
+    (an MoE, recurrent, vision-text or audio tower's from a generator on
+    ``device``, module docstring); each superblock's leaves stacked on a
+    leading axis under ``"layers"`` (``{"b0": slot 0, ...}``, the
+    reference's tree), the
+    dense prologue under ``"prologue"``, a vision-text tower's patch
+    projector under ``"vis_proj"``."""
     dtype = dtype_of(cfg.dtype)
-    if cfg.moe is not None or set(cfg.block_pattern) != {"attn"}:
+    if (cfg.moe is not None or set(cfg.block_pattern) != {"attn"}
+            or cfg.modality != "text"):
         gen = utils.generator(
             int(torch.randint(0, 2 ** 62, (), generator=gen)), device)
     params: Dict[str, Any] = {
@@ -151,6 +155,10 @@ def init_params(cfg, gen, device="cpu") -> Dict[str, Any]:
                                 device),
         "final_norm": rmsnorm_init(cfg.d_model, device),
     }
+    if cfg.modality == "vision_text":
+        params["vis_proj"] = mlp_init(
+            gen, (cfg.vis_dim, cfg.d_model, cfg.d_model), dtype, bias=True,
+            device=device)
     if cfg.num_prologue:
         params["prologue"] = [
             _block_init(gen, cfg, "attn", dtype, device, False)
@@ -186,12 +194,24 @@ def _unstack(tree, n: int):
     return layers
 
 
-def forward(cfg, params, tokens, return_aux: bool = False):
-    """tokens: (B, S) int -> hidden (B, S, D) after the final norm; with
-    ``return_aux`` also ``{"balance", "router_z"}``, the MoE losses summed
-    over the stacked layers (zeros without MoE)."""
-    _require_text(cfg)
+def _embed_inputs(cfg, params, tokens, patch_embeds):
+    """The tokens' embeddings (B, S, D), after a vision-text tower's
+    projected ``patch_embeds`` (B, P, vis_dim) where given: (B, P + S,
+    D)."""
     x = embed(params["embed"], tokens)
+    if cfg.modality == "vision_text" and patch_embeds is not None:
+        vis = mlp(params["vis_proj"], patch_embeds.to(x.dtype))
+        x = torch.cat([vis.to(x.dtype), x], dim=1)
+    return x
+
+
+def forward(cfg, params, tokens, patch_embeds=None,
+            return_aux: bool = False):
+    """tokens: (B, S) int -> hidden (B, S, D) after the final norm (B, P +
+    S, D with a vision-text tower's ``patch_embeds`` (B, P, vis_dim),
+    prepended); with ``return_aux`` also ``{"balance", "router_z"}``, the
+    MoE losses summed over the stacked layers (zeros without MoE)."""
+    x = _embed_inputs(cfg, params, tokens, patch_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for p in params.get("prologue", []):
@@ -228,7 +248,6 @@ def _block_cache_init(cfg, kind, batch, max_len, device):
 def init_cache(cfg, batch: int, max_len: int, device="cpu"):
     """An empty decode cache for ``batch`` sequences of up to ``max_len``
     positions (a ring of ``cfg.sliding_window`` slots with a window)."""
-    _require_text(cfg)
     proto = {f"b{i}": _block_cache_init(cfg, kind, batch, max_len, device)
              for i, kind in enumerate(cfg.block_pattern)}
     n = cfg.num_superblocks
@@ -298,12 +317,14 @@ def _block_decode(cfg, kind, p, x, pos, cache):
 
 
 @torch.no_grad()
-def prefill(cfg, params, tokens, cache):
-    """Run the prompt ``tokens`` (B, S), filling ``cache`` from position
-    0 (a recurrent slot from its initial state). Returns (last-position
-    f32 logits (B, V), cache)."""
-    _require_text(cfg)
-    x = embed(params["embed"], tokens)
+def prefill(cfg, params, tokens, cache, patch_embeds=None):
+    """Run the prompt ``tokens`` (B, S), after a vision-text tower's
+    projected ``patch_embeds`` (B, P, vis_dim) where given, filling
+    ``cache`` from position 0 (a recurrent slot from its initial state).
+    Returns (last-position f32 logits (B, V), cache). A cache shorter than
+    the P + S positions keeps the last ones (the attention ring), as the
+    reference's does."""
+    x = _embed_inputs(cfg, params, tokens, patch_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for kind, p, c in _blocks_and_caches(cfg, params, cache):
@@ -317,7 +338,6 @@ def prefill(cfg, params, tokens, cache):
 def decode_step(cfg, params, cache, token_ids):
     """One token a sequence, ``token_ids`` (B, 1), at position
     ``cache["pos"]``. Returns (f32 logits (B, V), cache)."""
-    _require_text(cfg)
     x = embed(params["embed"], token_ids)
     pos = cache["pos"]
     for kind, p, c in _blocks_and_caches(cfg, params, cache):

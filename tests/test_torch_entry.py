@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch import utils
+from repro_torch.configs.base import ARCH_IDS
 from repro_torch.launch import train
 
 # tier-1 runs 6 pytest workers on the machine's cores: one torch thread
@@ -51,9 +52,14 @@ def test_train_main_returns_a_summary_on_cpu():
 
 
 def test_train_rejects_unported_choices():
-    for arch in ("internvl2-2b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="Transformer families"):
-            train.main(["--device", "cpu", "--arch", arch, *SMALL])
+    """Every arch of the reference's registry is ported, so the CLI takes
+    each of them; it still refuses an arch outside the registry, the
+    Pallas statistics route and ``--severity`` without a partition."""
+    for arch in ARCH_IDS:
+        assert train.parse_args(["--arch", arch]).arch == arch
+    assert len(ARCH_IDS) == 11
+    with pytest.raises(KeyError, match="unknown arch"):
+        train.main(["--device", "cpu", "--arch", "not-an-arch", *SMALL])
     with pytest.raises(SystemExit):
         train.main(["--device", "cpu", "--stats-kernel", "pallas", *SMALL])
     with pytest.raises(SystemExit):

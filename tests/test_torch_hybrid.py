@@ -40,7 +40,8 @@ from repro.models import transformer as j_tf
 from repro.optim import optimizers as j_opt
 from repro_torch import convert, utils
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
-from repro_torch.configs.base import (DualEncoderConfig, TrainConfig,
+from repro_torch.configs.base import (ARCH_IDS, DualEncoderConfig,
+                                      TrainConfig,
                                       get_config)
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import flash_attention as flash_mod
@@ -102,11 +103,16 @@ def test_configs_have_the_reference_values(arch, smoke):
 
 
 def test_the_vision_text_and_audio_archs_are_still_refused():
-    for arch in ("internvl2-2b", "musicgen-large"):
-        with pytest.raises(NotImplementedError,
-                           match="vision-text or audio.*Transformer "
-                                 "families"):
-            get_config(arch)
+    """What the registry still refuses: an arch outside it (KeyError). The
+    vision-text and audio archs, once refused here, now resolve with the
+    rest of the reference's 11, with their modalities."""
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("internvl2-8b")
+    assert len(ARCH_IDS) == 11
+    for arch in ARCH_IDS:
+        assert get_config(arch, smoke=True).num_layers >= 1
+    assert get_config("internvl2-2b").modality == "vision_text"
+    assert get_config("musicgen-large").modality == "audio_tokens"
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -23,7 +23,8 @@ from repro.models import common as j_common
 from repro.models import dual_encoder as j_de
 from repro.models import resnet as j_resnet
 from repro_torch import convert
-from repro_torch.configs.base import DualEncoderConfig, get_config
+from repro_torch.configs.base import (ARCH_IDS, DualEncoderConfig,
+                                      get_config, get_dual_encoder_config)
 from repro_torch.models import common, dual_encoder, resnet
 
 # tier-1 runs 6 pytest workers on the machine's cores: one torch thread
@@ -155,11 +156,19 @@ def test_port_init_has_reference_shapes():
 
 
 def test_transformer_arch_raises_naming_roadmap():
-    for arch in ("internvl2-2b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="Transformer families"):
-            get_config(arch)
+    """Every arch of the reference's registry resolves, its smoke and full
+    configs and its dual-encoder config; an arch outside the registry
+    still raises KeyError."""
+    assert len(ARCH_IDS) == 11
+    for arch in ARCH_IDS:
+        for smoke in (False, True):
+            assert get_config(arch, smoke=smoke).name.startswith(
+                arch.split("-")[0])
+        assert get_dual_encoder_config(arch).proj_dims
     with pytest.raises(KeyError):
         get_config("not-an-arch")
+    with pytest.raises(KeyError):
+        get_dual_encoder_config("not-an-arch")
 
 
 @pytest.mark.parametrize("smoke", [False, True])
