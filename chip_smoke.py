@@ -280,8 +280,11 @@ from repro_torch.models import dual_encoder, transformer  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.common import embed, rmsnorm  # noqa: E402
 from repro_torch.objectives import get_objective  # noqa: E402
-from repro_torch.optim import optimizers as opt_lib  # noqa: E402
-from repro_torch import retrieval  # noqa: E402
+from repro_torch.optim import optimizers as opt_lib, schedules  # noqa: E402
+from repro_torch import hierarchy, retrieval  # noqa: E402
+from repro_torch.launch.mesh import HardwareSpec, make_debug_mesh  # noqa: E402
+from repro_torch.sharding import (  # noqa: E402
+    collectives, make_corpus_mesh, maybe_initialize_distributed)
 from tools.time_cco_stats import eager_ms, time_ms  # noqa: E402
 
 ROUNDS = 5            # the DCCO path
@@ -289,7 +292,7 @@ PATH_ROUNDS = 3       # every other path
 K, N_PER_CLIENT, DATASET = 64, 2, 2048
 MAIN_N, MAIN_D = K * N_PER_CLIENT, 1024   # phase-1 rows, projection width
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+PEAK_BYTES, PEAK_F32 = HardwareSpec.PEAK_BYTES, HardwareSpec.PEAK_F32
 # kernel vs plain: max |kernel - plain| <= TOL * (1 + max |plain|); both
 # sum f32 products of unit-normal data in other orders, the kernel each
 # product as a TF32 and two bf16 remainder products (~2^-20 of it) summed
@@ -308,8 +311,8 @@ IVF_C, IVF_NPROBE = 128, 8
 # the token path: TinyLlama-1.1B at full width (22 layers, H 32, KVH 4,
 # Dh 64, bf16), TOK_K clients x TOK_N sequences of TOK_S tokens
 TOK_ARCH, TOK_LAYERS, TOK_K, TOK_N, TOK_S = "tinyllama-1.1b", 22, 4, 2, 128
-PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
-PEAK_TF32 = 495e12    # H100 SXM dense TF32 tensor-core FLOP/s
+PEAK_BF16 = HardwareSpec.PEAK_BF16   # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_TF32 = HardwareSpec.PEAK_TF32   # H100 SXM dense TF32 tensor-core FLOP/s
 # flash attention vs plain: both compute in f32 from the same inputs, in
 # other orders; a bf16 output is rounded once on each side (1 bf16 ulp of
 # an output below 4 is under 3e-2), as tests/test_kernels.py holds it
@@ -2641,6 +2644,272 @@ def multimodal_phase(device):
     return stats, counts
 
 
+# phase 15: the cohort sharded over devices, on a world of one NCCL rank
+# (NCCL takes one rank per device, so more ranks need more cards; the
+# laws of worlds of 2 and 4 are held on CPU gloo ranks in
+# tests/test_torch_sharded.py and tests/test_torch_multihost.py).
+# SHARD_ROUNDS engine rounds of the full-width ResNet at K x N_PER_CLIENT,
+# with the CLI's server optimizer (Adam on a cosine schedule from
+# --server-lr); the shard_map step on TOK_K x TOK_N sequences of
+# TinyLlama-1.1B; the corpus of RATE_N rows.
+SHARD_ROUNDS = 3
+# the shard_map step's gradient against the fused step's, both bf16 towers
+# on the same batch: ||g_shard_map - g_fused|| / ||g_fused|| <= SHARD_GRAD_TOL
+# and |loss difference| <= SHARD_GRAD_TOL x |loss|. On one rank the two
+# compute the same arithmetic (the mean over one rank is the identity, the
+# combine adds a zero, the gradient share is 1 / 1), so bf16 rounding of a
+# kernel run twice is all that may differ.
+SHARD_GRAD_TOL = 1e-2
+
+
+def _free_port() -> int:
+    """A free TCP port on the loopback interface, for the coordinator."""
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _collective_counts():
+    return {k: dict(c) for k, c in collectives.counts.items()}
+
+
+def sharded_rounds(device, mesh):
+    """(a) of phase 15: SHARD_ROUNDS rounds of the full-width ResNet
+    through ``RoundEngine(cohort_axis="data", mesh=...)`` against the
+    unsharded engine's (``stats_kernel="off"``, the same per-client
+    arithmetic), cuDNN's deterministic algorithms on. Gate: the sharded
+    run's parameters within the distance between two unsharded runs (0
+    when the round is deterministic), the statistics kernel never
+    launched. Then the sharded engine over int8 through the 8-edge tree:
+    finite losses, quant_dequant 2 and segment_sum 3 a round. Prints each
+    round's all-reduces and all-gathers (calls, bytes) and ms a round
+    sharded against unsharded. Returns the windows' counts."""
+    cfg = get_config("resnet14-cifar")
+    args = train.parse_args([
+        "--full", "--clients-per-round", str(K), "--samples-per-client",
+        str(N_PER_CLIENT), "--dataset-size", str(DATASET)])
+    de_cfg = DualEncoderConfig(
+        proj_dims=get_dual_encoder_config("resnet14-cifar").proj_dims,
+        lambda_cco=args.lam)
+    ds, _ = train.build_dataset(cfg, args)
+    sampler = ds.make_round_sampler(K, device)
+    apply = train.make_apply(cfg, de_cfg)
+    p0 = dual_encoder.init_dual_encoder(0, cfg, de_cfg, device)
+
+    def server_opt():
+        return opt_lib.get_optimizer(args.server_optimizer,
+                                     schedules.cosine_decay(args.server_lr,
+                                                            SHARD_ROUNDS))
+
+    base = round_engine.EngineConfig(lam=args.lam, chunk_rounds=1,
+                                     stats_kernel="off")
+    counts, out = [], {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, cfg_e, m in (
+                ("unsharded", base, None),
+                ("unsharded again", base, None),
+                ("sharded", base._replace(cohort_axis="data",
+                                          stats_kernel=None), mesh)):
+            opt = server_opt()
+            engine = round_engine.RoundEngine(apply, opt, sampler, cfg_e,
+                                              mesh=m)
+            laps = []
+
+            def lap(*_):
+                torch.cuda.synchronize()
+                laps.append(time.perf_counter())
+
+            collectives.reset_counts()
+            lap()
+            (p, _, metrics), c = _window(
+                f"{name} engine, {SHARD_ROUNDS} rounds",
+                lambda: engine.run(p0, opt.init(p0), 0, SHARD_ROUNDS,
+                                   on_segment=lap), {})
+            counts.append(c)
+            ms = [(b - a) * 1e3 for a, b in zip(laps, laps[1:])]
+            out[name] = (p, metrics.loss.tolist(), ms, _collective_counts())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ref = out["unsharded"][0]
+    upd = utils.tree_max_abs_diff(ref, p0)
+    floor = utils.tree_max_abs_diff(out["unsharded again"][0], ref)
+    dist_ = utils.tree_max_abs_diff(out["sharded"][0], ref)
+    coll = out["sharded"][3]
+    per_round = {k: (c["calls"] / SHARD_ROUNDS, c["bytes"] / SHARD_ROUNDS)
+                 for k, c in coll.items()}
+    for name, (_, losses, ms, _) in out.items():
+        print(f"phase 15 (a) {name}: K={K} x {N_PER_CLIENT} full-width "
+              f"ResNet-14, {SHARD_ROUNDS} rounds, losses "
+              f"{[float(f'{x:.6g}') for x in losses]}, ms a round "
+              f"{[round(x, 2) for x in ms]} (first, then the rest)",
+              flush=True)
+    steady = {n: sum(o[2][1:]) / (len(o[2]) - 1) for n, o in out.items()}
+    print(f"phase 15 (a) sharded (world of one NCCL rank, cohort_axis "
+          f"'data') vs unsharded: max |p_sharded - p_unsharded| = "
+          f"{dist_:.4e} (tol: the two unsharded runs' distance {floor:.4e}; "
+          f"update {upd:.4e}); ms a round after the first: sharded "
+          f"{steady['sharded']:.2f}, unsharded {steady['unsharded']:.2f} / "
+          f"{steady['unsharded again']:.2f}; collectives a round: "
+          + ", ".join(f"{k} {n:g} calls {b:.0f} bytes"
+                      for k, (n, b) in per_round.items()), flush=True)
+    if not dist_ <= floor:
+        fail("the sharded engine departs from the unsharded engine")
+    if per_round["all_reduce"][0] != 4 or per_round["all_gather"][0] != 0:
+        fail(f"the lossless sharded round's collectives {per_round}, "
+             f"expected 4 all-reduces and no all-gather a round")
+    del out, ref
+    # int8 through the 8-edge tree, sharded: each round quantizes the
+    # statistics and the deltas (the column form) and folds the
+    # begin-round edge mass, the statistics and the deltas into the edges
+    opt = server_opt()
+    channel = hierarchy.HierarchicalChannel(
+        8, client_channel=comm.QuantizedChannel(8))
+    engine = round_engine.RoundEngine(
+        apply, opt, sampler, base._replace(cohort_axis="data",
+                                           stats_kernel=None,
+                                           channel=channel), mesh=mesh)
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    (p, _, metrics), c = _window(
+        f"sharded engine over int8 through 8 edges, {SHARD_ROUNDS} rounds",
+        lambda: engine.run(p0, opt.init(p0), 0, SHARD_ROUNDS),
+        {"column": 2 * SHARD_ROUNDS, "fold": 3 * SHARD_ROUNDS})
+    sec = time.perf_counter() - t0
+    counts.append(c)
+    losses = metrics.loss.tolist()
+    coll = _collective_counts()
+    print(f"phase 15 (a) sharded over int8 through 8 edges: losses "
+          f"{[float(f'{x:.6g}') for x in losses]}, uplink bytes a round "
+          f"{metrics.wire_bytes.tolist()} (edge->server "
+          f"{metrics.edge_bytes.tolist()}), {sec * 1e3 / SHARD_ROUNDS:.1f} "
+          f"ms a round with the first; launches {c}; collectives a round: "
+          + ", ".join(f"{k} {v['calls'] / SHARD_ROUNDS:g} calls "
+                      f"{v['bytes'] / SHARD_ROUNDS:.0f} bytes"
+                      for k, v in coll.items()), flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail("the sharded int8 tree's losses are not finite")
+    del p, p0, engine
+    return counts
+
+
+def sharded_step(device, mesh):
+    """(b) of phase 15: one fused D-CCO step's gradient of the full-width
+    TinyLlama-1.1B dual encoder over TOK_K clients x TOK_N sequences of
+    TOK_S tokens, ``dcco_impl="shard_map"`` on the mesh against
+    ``"fused"`` without one, each in a window of its own (flash 2 a layer).
+    Returns the windows' counts."""
+    cfg = get_config(TOK_ARCH)
+    de_cfg = DualEncoderConfig(
+        proj_dims=get_dual_encoder_config(TOK_ARCH).proj_dims, lambda_cco=5.0)
+    params = dual_encoder.init_dual_encoder(0, cfg, de_cfg, device)
+    gen = torch.Generator(device=device).manual_seed(8)
+    n = TOK_K * TOK_N
+    batch = {f"view{i + 1}": {"tokens": torch.randint(
+        0, cfg.vocab_size, (n, TOK_S), generator=gen, device=device)}
+        for i in range(2)}
+    grads, counts = {}, []
+    for impl, m in (("fused", None), ("shard_map", mesh)):
+        step = steps_lib.make_dcco_train_step(
+            cfg, de_cfg, TrainConfig(global_batch=n, samples_per_client=TOK_N,
+                                     dcco_impl=impl), opt_lib.sgd(1.0),
+            mesh=m)
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        (g, metrics), c = _window(f"{impl} step gradient",
+                                  lambda: step.grads(params, batch),
+                                  {"flash": 2 * TOK_LAYERS})
+        ms = (time.perf_counter() - t0) * 1e3
+        counts.append(c)
+        grads[impl] = (g, float(metrics["loss"]), ms, _collective_counts())
+    (gf, lf, msf, _), (gs, ls, mss, coll) = grads["fused"], grads["shard_map"]
+    sq_d = sq_f = 0.0
+    for a, b in zip(utils.tree_leaves(gf), utils.tree_leaves(gs)):
+        a, b = a.double(), b.double()
+        sq_d += float(((a - b) ** 2).sum())
+        sq_f += float((a * a).sum())
+    rel = (sq_d / sq_f) ** 0.5
+    print(f"phase 15 (b) {TOK_ARCH} full width, {n} sequences of {TOK_S}, "
+          f"bf16: shard_map step (world of one) vs fused: ||g_sm - g_f|| / "
+          f"||g_f|| = {rel:.4e}, losses {ls:.6f} / {lf:.6f} (tol "
+          f"{SHARD_GRAD_TOL:g}); ms (first call) {mss:.1f} / {msf:.1f}; "
+          f"flash launches {counts[1]['flash']} / {counts[0]['flash']}; "
+          f"collectives: "
+          + ", ".join(f"{k} {v['calls']} calls {v['bytes']} bytes"
+                      for k, v in coll.items()), flush=True)
+    if not (rel <= SHARD_GRAD_TOL
+            and abs(ls - lf) <= SHARD_GRAD_TOL * abs(lf)
+            and all(bool(torch.isfinite(x).all())
+                    for x in utils.tree_leaves(gs))):
+        fail("the shard_map step departs from the fused step")
+    del params, grads, gf, gs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def sharded_corpus(device):
+    """(c) of phase 15: ``ShardedCorpusIndex`` over a corpus mesh of one
+    rank, RATE_N unit rows of d MAIN_D in f32, SERVE_BATCH queries, k
+    MIPS_K: its search (the offset form, one launch) equal bit for bit to
+    ``CorpusIndex.search`` (the search form). Returns the windows'
+    counts."""
+    mesh = make_corpus_mesh()
+    gen = torch.Generator(device=device).manual_seed(51)
+    emb = unit_rows(RATE_N, MAIN_D, gen)
+    q = unit_rows(SERVE_BATCH, MAIN_D, gen)
+    index = retrieval.CorpusIndex(emb)
+    sharded = retrieval.ShardedCorpusIndex(emb, 1, mesh=mesh)
+    collectives.reset_counts()
+    got, c1 = _window("sharded corpus search",
+                      lambda: sharded.search(q, MIPS_K), {"offset": 1})
+    coll = _collective_counts()
+    want, c2 = _window("unsharded corpus search",
+                       lambda: index.search(q, MIPS_K), {"search": 1})
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    print(f"phase 15 (c) ShardedCorpusIndex over a corpus mesh of one, "
+          f"{RATE_N} rows x {MAIN_D}, {SERVE_BATCH} queries, k {MIPS_K}: "
+          f"equal to CorpusIndex.search bit for bit {same}; launches "
+          f"{c1} / {c2}; collectives: "
+          + ", ".join(f"{k} {v['calls']} calls {v['bytes']} bytes"
+                      for k, v in coll.items()), flush=True)
+    if not same:
+        fail("the sharded corpus search differs from the unsharded search")
+    del emb, index, sharded
+    torch.cuda.empty_cache()
+    return [c1, c2]
+
+
+def sharded_phase(device):
+    """Phase 15 (see the module docstring): a world of one NCCL rank set
+    up through the REPRO_* contract on a loopback coordinator. Any failure
+    to join it is a failure: nothing runs unsharded or on gloo instead.
+    Returns the windows' counts."""
+    t_phase = time.perf_counter()
+    env = {"REPRO_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "REPRO_NUM_PROCESSES": "1", "REPRO_PROCESS_ID": "0"}
+    if not maybe_initialize_distributed(env):
+        fail("the REPRO_* environment did not initialize a process group")
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            fail(f"phase 15 joined a {torch.distributed.get_backend()} "
+                 f"world, not NCCL")
+        mesh = make_debug_mesh(1)
+        print(f"phase 15: world of {torch.distributed.get_world_size()} "
+              f"NCCL rank, mesh {mesh}", flush=True)
+        counts = sharded_rounds(device, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts += sharded_step(device, mesh)
+        counts += sharded_corpus(device)
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"phase 15 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -2834,6 +3103,9 @@ def main():
     torch.cuda.empty_cache()
     _, mm_counts = multimodal_phase(device)
     runs += mm_counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += sharded_phase(device)
     print(f"tinyllama peak device memory: fedavg_contrastive "
           f"{tok_fedavg['peak_gib']:.2f} GiB, dcco "
           f"{tok_dcco['peak_gib']:.2f} GiB, dcco fedprox (2 local steps) "

@@ -32,9 +32,9 @@ phase-1 ``"stats"``, the phase-2 ``"update"`` and SCAFFOLD's ``"variate"``
 (the per-client control-variate deltas, :mod:`repro_torch.server.drift`),
 so quantization, DP noise and dropout compose with drift correction and
 its bytes are counted. ``chunk_fold`` is the streaming engine's partial
-fold of one cohort chunk (:mod:`repro_torch.hierarchy.streaming`); the
-reference's sharded fold (``local_fold``) waits for the cohort sharded
-over devices (ROADMAP §1, item 6, 'Sharded and streaming cohorts').
+fold of one cohort chunk (:mod:`repro_torch.hierarchy.streaming`), and
+``local_fold`` a rank's partial fold of its shard of a cohort sharded
+over devices (``round_engine.stats_round_sharded``).
 """
 from __future__ import annotations
 
@@ -120,6 +120,20 @@ class Channel:
         dec = self.encode_decode(ctx, tree_k, phase, draws)
         return self.post_aggregate(ctx, _weighted_sum(ctx.weights, dec),
                                    phase, draws)
+
+    def local_fold(self, ctx_local: ChannelContext, dec_tree, phase: str, *,
+                   num_shards: int = 1, draws=None):
+        """Fold one rank's already-decoded payloads into its partial
+        aggregate (the sharded cohort: the sum over ranks of these
+        partials is the server aggregate). ``ctx_local`` holds the rank's
+        slice of the mask and weights and a rank-folded seed;
+        ``num_shards`` is the size of the cohort's mesh axis, by which a
+        two-level tree places its edges on ranks, and ``draws`` that
+        tree's edge-hop draws. The base fold is ``aggregate``'s weighted
+        sum, the same code, so a lossless channel's sharded round is the
+        sharded round without a channel, bit for bit."""
+        del phase, num_shards, draws
+        return _weighted_sum(ctx_local.weights, dec_tree)
 
     def chunk_fold(self, ctx: ChannelContext, tree_chunk, phase: str,
                    chunk_index: int, chunk_weights, draws=None):

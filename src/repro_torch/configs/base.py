@@ -140,8 +140,8 @@ class TrainConfig:
     samples_per_client: int = 1     # clients/round = global_batch //
                                     # samples_per_client
     # D-CCO path: "fused" (centralized-equivalent) | "per_client" (the
-    # faithful per-client stop-grad combine); the reference's
-    # "shard_map" waits for ROADMAP §1, item 6
+    # faithful per-client stop-grad combine) | "shard_map" (the batch
+    # sharded over a mesh's ranks, core/dcco.py)
     dcco_impl: str = "fused"
 
 

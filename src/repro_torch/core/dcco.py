@@ -7,20 +7,30 @@
                their weighted aggregate, the stop-grad combine per client
                and the weighted per-client losses. It mirrors the
                protocol's math; its gradient equals the fused one (tested).
+  shard_map  — protocol-faithful at the device level: each rank of a mesh
+               plays a client cohort over its rows of the batch. Local
+               statistics, their mean over the data axes (one all-reduce,
+               the wire aggregation of Fig. 2), the stop-grad combine, the
+               loss; the same value on every rank.
 
-The reference's third path, ``shard_map`` (each device shard plays a
-client cohort, its statistics summed over the mesh), needs the cohort
-sharded over devices and waits for ROADMAP §1, item 6, 'Sharded and
-streaming cohorts'.
+The shard_map gradient is the reference's: ``shard_map``'s transpose hands
+each shard 1/S of the replicated loss's cotangent and sums the shards'
+parameter gradients, which is the fused gradient (Appendix A at device
+granularity). ``torch.distributed``'s all-reduce is not differentiable, so
+the statistics are reduced as values and the loss carries the 1/S in its
+graph (``_rank_share``): autograd on a rank gives its share of the global
+gradient, and the caller sums the parameter gradients over the axes
+(``launch/steps.py`` does).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import cco
+from repro_torch.sharding import collectives
 
 F32 = torch.float32
-IMPLS = ("fused", "per_client")
+IMPLS = ("fused", "per_client", "shard_map")
 
 
 def dcco_loss_fused(zf, zg, lam: float) -> torch.Tensor:
@@ -40,8 +50,42 @@ def dcco_loss_per_client(zf, zg, lam: float, clients: int) -> torch.Tensor:
     return (w * torch.func.vmap(client_loss)(st_k)).sum()
 
 
-def dcco_loss(zf, zg, lam: float, impl: str = "fused",
-              clients: int = 0) -> torch.Tensor:
+def _rank_share(loss, mesh, data_axes) -> torch.Tensor:
+    """``loss``'s value, with a gradient 1/S of its own (S the ranks over
+    ``data_axes``): a rank's share of the replicated loss's gradient."""
+    s = collectives.axis_size(mesh, data_axes)
+    return loss.detach() + (loss - loss.detach()) / s
+
+
+def dcco_loss_shard_map_local(zf_local, zg_local, lam: float, mesh,
+                              data_axes=("data",)) -> torch.Tensor:
+    """The body each rank runs over its rows ``zf_local``/``zg_local``
+    (equal shards): local statistics, their mean over ``data_axes`` (one
+    all-reduce of the detached values), the stop-grad combine, the local
+    loss; its value is the global loss's on every rank."""
+    local = cco.encoding_stats(zf_local, zg_local)
+    agg = collectives.pmean_tree(local, mesh, data_axes)
+    return cco.cco_loss_from_stats(cco.dcco_combine(local, agg), lam)
+
+
+def make_shard_map_dcco_loss(mesh, lam: float, data_axes=("data",)):
+    """``loss_fn(zf_local, zg_local)`` over this rank's rows of a batch
+    sharded over ``data_axes`` of ``mesh`` (a DeviceMesh): the D-CCO loss
+    of the whole batch on every rank, whose autograd gradient summed over
+    the ranks is the fused loss's gradient."""
+    collectives.check_mesh(mesh, data_axes)
+
+    def loss_fn(zf_local, zg_local):
+        return _rank_share(dcco_loss_shard_map_local(
+            zf_local, zg_local, lam, mesh, data_axes), mesh, data_axes)
+
+    return loss_fn
+
+
+def dcco_loss(zf, zg, lam: float, impl: str = "fused", clients: int = 0,
+              mesh=None, data_axes=("data",)) -> torch.Tensor:
+    """The D-CCO loss by ``impl``; ``"shard_map"`` takes this rank's rows
+    and the ``mesh`` they are sharded over."""
     if impl == "fused":
         return dcco_loss_fused(zf, zg, lam)
     if impl == "per_client":
@@ -50,9 +94,11 @@ def dcco_loss(zf, zg, lam: float, impl: str = "fused",
                              f"{clients}")
         return dcco_loss_per_client(zf, zg, lam, clients)
     if impl == "shard_map":
-        raise NotImplementedError(
-            "the shard_map D-CCO loss runs the cohort sharded over devices, "
-            "which the port does not do yet (ROADMAP §1, item 6, 'Sharded "
-            "and streaming cohorts'); use impl='fused' or 'per_client'")
+        if mesh is None:
+            raise ValueError(
+                "impl 'shard_map' needs the mesh the batch is sharded over "
+                "(a DeviceMesh: repro_torch.launch.mesh.make_debug_mesh or "
+                "repro_torch.sharding.make_multihost_mesh)")
+        return make_shard_map_dcco_loss(mesh, lam, data_axes)(zf, zg)
     raise ValueError(f"unknown dcco impl {impl!r}; expected one of "
                      f"{IMPLS}")

@@ -72,6 +72,18 @@ average and ``"fused"`` is refused: the cohort the kernel would read never
 materializes. SCAFFOLD, ``num_clusters > 1`` and ``async_k`` are refused
 beside it, as in the reference.
 
+``EngineConfig.cohort_axis`` shards the cohort over devices
+(:func:`stats_round_sharded`, the reference's ``shard_map`` body as SPMD
+over ``torch.distributed``): every rank draws the same cohort from the
+same round generator and works on its contiguous block of K / S clients,
+and the phase-1 aggregate, the phase-2 delta average and the loss are
+all-reduces over the axis of the engine's ``mesh`` (a ``DeviceMesh``;
+:mod:`repro_torch.sharding`). The sharded body computes per-client
+statistics, never the flattened cohort's, so there ``stats_kernel=None``
+resolves to ``"off"`` and ``"fused"`` is refused. Other algorithms,
+``cohort_chunk``, ``num_clusters > 1`` and a real buffered ``async_k``
+are refused beside it, as in the reference.
+
 ``run(ckpt_dir=, ckpt_every=, ckpt_name=)`` writes the reference's
 checkpoint blob at segment boundaries (:mod:`repro_torch.checkpoint`);
 restored and passed back in with ``start_round``, it continues the run
@@ -88,12 +100,14 @@ from torch.func import vmap
 from repro_torch import cluster as cluster_lib
 from repro_torch import utils
 from repro_torch.checkpoint import save_checkpoint
+from repro_torch.comm.channel import ChannelContext, _weighted_sum
 from repro_torch.core import buffer as buffer_lib
 from repro_torch.core import cco, fed_sim
 from repro_torch.data import latency as latency_lib
 from repro_torch.kernels.cco_stats import cco_stats
 from repro_torch.server import drift as drift_lib
 from repro_torch.server import update as server_update_lib
+from repro_torch.sharding import collectives
 
 F32 = torch.float32
 
@@ -187,6 +201,11 @@ class EngineConfig(NamedTuple):
                                     # peak memory O(cohort_chunk) instead
                                     # of O(cohort); needs a chunkable
                                     # sampler (make_streaming_sampler)
+    cohort_axis: Any = None         # mesh axis (or tuple of axes: the
+                                    # multi-host ("data", "client") mesh)
+                                    # to shard the K client axis over; the
+                                    # engine takes the mesh (RoundEngine(
+                                    # mesh=))
     # --- cluster-aware aggregation (repro_torch.cluster) ---
     num_clusters: int = 0           # >1: cosine k-means on the per-client
                                     # stats assigns each cohort client a
@@ -314,15 +333,183 @@ def _required_drift(drift):
     return drift
 
 
+# ---------------------------------------------------------------------------
+# sharded-cohort stats round (the client axis over a mesh axis, or over a
+# tuple of axes on the multi-host ("data", "client") mesh)
+# ---------------------------------------------------------------------------
+
+def stats_round_sharded(encoder_apply: Callable, params, opt_state,
+                        server_opt, client_data, client_sizes, mesh, *,
+                        objective, client_lr: float = 1.0,
+                        local_steps: int = 1, axis="data", channel=None,
+                        channel_key: Optional[int] = None,
+                        channel_draws=None, prox_mu: float = 0.0,
+                        scaffold_state=None):
+    """One two-phase stats round (any StatsObjective) with the (K, n, ...)
+    client axis sharded over ``axis`` of ``mesh`` (a DeviceMesh; a tuple
+    of axes shards it over their product). ``dcco_round_sharded`` is the
+    CCO-bound alias. Returns what ``fed_sim.stats_round`` returns.
+
+    SPMD over ``torch.distributed``: every rank calls it with the same
+    arguments (the whole cohort, the replicated parameters, optimizer and
+    SCAFFOLD states) and works on its contiguous block of K / S clients,
+    its block the rank's linear index over ``axis`` (row-major over a
+    tuple). The phase-1 aggregate, the phase-2 delta average and the loss
+    are all-reduces over ``axis``: the wire collectives of Fig. 2. The
+    result is ``fed_sim.stats_round``'s (weights N_k / the all-reduced N)
+    up to the regrouping of the Eq.-3 sums; on a world of one, bit for bit
+    the unsharded round with ``agg_stats_fn=None``.
+
+    With a ``channel``, ``begin_round`` runs on the whole cohort on every
+    rank (participation and weights replicated, no renormalization);
+    rank r draws its payloads' randomness from the round's seed folded
+    with r; ``post_aggregate`` takes the whole context, whose seed is
+    replicated, so every rank adds the same DP noise. ``channel_draws``
+    replaces the draws as in ``stats_round``, for this rank: ``"begin"``
+    and a DP channel's aggregate-shaped normals as there, a quantized
+    wire's uniforms for this rank's K / S clients, and a two-level tree's
+    ``{"client": ..., "edge": ...}`` for its clients and its E / S edges.
+
+    SCAFFOLD: the slot variates shard with the clients, the variate-delta
+    average is one more all-reduce (the ``"variate"`` phase), and the
+    refreshed slots are all-gathered so that ``scaffold_apply_round``
+    runs once on the (K, ...) slots, on every rank: the state equals the
+    unsharded one. ``wire_bytes`` and ``edge_bytes`` come from the whole
+    context, as in the reference.
+    """
+    server_update = server_update_lib.as_server_update(server_opt)
+    if scaffold_state is not None and channel is not None:
+        fed_sim.check_variate_noise(channel)
+    collectives.check_mesh(mesh, axis)
+    nshards = collectives.axis_size(mesh, axis)
+    rank = collectives.axis_index(mesh, axis)
+    k, n_pad = utils.tree_leaves(client_data)[0].shape[:2]
+    if k % nshards:
+        raise ValueError(f"a cohort of {k} clients does not split into the "
+                         f"{nshards} shards of mesh axis {axis!r}")
+    lo, hi = rank * (k // nshards), (rank + 1) * (k // nshards)
+
+    def block(tree):
+        return utils.tree_map(lambda x: x[lo:hi], tree)
+
+    batch_l, sizes_l = block(client_data), client_sizes[lo:hi]
+    masks = fed_sim._client_masks(sizes_l, n_pad)
+    draws = channel_draws or {}
+    two_hops = hasattr(channel, "hop_bytes")
+    if channel is None:
+        ctx = ctx_l = None
+        w_l = sizes_l.to(F32) / collectives.psum_tree(
+            sizes_l.to(F32).sum(), mesh, axis)
+    else:
+        if channel_key is None:
+            raise ValueError("channel requires channel_key")
+        ctx = channel.begin_round(channel_key, client_sizes,
+                                  draws.get("begin"))
+        ctx_l = ChannelContext(utils.fold_in(ctx.key, rank), ctx.mask[lo:hi],
+                               ctx.weights[lo:hi], ctx.num_participants)
+        w_l = ctx_l.weights
+    wire = torch.zeros((), dtype=F32, device=masks.device)
+    edge_wire = torch.zeros((), dtype=F32, device=masks.device)
+
+    def aggregate(tree_k, phase):
+        """The server aggregate of one payload: this rank's fold of its
+        clients, then the all-reduce over ``axis``."""
+        if ctx is None:
+            return collectives.psum_tree(_weighted_sum(w_l, tree_k), mesh,
+                                         axis)
+        pd = draws.get(phase)
+        if two_hops:
+            enc_d, fold_d = (pd or {}).get("client"), (pd or {}).get("edge")
+            post_d = fold_d
+        else:
+            enc_d, fold_d, post_d = pd, None, pd
+        dec = channel.encode_decode(ctx_l, tree_k, phase, enc_d)
+        part = channel.local_fold(ctx_l, dec, phase, num_shards=nshards,
+                                  draws=fold_d)
+        return channel.post_aggregate(
+            ctx, collectives.psum_tree(part, mesh, axis), phase, post_d)
+
+    def count_bytes(payload):
+        nonlocal wire, edge_wire
+        if ctx is not None:
+            total, edge = fed_sim.channel_bytes(channel, ctx, payload)
+            wire, edge_wire = wire + total, edge_wire + edge
+
+    # ---- phase 1: this rank's clients' stats; all-reduced aggregate
+    with torch.no_grad():
+        zf, zg = encoder_apply(params, fed_sim._flatten_clients(batch_l))
+        d = zf.shape[-1]
+        st_k = vmap(objective.stats_masked)(
+            zf.reshape(hi - lo, n_pad, d), zg.reshape(hi - lo, n_pad, d),
+            masks)
+        del zf, zg
+        agg = aggregate(st_k, "stats")
+        count_bytes(agg)
+
+    # ---- phase 2: local steps against the aggregate; all-reduced deltas
+    def client_update(batch, mask, corr=None):
+        def loss_fn(p):
+            zf_k, zg_k = encoder_apply(p, batch)
+            local = objective.stats_masked(zf_k, zg_k, mask)
+            return objective.loss_from_stats(objective.combine(local, agg))
+
+        return fed_sim.client_local_steps(loss_fn, params, client_lr,
+                                          local_steps, prox_mu=prox_mu,
+                                          correction=corr)
+
+    state_l = None
+    if scaffold_state is not None:
+        state_l = drift_lib.ScaffoldState(scaffold_state.c,
+                                          block(scaffold_state.c_slots))
+    deltas, losses_k = fed_sim._vmap_clients(client_update, batch_l, masks,
+                                             state_l)
+    with torch.no_grad():
+        avg_delta = aggregate(deltas, "update")
+        count_bytes(avg_delta)
+        loss = collectives.psum_tree((w_l * losses_k).sum(), mesh, axis)
+    params, opt_state = server_update.step(params, opt_state, avg_delta)
+    enc_std = objective.encoding_std(agg)
+    if scaffold_state is None:
+        return params, opt_state, fed_sim.RoundMetrics(loss, enc_std, wire,
+                                                       edge_wire)
+    with torch.no_grad():
+        ck_new = drift_lib.scaffold_new_slot_variates(
+            state_l, deltas, client_lr, local_steps)
+        del deltas
+        agg_dc = aggregate(utils.tree_map(torch.sub, ck_new,
+                                          state_l.c_slots), "variate")
+        count_bytes(agg_dc)
+        scaffold_state = drift_lib.scaffold_apply_round(
+            scaffold_state, collectives.all_gather_tree(ck_new, mesh, axis),
+            agg_dc, None if ctx is None else ctx.mask)
+    return params, opt_state, scaffold_state, fed_sim.RoundMetrics(
+        loss, enc_std, wire, edge_wire)
+
+
+def dcco_round_sharded(encoder_apply: Callable, params, opt_state, server_opt,
+                       client_data, client_sizes, mesh, *, lam: float = 20.0,
+                       objective=None, **round_kw):
+    """Sharded D-CCO == ``stats_round_sharded`` with the CCO objective
+    (``lam``); ``objective=`` selects another registered one."""
+    return stats_round_sharded(
+        encoder_apply, params, opt_state, server_opt, client_data,
+        client_sizes, mesh,
+        objective=fed_sim.resolve_objective(objective, lam), **round_kw)
+
+
 def make_round_body(encoder_apply: Callable, server_opt,
-                    cfg: EngineConfig) -> Callable:
+                    cfg: EngineConfig, mesh=None) -> Callable:
     """Build round_fn(params, opt_state, batch, sizes, channel_key=None,
     drift=None) -> (params, opt_state, metrics) for ``cfg.algorithm``;
     with ``cfg.scaffold`` it takes the ScaffoldState as ``drift=`` and
-    returns (params, opt_state, drift, metrics)."""
+    returns (params, opt_state, drift, metrics). With ``cfg.cohort_axis``
+    the round is ``stats_round_sharded`` over that axis of ``mesh``."""
     if cfg.algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}; "
                          f"expected one of {ALGORITHMS}")
+    if cfg.cohort_axis is not None and cfg.algorithm != "dcco":
+        raise NotImplementedError(
+            "sharded cohorts are implemented for the dcco body only")
     encoder_apply = cast_encoder_apply(encoder_apply, cfg.compute_dtype)
     objective = fed_sim.resolve_objective(cfg.objective, cfg.lam)
     if cfg.objective is not None and cfg.algorithm in (
@@ -359,6 +546,28 @@ def make_round_body(encoder_apply: Callable, server_opt,
                 f"{cfg.algorithm!r} ships client updates only — construct "
                 f"it with noise_phases=('update',) to noise the aggregate "
                 f"it actually releases")
+
+    if cfg.algorithm == "dcco" and cfg.cohort_axis is not None:
+        if mesh is None:
+            raise ValueError("cohort_axis requires a mesh")
+        if cfg.stats_kernel not in (None, "off"):
+            raise ValueError(
+                f"stats_kernel={cfg.stats_kernel!r} aggregates phase-1 "
+                f"stats from the flattened cohort; a sharded cohort "
+                f"all-reduces per-client statistics, so use "
+                f"stats_kernel='off' or None")
+
+        def round_fn(params, opt_state, batch, sizes, channel_key=None,
+                     drift=None):
+            return stats_round_sharded(
+                encoder_apply, params, opt_state, server_update, batch,
+                sizes, mesh, objective=objective, client_lr=cfg.client_lr,
+                local_steps=cfg.local_steps, axis=cfg.cohort_axis,
+                channel=channel, channel_key=channel_key,
+                prox_mu=cfg.prox_mu,
+                scaffold_state=_required_drift(drift) if cfg.scaffold
+                else None)
+        return round_fn
 
     if cfg.algorithm == "dcco":
         agg_stats_fn = _resolve_agg_stats_fn(cfg, objective)
@@ -421,6 +630,10 @@ def make_streaming_round_body(encoder_apply: Callable, server_opt,
         raise ValueError(
             f"cohort_chunk streams the two-phase stats round only "
             f"(algorithm 'dcco'), got {cfg.algorithm!r}")
+    if cfg.cohort_axis is not None:
+        raise ValueError(
+            "cohort_chunk and cohort_axis are two layouts for the same "
+            "client axis; stream it or shard it, not both")
     if cfg.scaffold:
         raise ValueError(
             "SCAFFOLD keeps per-cohort-slot variates resident, which is "
@@ -490,6 +703,11 @@ def make_async_round_body(encoder_apply: Callable, server_opt,
         raise ValueError(
             f"async_k buffers the two-phase stats round only "
             f"(algorithm 'dcco'), got {cfg.algorithm!r}")
+    if cfg.cohort_axis is not None:
+        raise ValueError(
+            "async_k and cohort_axis are not composed: the buffered "
+            "scheduler folds per-client contributions on one host; shard "
+            "the cohort or buffer it, not both")
     if cfg.stats_kernel == "fused":
         raise ValueError(
             "stats_kernel='fused' aggregates phase-1 stats from the "
@@ -635,7 +853,8 @@ class RoundEngine:
     """Drives rounds of ``cfg.algorithm``; see the module docstring."""
 
     def __init__(self, encoder_apply: Callable, server_opt,
-                 sampler: Callable, config: EngineConfig = EngineConfig()):
+                 sampler: Callable, config: EngineConfig = EngineConfig(),
+                 mesh=None):
         if config.chunk_rounds < 1:
             raise ValueError(
                 f"chunk_rounds must be >= 1, got {config.chunk_rounds}")
@@ -662,6 +881,9 @@ class RoundEngine:
                 "to seed its index state "
                 "(repro_torch.retrieval.make_refreshing_retrieval_eval does)")
         self._retrieval_keys = None  # metric names, from the first eval
+        # a sharded engine runs on every rank; rank 0 writes checkpoints
+        self._writes_checkpoints = (
+            mesh is None or torch.distributed.get_rank() == 0)
         self.config = config
         self.sampler = sampler
         self._encoder_apply = encoder_apply
@@ -690,6 +912,11 @@ class RoundEngine:
                 "num_clusters assigns clusters from the materialized "
                 "cohort's per-client stats; cohort_chunk never "
                 "materializes the cohort; drop one")
+        if self._clustered and config.cohort_axis is not None:
+            raise ValueError(
+                "num_clusters and cohort_axis are not composed: the "
+                "k-means assignment and per-cluster slots fold on one "
+                "host; shard the cohort or cluster it, not both")
         if self._async and self._streaming:
             raise ValueError(
                 "async_k and cohort_chunk are two schedulers for the same "
@@ -737,7 +964,7 @@ class RoundEngine:
                 encoder_apply, server_opt, config)
         else:
             self.round_fn = make_round_body(encoder_apply, server_opt,
-                                            config)
+                                            config, mesh)
 
     def _stat_spec(self, params, batch):
         """The objective's stat spec at the encoder's output width, which
@@ -892,7 +1119,8 @@ class RoundEngine:
                                        reval,
                                        () if drift is None else drift),
                            m)
-            if ckpt_dir and ckpt_every and done - last_ckpt >= ckpt_every:
+            if (ckpt_dir and ckpt_every and done - last_ckpt >= ckpt_every
+                    and self._writes_checkpoints):
                 blob = {"params": params, "opt": opt_state}
                 if scaffold:
                     blob["drift"] = drift

@@ -2,9 +2,8 @@
 # every stats payload makes aggregation exact under any summation tree, so
 # the cohort can fan in through edge aggregators (per-hop channels, per-hop
 # wire bytes) and stream through the round in fixed-size chunks with
-# O(chunk) peak memory. The reference's sharded fold (``local_fold``, the
-# cohort over devices) waits for ROADMAP §1, item 6, 'Sharded and
-# streaming cohorts'.
+# O(chunk) peak memory; sharded over devices, each rank folds its own
+# edges (``HierarchicalChannel.local_fold``).
 from repro_torch.hierarchy.aggregation import (  # noqa: F401
     HierarchicalChannel, HierarchicalContext, contiguous_edge_ids,
     fold_to_edges, segment_mass)

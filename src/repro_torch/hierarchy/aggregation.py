@@ -204,16 +204,24 @@ class HierarchicalChannel(Channel):
                             edge_ids=edge_ids.to(torch.int32))
 
     # ------------------------------------------------------------- wire --
-    def _client_view(self, ctx: HierarchicalContext) -> ChannelContext:
-        return ctx.client_ctx._replace(mask=ctx.mask, weights=ctx.weights)
+    def _client_view(self, ctx) -> ChannelContext:
+        """The client hop's view of a context: the composite's client
+        context with the effective mask and weights, or a plain context
+        as it is (a rank's slice in the sharded round)."""
+        if isinstance(ctx, HierarchicalContext):
+            return ctx.client_ctx._replace(mask=ctx.mask,
+                                           weights=ctx.weights)
+        return ctx
 
     def encode_decode(self, ctx, tree_k, phase: str, draws=None):
         return self.client_channel.encode_decode(self._client_view(ctx),
                                                  tree_k, phase, draws)
 
     def post_aggregate(self, ctx, tree, phase: str, draws=None):
-        return self.edge_channel.post_aggregate(ctx.edge_ctx, tree, phase,
-                                                draws)
+        if isinstance(ctx, HierarchicalContext):
+            return self.edge_channel.post_aggregate(ctx.edge_ctx, tree,
+                                                    phase, draws)
+        return tree
 
     def aggregate(self, ctx: HierarchicalContext, tree_k, phase: str,
                   draws=None):
@@ -231,6 +239,35 @@ class HierarchicalChannel(Channel):
             lambda v: torch.tensordot(ctx.edge_ctx.mask, v, dims=1), enc)
         return self.edge_channel.post_aggregate(ctx.edge_ctx, agg, phase,
                                                 draws.get("edge"))
+
+    def local_fold(self, ctx_local, dec_tree, phase: str, *,
+                   num_shards: int = 1, draws=None):
+        """Sharded-cohort fold: edges align with the mesh. Each rank folds
+        its K/num_shards clients into its E/num_shards edges (one launch
+        of the segment-sum kernel) and runs the edge hop on them under its
+        seed folded with the edge salt; the sum over ranks (the caller's
+        all-reduce) is the edge->server sum. ``draws``: the edge hop's
+        draws for this rank's edges."""
+        if self.collapses:
+            return super().local_fold(ctx_local, dec_tree, phase)
+        if self.num_edges % num_shards:
+            raise ValueError(
+                f"{self.num_edges} edges do not align with {num_shards} "
+                f"shards: num_edges must be a multiple of the cohort mesh "
+                f"axis size")
+        e_local = self.num_edges // num_shards
+        k_local = utils.tree_leaves(dec_tree)[0].shape[0]
+        dev = ctx_local.weights.device
+        partials = fold_to_edges(dec_tree, ctx_local.weights,
+                                 contiguous_edge_ids(k_local, e_local, dev),
+                                 e_local)
+        ectx_l = ChannelContext(
+            utils.fold_in(ctx_local.key, _EDGE_HOP_SALT),
+            torch.ones((e_local,), dtype=F32, device=dev),
+            torch.full((e_local,), 1.0 / e_local, dtype=F32, device=dev),
+            torch.tensor(float(e_local), dtype=F32, device=dev))
+        enc = self.edge_channel.encode_decode(ectx_l, partials, phase, draws)
+        return utils.tree_map(lambda v: v.sum(0), enc)
 
     def chunk_fold(self, ctx: HierarchicalContext, tree_chunk, phase: str,
                    chunk_index: int, chunk_weights, draws=None):

@@ -4,9 +4,10 @@ serving; each a plain function of (cfg, ...) over a parameter tree.
 
 Parameters are trees of tensors that never require grad themselves: a
 train step takes gradients with ``torch.autograd.grad`` of detached
-copies and returns fresh parameters. The reference's ``mesh``,
-``data_axes`` and ``constrain_sharding`` (the step sharded over a device
-mesh) wait for ROADMAP §1, item 6, 'Sharded and streaming cohorts'.
+copies and returns fresh parameters. With a ``mesh`` the D-CCO step is
+data-parallel over ``torch.distributed``: each rank takes its shard of the
+batch, and the step's collectives are the statistics' all-reduce and one
+all-reduce of the parameter gradients over the data axes.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from repro_torch import utils
 from repro_torch.core import cco, dcco
 from repro_torch.models import dual_encoder, transformer
 from repro_torch.optim import optimizers as opt_lib
+from repro_torch.sharding import collectives
 
 F32 = torch.float32
 
@@ -37,12 +39,21 @@ def _grads(loss, params):
             next(gs)), params)
 
 
-def _encoding_std(zf):
-    return torch.sqrt(zf.var(0, unbiased=False) + 1e-8).mean()
+def _encoding_std(zf, mesh=None, data_axes=("data",)):
+    """Mean per-dimension std of the encodings; over a mesh, of the whole
+    batch's, from the moments' mean over the data axes."""
+    if mesh is None:
+        return torch.sqrt(zf.var(0, unbiased=False) + 1e-8).mean()
+    z = zf.to(F32)
+    m = collectives.pmean_tree({"m": z.mean(0), "sq": (z * z).mean(0)},
+                               mesh, data_axes)
+    return torch.sqrt(torch.clamp(m["sq"] - m["m"] ** 2, min=0.0)
+                      + 1e-8).mean()
 
 
-def make_dcco_train_step(cfg, de_cfg, tcfg, server_opt,
-                         num_microbatches: int = 1):
+def make_dcco_train_step(cfg, de_cfg, tcfg, server_opt, mesh=None,
+                         data_axes=("data",), num_microbatches: int = 1,
+                         constrain_sharding: bool = False):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, with ``batch = {"view1": {leaf: (N, ...)}, "view2":
     {...}}`` and ``server_opt`` an :class:`repro_torch.optim.Optimizer`
@@ -68,12 +79,42 @@ def make_dcco_train_step(cfg, de_cfg, tcfg, server_opt,
     router_z`` of its two views (``add_aux``, the reference's), at micro 1
     and in each microbatch's phase-2 loss; ``metrics["loss"]`` includes
     it, as the reference's does.
+
+    ``mesh`` (a DeviceMesh over ``data_axes``) makes the step
+    data-parallel: ``batch`` is this rank's contiguous shard of the global
+    batch (the client axis sharded over the data axes), and every rank
+    returns the same parameters. At micro 1 the loss is the shard_map
+    D-CCO loss (:mod:`repro_torch.core.dcco`), for ``dcco_impl`` "fused"
+    as for "shard_map": over a rank's rows the global batch's fused loss
+    IS that loss, in value and gradient (Appendix A); the ranks' gradient
+    shares are summed by one all-reduce. At micro M > 1 phase 1's
+    statistics are averaged over the ranks too, and so are the ranks'
+    gradients. ``constrain_sharding`` (the reference keeps the
+    microbatches' batch dim sharded under XLA's reshape propagation) holds
+    by construction here, since a rank only ever holds its shard; it is
+    accepted and changes nothing. The per-client loss and an MoE tower's
+    aux losses (batch statistics of the routing) are not sharded, and are
+    refused with a mesh.
     """
+    del constrain_sharding
     lam = de_cfg.lambda_cco
     clients = 0
     if tcfg.dcco_impl == "per_client":
         clients = tcfg.global_batch // tcfg.samples_per_client
     nm = num_microbatches
+    impl = tcfg.dcco_impl
+    if mesh is not None:
+        collectives.check_mesh(mesh, data_axes)
+        if impl == "per_client":
+            raise ValueError("dcco_impl 'per_client' needs the whole batch "
+                             "on one rank; with a mesh use 'fused' or "
+                             "'shard_map'")
+        if cfg.moe is not None and cfg.moe.num_experts > 0:
+            raise ValueError("an MoE tower's aux losses are statistics of "
+                             "the whole batch's routing, which the sharded "
+                             "step does not all-reduce; run it without a "
+                             "mesh")
+        impl = "shard_map"
 
     def add_aux(loss, aux):
         if cfg.moe is not None and cfg.moe.num_experts > 0:
@@ -85,11 +126,15 @@ def make_dcco_train_step(cfg, de_cfg, tcfg, server_opt,
         p = _trainable(params)
         zf, zg, aux = dual_encoder.encode_pair(cfg, de_cfg, p,
                                                batch["view1"], batch["view2"])
-        loss = add_aux(dcco.dcco_loss(zf, zg, lam, impl=tcfg.dcco_impl,
-                                      clients=clients), aux)
+        loss = add_aux(dcco.dcco_loss(zf, zg, lam, impl=impl,
+                                      clients=clients, mesh=mesh,
+                                      data_axes=data_axes), aux)
         grads = _grads(loss, p)
+        if mesh is not None:
+            grads = collectives.psum_tree(grads, mesh, data_axes)
         return grads, {"loss": loss.detach(),
-                       "encoding_std": _encoding_std(zf.detach())}
+                       "encoding_std": _encoding_std(zf.detach(), mesh,
+                                                     data_axes)}
 
     def micro_grads(params, batch):
         n = utils.tree_leaves(batch)[0].shape[0]
@@ -108,6 +153,8 @@ def make_dcco_train_step(cfg, de_cfg, tcfg, server_opt,
                 if agg is None:
                     agg = {k: torch.zeros_like(v) for k, v in st.items()}
                 agg = {k: agg[k] + st[k] / nm for k in agg}
+            if mesh is not None:
+                agg = collectives.pmean_tree(agg, mesh, data_axes)
         # phase 2: a gradient for each microbatch against the combine
         p = _trainable(params)
 
@@ -134,8 +181,12 @@ def make_dcco_train_step(cfg, de_cfg, tcfg, server_opt,
             del g
             losses.append(loss.detach())
             stds.append(_encoding_std(zf.detach()))
-        return acc, {"loss": torch.stack(losses).mean(),
-                     "encoding_std": torch.stack(stds).mean()}
+        metrics = {"loss": torch.stack(losses).mean(),
+                   "encoding_std": torch.stack(stds).mean()}
+        if mesh is not None:
+            acc = collectives.pmean_tree(acc, mesh, data_axes)
+            metrics = collectives.pmean_tree(metrics, mesh, data_axes)
+        return acc, metrics
 
     grads_fn = single_grads if nm <= 1 else micro_grads
 

@@ -70,7 +70,11 @@ baselines ``fedavg_cco``, ``fedavg_contrastive``, ``fedavg_byol``, or
 ``centralized``) for callers in Python.
 
 Runs on the GPU unless ``--device cpu`` is given; without a GPU and
-without ``--device cpu`` it raises. ``--full`` trains the full-width
+without ``--device cpu`` it raises. ``main`` first joins the process
+group that the REPRO_* environment describes, if one is set
+(:func:`repro_torch.sharding.maybe_initialize_distributed`: NCCL, or
+gloo with ``--device cpu``), as the reference's does; each process then
+runs the same training. ``--full`` trains the full-width
 model (channels (64, 128, 256), 32x32 images, projection head
 (1024, 1024, 1024); for a token arch its published widths and depth, in
 bf16); the default ``--smoke`` config is the reduced one.
@@ -140,6 +144,7 @@ from repro_torch.models.dual_encoder import input_leaf, is_resnet
 from repro_torch.optim import optimizers as opt_lib, schedules
 from repro_torch.server import drift as drift_lib
 from repro_torch.server import update as server_update_lib
+from repro_torch.sharding import maybe_initialize_distributed
 from repro_torch.utils import resolve_device
 
 
@@ -629,8 +634,12 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     """Train; returns a summary (losses, ms per round, probe accuracy,
-    uplink bytes, final params) for callers that drive it in-process."""
-    return run(parse_args(argv))
+    uplink bytes, final params) for callers that drive it in-process.
+    Joins the REPRO_* world first (a no-op without that environment);
+    parsing the flags touches no device."""
+    args = parse_args(argv)
+    maybe_initialize_distributed(device=args.device)
+    return run(args)
 
 
 class _RunLog:

@@ -1,5 +1,5 @@
 from repro_torch.objectives.base import (  # noqa: F401
-    Stats, StatsObjective, per_client_loss)
+    Stats, StatsObjective, make_shard_map_loss, per_client_loss)
 from repro_torch.objectives.standard import (  # noqa: F401
     CCOObjective, VicRegObjective, WMSEObjective)
 

@@ -91,3 +91,26 @@ def per_client_loss(objective: StatsObjective, zf, zg,
         return objective.loss_from_stats(objective.combine(stats_k, agg))
 
     return (w * torch.func.vmap(client_loss)(st_k)).sum()
+
+
+def make_shard_map_loss(objective: StatsObjective, mesh,
+                        data_axes=("data",)):
+    """The shard_map loss of any StatsObjective: ``loss_fn(zf_local,
+    zg_local)`` over this rank's rows, local statistics -> their mean over
+    ``data_axes`` of ``mesh`` (one all-reduce, the Fig. 2 wire collective
+    at device granularity) -> stop-grad combine -> loss, the global loss's
+    value on every rank. Its autograd gradient is this rank's share, so
+    the parameter gradients summed over the ranks are the centralized
+    loss's (:mod:`repro_torch.core.dcco` says why)."""
+    from repro_torch.core.dcco import _rank_share
+    from repro_torch.sharding import collectives
+
+    collectives.check_mesh(mesh, data_axes)
+
+    def loss_fn(zf_local, zg_local):
+        local = objective.stats(zf_local, zg_local)
+        agg = collectives.pmean_tree(local, mesh, data_axes)
+        loss = objective.loss_from_stats(objective.combine(local, agg))
+        return _rank_share(loss, mesh, data_axes)
+
+    return loss_fn

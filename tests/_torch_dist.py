@@ -1,0 +1,313 @@
+"""Gloo worlds of CPU processes for the port's sharded paths.
+
+``run_world(tmp_path, world, tasks, inputs)`` starts ``world`` processes
+of this file, one rank each, joined through the REPRO_* environment
+(``repro_torch.sharding.maybe_initialize_distributed``) with a FileStore
+under ``tmp_path`` as coordinator: no TCP port, so worlds of parallel
+test workers never collide. Every rank loads the same ``inputs``, runs
+the named tasks on the port (it imports torch and ``repro_torch`` only)
+and writes its outputs with ``torch.save``; the parent test loads them
+and compares them with the reference. Each world has a 60 s collective
+timeout and a 180 s deadline, so a hung collective fails the test rather
+than the run.
+
+  python tests/_torch_dist.py <task,task,...> <world dir>   (one rank)
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+DEADLINE_S = 180.0
+LAM, LR = 5.0, 0.05
+
+
+# ------------------------------------------------------------ the parent --
+
+def run_world(tmp_path, world: int, tasks, inputs) -> list:
+    """Run ``tasks`` on a gloo world of ``world`` ranks; returns each
+    rank's outputs ({task: outputs})."""
+    d = Path(tmp_path) / f"world{world}"
+    d.mkdir()
+    torch.save(inputs, d / "inputs.pt")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    env.update({"REPRO_COORDINATOR": f"file://{d}/store",
+                "REPRO_NUM_PROCESSES": str(world),
+                "OMP_NUM_THREADS": "1"})
+    procs = []
+    for r in range(world):
+        env["REPRO_PROCESS_ID"] = str(r)
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, ",".join(tasks), str(d)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + DEADLINE_S
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("a rank failed:\n" + "\n".join(
+            f"--- rank {r} (rc {p.returncode}):\n{log}"
+            for r, (p, log) in enumerate(zip(procs, logs))))
+    return [torch.load(d / f"out{r}.pt", weights_only=True)
+            for r in range(world)]
+
+
+# ------------------------------------------------------- the toy model --
+
+def t_apply(p, batch):
+    """The toy dual encoder of tests/_torch_toy.py (which imports JAX)."""
+    def enc(x):
+        return torch.tanh(x @ p["w1"]) @ p["w2"]
+    return enc(batch["v1"]), enc(batch["v2"])
+
+
+def toy_sampler(pool, pool_sizes, k: int):
+    """``sampler(gen) -> (batch, sizes)``: k clients of the pool, drawn
+    without replacement on ``gen``."""
+    def sampler(gen):
+        idx = torch.randperm(pool_sizes.shape[0], generator=gen)[:k]
+        return {v: x[idx] for v, x in pool.items()}, pool_sizes[idx]
+    return sampler
+
+
+def _metrics(m):
+    return {"loss": m.loss, "encoding_std": m.encoding_std,
+            "wire_bytes": torch.as_tensor(m.wire_bytes),
+            "edge_bytes": torch.as_tensor(m.edge_bytes)}
+
+
+# ------------------------------------------------------------ the tasks --
+
+def _cohort_mesh(inp):
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding import make_multihost_mesh
+
+    import torch.distributed as dist
+    if inp["axis"] == "data":
+        return make_debug_mesh(dist.get_world_size())
+    return make_multihost_mesh(("data", "client"), ranks_per_host=2)
+
+
+def task_rounds(inp):
+    """One toy round each: lossless D-CCO (with the collectives it
+    counts), the same through DenseChannel, D-VICReg, SCAFFOLD, and with
+    the given per-rank draws an int8 round and an int8 round through an
+    edge tree."""
+    from repro_torch import comm
+    from repro_torch.core import round_engine
+    from repro_torch.hierarchy import HierarchicalChannel
+    from repro_torch.objectives import get_objective
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.server import drift as drift_lib
+    from repro_torch.sharding import axis_index, collectives
+
+    mesh, axis = _cohort_mesh(inp), inp["axis"]
+    rank = axis_index(mesh, axis)
+    p0, batch, sizes = inp["params"], inp["batch"], inp["sizes"]
+    opt = opt_lib.sgd(LR)
+    kw = dict(axis=axis, client_lr=LR)
+    out = {}
+
+    def run(name, **extra):
+        collectives.reset_counts()
+        res = round_engine.dcco_round_sharded(
+            t_apply, p0, opt.init(p0), opt, batch, sizes, mesh, lam=LAM,
+            **{**kw, **extra})
+        out[name] = {"params": res[0], **_metrics(res[-1]),
+                     "counts": {k: torch.tensor([c["calls"], c["bytes"]])
+                                for k, c in collectives.counts.items()}}
+        if len(res) == 4:
+            out[name]["c"], out[name]["c_slots"] = res[2]
+        return res
+
+    run("dcco")
+    run("dense", channel=comm.DenseChannel(), channel_key=7)
+    run("dvicreg", objective=get_objective("dvicreg"))
+    run("scaffold", scaffold_state=drift_lib.scaffold_init(
+        p0, sizes.shape[0]), local_steps=2, client_lr=0.01)
+    try:
+        round_engine.dcco_round_sharded(
+            t_apply, p0, opt.init(p0), opt,
+            {v: x[:-1] for v, x in batch.items()}, sizes[:-1], mesh,
+            axis=axis)
+    except ValueError as e:
+        out["ragged_error"] = str(e)
+    if "int8_draws" in inp:
+        run("int8", channel=comm.QuantizedChannel(8), channel_key=11,
+            channel_draws=inp["int8_draws"][rank])
+        run("tree", channel=HierarchicalChannel(
+            inp["edges"], client_channel=comm.QuantizedChannel(8)),
+            channel_key=11, channel_draws=inp["tree_draws"][rank])
+    return out
+
+
+def task_engine(inp):
+    """Three engine rounds over the cohort axis, lossless and with
+    SCAFFOLD, from the toy sampler, checkpointing into a directory of
+    this rank's own."""
+    from repro_torch.core import round_engine
+    from repro_torch.optim import optimizers as opt_lib
+
+    import tempfile
+
+    mesh = _cohort_mesh(inp)
+    sampler = toy_sampler(inp["pool"], inp["pool_sizes"], inp["k"])
+    ckpt_dir = tempfile.mkdtemp()
+    out = {}
+    for name, extra in (("lossless", {}),
+                        ("scaffold", {"scaffold": True, "local_steps": 2,
+                                      "client_lr": 0.01})):
+        opt = opt_lib.sgd(LR)
+        cfg = round_engine.EngineConfig(
+            **{"lam": LAM, "client_lr": LR, "chunk_rounds": 2,
+               "cohort_axis": inp["axis"], **extra})
+        eng = round_engine.RoundEngine(t_apply, opt, sampler, cfg,
+                                       mesh=mesh)
+        p, _, m = eng.run(inp["params"], opt.init(inp["params"]), seed=3,
+                          rounds=3, ckpt_dir=ckpt_dir, ckpt_every=2,
+                          ckpt_name=name)
+        out[name] = {"params": p, "loss": m.loss,
+                     "encoding_std": m.encoding_std,
+                     "checkpoints": sorted(os.listdir(ckpt_dir))}
+        if eng.drift_state is not None:
+            out[name]["c"], out[name]["c_slots"] = eng.drift_state
+    return out
+
+
+def task_losses(inp):
+    """The shard_map losses over this rank's rows of a toy linear-tanh
+    encoder: each loss and its parameter gradient summed over the ranks."""
+    from repro_torch.core import dcco
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.objectives import get_objective, make_shard_map_loss
+    from repro_torch.sharding import axis_index, axis_size, psum_tree
+
+    import torch.distributed as dist
+    mesh = make_debug_mesh(dist.get_world_size())
+    s, r = axis_size(mesh, "data"), axis_index(mesh, "data")
+    n = inp["x"].shape[0] // s
+    x, y = inp["x"][r * n:(r + 1) * n], inp["y"][r * n:(r + 1) * n]
+    out = {}
+    for name in ("dcco", "dvicreg", "dwmse"):
+        w = inp["w"].clone().requires_grad_()
+        zf, zg = torch.tanh(x @ w), torch.tanh(y @ w)
+        if name == "dcco":
+            loss = dcco.dcco_loss(zf, zg, LAM, impl="shard_map", mesh=mesh)
+        else:
+            loss = make_shard_map_loss(get_objective(name), mesh)(zf, zg)
+        (g,) = torch.autograd.grad(loss, w)
+        out[name] = {"loss": loss.detach(), "grad": psum_tree(g, mesh,
+                                                              "data")}
+    return out
+
+
+def task_step(inp):
+    """One ``make_dcco_train_step(mesh=)`` step of the smoke ResNet on
+    this rank's rows of the batch, at micro 1 and 2."""
+    from repro_torch.configs.base import (DualEncoderConfig, TrainConfig,
+                                          get_config)
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.sharding import axis_index, axis_size
+
+    import torch.distributed as dist
+    mesh = make_debug_mesh(dist.get_world_size())
+    s, r = axis_size(mesh, "data"), axis_index(mesh, "data")
+    cfg = get_config("resnet14-cifar", smoke=True).replace(resnet_groups=2)
+    n = inp["views"][0].shape[0] // s
+    batch = {f"view{i + 1}": {"images": v[r * n:(r + 1) * n]}
+             for i, v in enumerate(inp["views"])}
+    opt = opt_lib.sgd(inp["lr"])
+    out = {}
+    for micro in (1, 2):
+        step = steps.make_dcco_train_step(
+            cfg, DualEncoderConfig(proj_dims=(64, 64), lambda_cco=LAM),
+            TrainConfig(global_batch=n * s, samples_per_client=2,
+                        dcco_impl="shard_map"), opt, mesh=mesh,
+            num_microbatches=micro, constrain_sharding=True)
+        p, _, m = step(inp["params"], opt.init(inp["params"]), batch)
+        out[f"micro{micro}"] = {"params": p, "loss": m["loss"],
+                                "encoding_std": m["encoding_std"]}
+    return out
+
+
+def task_corpus(inp):
+    """``ShardedCorpusIndex`` over a corpus mesh of the world: this rank
+    keeps its shard; the search merges every rank's candidates."""
+    from repro_torch import retrieval
+    from repro_torch.sharding import make_corpus_mesh
+
+    mesh = make_corpus_mesh()
+    index = retrieval.ShardedCorpusIndex(inp["emb"], mesh.size(),
+                                         mesh=mesh)
+    v, i = index.search(inp["q"], inp["k"])
+    out = {"values": v, "indices": i,
+           "local_rows": torch.tensor(index.shards.shape[:2])}
+    try:
+        index.refresh(None, None, None, threshold=0.0)
+    except NotImplementedError as e:
+        out["refresh_error"] = str(e)
+    return out
+
+
+def task_mesh(inp):
+    """The (hosts, ranks per host) mesh's shape and this rank's place,
+    and host_local_to_global of a slice that names its rank."""
+    from repro_torch.sharding import (axis_index, host_local_to_global,
+                                      make_multihost_mesh)
+
+    import torch.distributed as dist
+    mesh = make_multihost_mesh(("data", "client"), ranks_per_host=2)
+    r = dist.get_rank()
+    local = {"a": torch.full((2, 3), float(r)),
+             "b": torch.arange(2, dtype=torch.int32) + 10 * r}
+    return {"shape": torch.tensor(tuple(mesh.shape)),
+            "names": list(mesh.mesh_dim_names),
+            "index": torch.tensor([axis_index(mesh, ("data", "client")),
+                                   axis_index(mesh, "data"),
+                                   axis_index(mesh, "client")]),
+            "global": host_local_to_global(mesh, ("data", "client"), local),
+            "replicated": host_local_to_global(mesh, None, local)}
+
+
+TASKS = {"rounds": task_rounds, "engine": task_engine,
+         "losses": task_losses, "step": task_step, "corpus": task_corpus,
+         "mesh": task_mesh}
+
+
+def main() -> None:
+    import torch.distributed as dist
+
+    from repro_torch.sharding import maybe_initialize_distributed
+
+    torch.set_num_threads(1)
+    tasks, d = sys.argv[1].split(","), Path(sys.argv[2])
+    if not maybe_initialize_distributed(device="cpu", timeout_s=60.0):
+        raise SystemExit("the REPRO_* environment is not set")
+    try:
+        inputs = torch.load(d / "inputs.pt", weights_only=True)
+        out = {t: TASKS[t](inputs[t]) for t in tasks}
+        torch.save(out, d / f"out{dist.get_rank()}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

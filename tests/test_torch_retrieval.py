@@ -38,6 +38,7 @@ from repro_torch.launch import train
 from repro_torch.models import dual_encoder
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch import retrieval
+from repro_torch.sharding import make_corpus_mesh, maybe_initialize_distributed
 
 import _torch_toy as toy
 
@@ -152,7 +153,7 @@ def test_sharded_search_equals_unsharded_bit_for_bit(shards):
     assert torch.equal(whole[0][:3, 0], whole[0][:3, 1])
 
 
-def test_mips_refusals():
+def test_mips_refusals(tmp_path):
     q, c = torch.zeros(2, 4), torch.zeros(300, 4)
     with pytest.raises(ValueError, match="exceeds 256"):
         mips_topk(q, c, 257)
@@ -162,11 +163,28 @@ def test_mips_refusals():
         mips_topk(q, torch.zeros(10, 5), 3)
     with pytest.raises(ValueError, match="2\\^30"):
         mips_topk(q, c, 3, index_offset=0, n_total=2 ** 30)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         retrieval.ShardedCorpusIndex(c, 2, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         retrieval.sharded_mips_topk(q, c.reshape(2, 150, 4), 3, n_total=300,
                                     mesh=object())
+    # a corpus mesh of one rank (this process, a gloo world of one)
+    assert maybe_initialize_distributed(
+        {"REPRO_COORDINATOR": f"file://{tmp_path}/store",
+         "REPRO_NUM_PROCESSES": "1", "REPRO_PROCESS_ID": "0"},
+        device="cpu", timeout_s=60.0)
+    try:
+        mesh = make_corpus_mesh()
+        with pytest.raises(ValueError, match="axis size 1"):
+            retrieval.ShardedCorpusIndex(c, 2, mesh=mesh)
+        with pytest.raises(ValueError, match="one shard"):
+            retrieval.sharded_mips_topk(q, c.reshape(2, 150, 4), 3,
+                                        n_total=300, mesh=mesh)
+        one = retrieval.ShardedCorpusIndex(c, 1, mesh=mesh)
+        assert all(torch.equal(a, b) for a, b in zip(
+            one.search(q, 3), mips_topk(q, c, 3)))
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_mips_cuda_tensor_never_reaches_the_plain_version(monkeypatch,

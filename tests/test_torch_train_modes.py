@@ -95,8 +95,10 @@ def test_fused_and_per_client_agree_in_value_and_gradient():
 
 def test_dcco_loss_refusals():
     z = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="needs the mesh"):
         dcco.dcco_loss(z, z, LAM, impl="shard_map")
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        dcco.dcco_loss(z, z, LAM, impl="shard_map", mesh=object())
     with pytest.raises(ValueError, match="clients >= 1"):
         dcco.dcco_loss(z, z, LAM, impl="per_client")
     with pytest.raises(ValueError, match="unknown dcco impl"):
