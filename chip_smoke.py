@@ -201,8 +201,9 @@ Phases (each prints its lines; any failure exits non-zero):
      holds every step within SRV_TOL x max(1, max |logits|), printing the
      distance block by block if a step departs; (d) D-CCO through ``train
      --stats-kernel fused`` (materialized, ``cco_stats`` once a round) on
-     xlstm-350m at its full config and zamba2-2.7b cut to one superblock
-     (``--num-layers 6``), REC_K clients x 2 sequences of 128, bf16,
+     xlstm-350m cut to 8 layers and zamba2-2.7b cut to one superblock
+     (``--num-layers 8`` and ``6``), REC_K clients x 2 sequences of 128,
+     bf16,
      REC_ROUNDS rounds: losses finite, ms a round, peak GiB, the
      ``cco_stats`` and flash launches a round. Each tower is freed before
      the next.
@@ -234,11 +235,23 @@ Phases (each prints its lines; any failure exits non-zero):
      internvl2-2b cut over the paper's cross-modal pair (Fig. 1c), the
      batch laid out by ``launch.inputs.train_input_specs``: a finite
      loss, a nonzero gradient of the patch projector, flash 2 a layer.
+  15. the cohort sharded over devices, on a world of one NCCL rank (see
+     its comment block).
+  16. the nine examples of ``repro_torch.examples`` through their
+     ``main``, each in a launch window of its own held to the launches
+     its path makes (EXAMPLES), with the quickstart's Appendix-A check in
+     f64; and, in phase 15's world, ``make_production_mesh`` (1, 1) with
+     ``multi_pod`` refused, the full-width TinyLlama-1.1B laid out by
+     ``sharding.specs`` with ``distribute_tensor`` and back bit for bit,
+     and every token arch's bytes a device on the 256-GPU stand-ins.
 Then one JSON line of kernel figures, and the device line last.
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
+import contextlib
 import dataclasses
 import gc
+import importlib
+import io
 import json
 import math
 from pathlib import Path
@@ -247,6 +260,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -259,7 +273,8 @@ from repro_torch import comm, utils  # noqa: E402
 from repro_torch.checkpoint import (  # noqa: E402
     restore_checkpoint, save_checkpoint)
 from repro_torch.configs.base import (  # noqa: E402
-    DualEncoderConfig, TrainConfig, get_config, get_dual_encoder_config)
+    ARCH_IDS, DualEncoderConfig, TrainConfig, get_config,
+    get_dual_encoder_config)
 from repro_torch.core import fed_sim, round_engine  # noqa: E402
 from repro_torch.data import partition, pipeline, synthetic  # noqa: E402
 from repro_torch.hierarchy import (  # noqa: E402
@@ -282,9 +297,10 @@ from repro_torch.models.common import embed, rmsnorm  # noqa: E402
 from repro_torch.objectives import get_objective  # noqa: E402
 from repro_torch.optim import optimizers as opt_lib, schedules  # noqa: E402
 from repro_torch import hierarchy, retrieval  # noqa: E402
-from repro_torch.launch.mesh import HardwareSpec, make_debug_mesh  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    HardwareSpec, make_debug_mesh, make_production_mesh)
 from repro_torch.sharding import (  # noqa: E402
-    collectives, make_corpus_mesh, maybe_initialize_distributed)
+    collectives, make_corpus_mesh, maybe_initialize_distributed, specs)
 from tools.time_cco_stats import eager_ms, time_ms  # noqa: E402
 
 ROUNDS = 5            # the DCCO path
@@ -993,11 +1009,14 @@ def release(res):
 def _window(label, fn, expected):
     """``fn()`` with every launch count set to 0 just before and read just
     after; fails unless the counts are ``expected`` (kernel -> launches,
-    the others 0). Returns fn's result and the counts."""
+    the others 0; or a function of fn's result giving them, where the
+    work depends on the data). Returns fn's result and the counts."""
     _reset_counts()
     out = fn()
     torch.cuda.synchronize()
     counts = _read_counts()
+    if callable(expected):
+        expected = expected(out)
     want = {k: expected.get(k, 0) for k in counts}
     if counts != want:
         fail(f"{label}: kernel launches {counts}, expected {want}")
@@ -2151,10 +2170,14 @@ def deepseek_phase(device):
 # of TOK_S, materialized, REC_ROUNDS rounds; zamba2-2.7b cut to one
 # superblock (ZAMBA_CUT = 6 layers, widths kept): the whole 2.8B tower
 # at K = 4 would hold K f32 deltas and the server's state beside it,
-# where TinyLlama's 1.1B already peaks at ~58 GiB of the 80.
+# where TinyLlama's 1.1B already peaks at ~58 GiB of the 80; xlstm-350m
+# cut to 4 of its 12 superblocks (XLSTM_CUT = 8 layers), as the whole
+# tower's round (~11 s, its first ~31 s, the sLSTM loop) held the
+# script's time past half its limit.
 REC_ARCHS = ("zamba2-2.7b", "xlstm-350m")
 REC_B, REC_PROMPT, REC_DECODE = 4, 128, 16
-REC_K, REC_ROUNDS, ZAMBA_CUT = 4, 2, 6
+REC_K, REC_ROUNDS, ZAMBA_CUT, XLSTM_CUT = 4, 2, 6, 8
+REC_CUTS = {"zamba2-2.7b": ZAMBA_CUT, "xlstm-350m": XLSTM_CUT}
 
 
 def _whole(cfg, s):
@@ -2352,9 +2375,8 @@ def recurrent_phase(device):
         flags = ["--arch", arch, "--seq-len", str(TOK_S),
                  "--samples-per-client", str(TOK_N), "--clients-per-round",
                  str(REC_K), "--stats-kernel", "fused"]
-        if arch == "zamba2-2.7b":
-            cfg = cfg.replace(num_layers=ZAMBA_CUT)
-            flags += ["--num-layers", str(ZAMBA_CUT)]
+        cfg = cfg.replace(num_layers=REC_CUTS[arch])
+        flags += ["--num-layers", str(REC_CUTS[arch])]
         n_attn = cfg.num_superblocks * cfg.block_pattern.count("attn")
         # phase 1 and phase 2 (K clients folded into one launch) each run
         # both views' forwards
@@ -2904,10 +2926,245 @@ def sharded_phase(device):
         torch.cuda.empty_cache()
         counts += sharded_step(device, mesh)
         counts += sharded_corpus(device)
+        print(f"phase 15 {time.perf_counter() - t_phase:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        production_layouts(device)
     finally:
         torch.distributed.destroy_process_group()
-    print(f"phase 15 {time.perf_counter() - t_phase:.1f} s", flush=True)
     return counts
+
+
+# phase 16: the nine examples of repro_torch.examples and the reference's
+# sharding layouts. (a) each example through its ``main`` (EXAMPLES: name,
+# argv, the launches its path makes), in a launch window of its own,
+# cuDNN's deterministic algorithms on (the examples' Eq.-3 exactness
+# lines print max|diff| between two runs); federated_vicreg also with
+# ``--channel none``, where no quantized wire keeps the statistics
+# kernel's full moment set from running. quickstart, federated_cifar,
+# dual_encoder_text and serve_retrieval run at the reference scripts'
+# defaults; the five with a "CI smoke" line in their docstrings at those
+# arguments (SMOKE), since at their defaults phase 16 took 101.5 s on
+# the card, past its 90 s. Rounds of
+# the smoke ResNet: the engine's D-CCO body takes ``cco_stats`` once a
+# round (cross; the full set for D-VICReg and D-WMSE) unless the channel
+# needs per-client payloads; an int8 client hop quantizes the statistics
+# and the deltas (column 2 a round); a lossy two-level tree folds the edge
+# mass, the statistics and the deltas (segment_sum 3 a round); the
+# buffered engine folds the dispatch and its count (2 a tick); the
+# FedAvg+CCO, contrastive and centralized bodies, the DP and dropout
+# channels, streamed cohorts and the Appendix-A check (fed_sim's rounds,
+# no statistics function) launch nothing. The smoke token towers (2
+# layers, f32, Dh 32) take flash 2 a forward: dual_encoder_text's fused
+# step over 2 microbatches makes 12 a microbatch (phase 1, the
+# checkpointed forward and its recompute, 2 views), its two probes 2
+# each; serve_retrieval's index build 2 a chunk of 64, the queries 2, the
+# drift probes 2 and 2 a refreshed block, the prefill 2, decode none.
+QS_ROUNDS, CIFAR_ROUNDS, TEXT_ROUNDS, SMOKE_ROUNDS = 30, 60, 40, 3
+SMOKE = ["--rounds", str(SMOKE_ROUNDS), "--dataset-size", "120"]
+TEXT_FLASH = 2 * 12 * TEXT_ROUNDS + 2 * 2
+EXAMPLES = [
+    ("quickstart", [], {"cross": QS_ROUNDS}),
+    # dcco on each of the 3 splits
+    ("federated_cifar", [], {"cross": 3 * CIFAR_ROUNDS}),
+    ("federated_vicreg", SMOKE, {"column": 3 * 2 * SMOKE_ROUNDS}),
+    ("federated_vicreg", SMOKE + ["--channel", "none"],
+     {"cross": SMOKE_ROUNDS, "full": 2 * SMOKE_ROUNDS}),
+    # dense: the flat statistics; int8: both payloads quantized
+    ("federated_comm", SMOKE, {"cross": SMOKE_ROUNDS,
+                               "column": 2 * SMOKE_ROUNDS}),
+    ("federated_noniid", SMOKE, {"cross": 4 * SMOKE_ROUNDS}),
+    # flat dense, then two int8 trees; the 3-round flat run and the
+    # dense-dense tree of the check, which collapses to the flat sum but
+    # still folds its per-edge mass when a round begins (1 a round); one
+    # streamed cohort of 32 (60 clients hold one chunk-aligned cohort)
+    ("federated_hierarchy", SMOKE + ["--mega-cohort", "64"],
+     {"cross": SMOKE_ROUNDS + 2 * 3, "column": 2 * 2 * SMOKE_ROUNDS,
+      "fold": 2 * 3 * SMOKE_ROUNDS + 3}),
+    # the sync run; two buffered runs; the check's sync run and the
+    # buffered run at K = cohort (which runs the sync body)
+    ("federated_async", SMOKE, {"cross": SMOKE_ROUNDS + 2 * 3,
+                                "fold": 2 * 2 * SMOKE_ROUNDS}),
+    ("dual_encoder_text", [], {"flash": TEXT_FLASH}),
+    # 256 docs in chunks of 64; warm-up and one batch of queries; 4 shards;
+    # k-means of 8 iterations (sums and counts)
+    ("serve_retrieval", [], lambda out: {
+        "flash": 2 * (256 // 64) + 2 + 2 * (
+            1 + int(out["refresh"]["blocks_refreshed"])) + 2,
+        "search": 2, "offset": 4, "fold": 16}),
+]
+
+
+def _numbers(tree, key=""):
+    """(key, float) of every number in an example's summary."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _numbers(v, str(k))]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _numbers(v, key)]
+    if isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        return [(key, float(tree))]
+    return []
+
+
+def quickstart_f64(device):
+    """The quickstart's Appendix-A check (step 3) on its own inputs, in
+    f64: the f32 ratio it prints is rounding at the smoke config's
+    GroupNorm of 2-channel groups (ROADMAP section 3), so the identity is
+    gated here where it holds, at 1e-4 of the update
+    (tests/test_torch_examples.py)."""
+    from repro_torch.examples import _common, quickstart
+
+    args = types.SimpleNamespace(device=device.type, dataset_size=600,
+                                 classes=5)
+    s = _common.resnet_setup(args)
+    ds = _common.label_sharded({"images": s.imgs}, s.labels,
+                               num_clients=128, samples_per_client=2)
+    batch, sizes = ds.round_batch(utils.generator(42, device),
+                                  quickstart.COHORT, device)
+
+    def f64(tree):
+        return utils.tree_map(lambda x: x.double(), tree)
+    ratio = quickstart.appendix_a_ratio(s.apply, f64(s.params0), f64(batch),
+                                        sizes)
+    print(f"quickstart's Appendix-A check in f64 on the card: |fed - "
+          f"centralized| / |update| = {ratio:.3e}", flush=True)
+    if not ratio < 1e-4:
+        fail("the quickstart's D-CCO round does not equal its centralized "
+             "step in f64")
+
+
+def examples_phase(device):
+    """(a) of phase 16; returns the windows' counts."""
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    counts = []
+    try:
+        for name, argv, expected in EXAMPLES:
+            mod = importlib.import_module(f"repro_torch.examples.{name}")
+            buf = io.StringIO()
+
+            def run():
+                with contextlib.redirect_stdout(buf):
+                    return mod.main(argv)
+            t0 = time.perf_counter()
+            out, c = _window(f"example {name} {argv}", run, expected)
+            wall = time.perf_counter() - t0
+            counts.append(c)
+            lines = buf.getvalue().rstrip().splitlines()
+            for line in lines[-8:]:
+                print(f"  {name}| {line}", flush=True)
+            print(f"example {' '.join([name, *argv])}: {wall:.2f} s wall, "
+                  f"kernel launches "
+                  f"{ {k: v for k, v in c.items() if v} }", flush=True)
+            nums = _numbers({k: v for k, v in out.items()
+                             if k not in ("params", "generated")})
+            bad = [(k, v) for k, v in nums if not math.isfinite(v)
+                   and k != "epsilon"]
+            bad += [(k, v) for k, v in nums
+                    if k.startswith("probe") and not 0.0 <= v <= 1.0]
+            for key in ("tree_vs_flat", "buffered_vs_sync"):
+                if key in out and out[key] != 0.0:
+                    bad.append((key, out[key]))
+            if not nums or bad:
+                fail(f"example {name}: {bad or 'no numbers'}")
+            if name == "quickstart":
+                quickstart_f64(device)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"phase 16 (a) {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
+LAYOUT_ARCH = "tinyllama-1.1b"
+STAND_INS = {"(16, 16)": ((16, 16), ("data", "model")),
+             "(2, 16, 16)": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+@dataclasses.dataclass
+class _StandIn:
+    """A production mesh's axis names and sizes, for the layout rules."""
+    shape: tuple
+    mesh_dim_names: tuple
+
+
+def production_layouts(device):
+    """(b)-(d) of phase 16, in phase 15's world of one: the production
+    mesh; the full-width TinyLlama-1.1B parameters (random bf16 of the
+    shapes-only tree, drawn on the card from seed 0) laid out with
+    ``distribute_tensor`` by ``named(mesh, param_pspecs(...))``, with
+    the mesh's own specs and with the (16, 16) stand-in's of both modes,
+    ``full_tensor()`` bit for bit; each token arch's parameter bytes a
+    device under both modes on both stand-ins, from its shapes-only
+    tree."""
+    from torch.distributed.tensor import distribute_tensor
+
+    t0 = time.perf_counter()
+    mesh = make_production_mesh()
+    if tuple(mesh.shape) != (1, 1) or \
+            tuple(mesh.mesh_dim_names) != ("data", "model"):
+        fail(f"make_production_mesh() on a world of one gave {mesh}")
+    try:
+        make_production_mesh(multi_pod=True)
+    except ValueError as e:
+        print(f"phase 16 (b): make_production_mesh() = {mesh}; "
+              f"multi_pod=True refused: {e}", flush=True)
+    else:
+        fail("make_production_mesh(multi_pod=True) took a world of one")
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = utils.tree_map(
+        lambda x: torch.randn(x.shape, generator=gen, device=device).to(
+            x.dtype), inputs_lib.param_shapes(get_config(LAYOUT_ARCH)))
+    n_params = sum(x.numel() for x in utils.tree_leaves(params))
+    stand_in = _StandIn(*STAND_INS["(16, 16)"])
+    for label, spec_tree in (
+            ("the mesh's own tp specs", specs.param_pspecs(params, mesh)),
+            ("(16, 16) tp specs", specs.param_pspecs(params, stand_in)),
+            ("(16, 16) fsdp specs",
+             specs.param_pspecs(params, stand_in, mode="fsdp"))):
+        placed = {}
+
+        def lay_out(path, leaf, spec):
+            placements = specs.named(mesh, spec)
+            dt = distribute_tensor(leaf, mesh, placements)
+            if not torch.equal(dt.full_tensor(), leaf):
+                fail(f"phase 16 (c): {LAYOUT_ARCH} {path} under {spec} "
+                     f"did not come back bit for bit")
+            key = str(placements)
+            placed[key] = placed.get(key, 0) + 1
+        specs._map_with_path(lay_out, params, spec_tree)
+        torch.cuda.synchronize()
+        print(f"phase 16 (c): {LAYOUT_ARCH} ({n_params} parameters) laid "
+              f"out by {label} on {tuple(mesh.shape)}, every leaf back bit "
+              f"for bit; leaves by placements {placed}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    gib = 2 ** 30
+    for arch in ARCH_IDS:
+        if arch == "resnet14-cifar":
+            continue
+        cfg = get_config(arch)
+        tree = inputs_lib.param_shapes(cfg)
+        total = sum(x.numel() * x.element_size()
+                    for x in utils.tree_leaves(tree))
+        m = _StandIn(*STAND_INS["(16, 16)"])
+        cells = [f"{mode} {specs.device_bytes(tree, specs.param_pspecs(tree, m, mode=mode), m) / gib:.4f} GiB"  # noqa: E501
+                 for mode in ("tp", "fsdp")]
+        # the dual encoder's Adam state under ZeRO-1, on both stand-ins
+        adam = inputs_lib.opt_state_shapes(
+            opt_lib.adam(1e-3), inputs_lib.dual_encoder_shapes(
+                cfg, get_dual_encoder_config(arch)))
+        for name, (shape, names) in STAND_INS.items():
+            m = _StandIn(shape, names)
+            zero1 = specs.opt_state_pspecs(specs.param_pspecs(adam, m), adam,
+                                           m)
+            cells.append(f"Adam state ZeRO-1 on {name} "
+                         f"{specs.device_bytes(adam, zero1, m) / gib:.4f} GiB")
+        print(f"phase 16 (d): {arch} parameters {total / gib:.4f} GiB in "
+              f"all; a device of (16, 16): " + ", ".join(cells), flush=True)
+    print(f"phase 16 (b)-(d) {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main():
@@ -3106,6 +3363,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     runs += sharded_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += examples_phase(device)
     print(f"tinyllama peak device memory: fedavg_contrastive "
           f"{tok_fedavg['peak_gib']:.2f} GiB, dcco "
           f"{tok_dcco['peak_gib']:.2f} GiB, dcco fedprox (2 local steps) "

@@ -1,9 +1,14 @@
 """The assigned input shapes and a stand-in tensor for every model input,
-on the ``meta`` device: shapes and dtypes only, nothing allocated.
+and the shapes-only trees of the parameters, the optimizer state and the
+decode cache, on the ``meta`` device: shapes and dtypes only, nothing
+allocated and nothing drawn.
 
-The reference's ``ShapeDtypeStruct`` specs (``jax.ShapeDtypeStruct``)
-become ``torch.empty(..., device="meta")``: a meta tensor carries the
-shape and dtype, and a model traced on it makes meta outputs.
+The reference's ``ShapeDtypeStruct`` specs (``jax.ShapeDtypeStruct``,
+``jax.eval_shape`` of an init) become ``torch.empty(..., device="meta")``
+trees: a meta tensor carries the shape and dtype, and a model traced on
+it makes meta outputs. Every tree builds in well under a second at full
+width (the 16B MoE towers included), which is what the layout rules of
+:mod:`repro_torch.sharding.specs` read.
 """
 from __future__ import annotations
 
@@ -11,6 +16,8 @@ import dataclasses
 from typing import Dict
 
 import torch
+
+from repro_torch.models import dual_encoder, transformer
 
 META = torch.device("meta")
 
@@ -84,3 +91,25 @@ def prefill_input_specs(cfg, shape: InputShape):
 def decode_input_specs(cfg, shape: InputShape):
     """One token a sequence."""
     return {"tokens": _tok(shape.global_batch, 1)}
+
+
+def param_shapes(cfg):
+    """The token tower's parameter tree (``transformer.init_params``)."""
+    return transformer.init_params(cfg, None, META)
+
+
+def dual_encoder_shapes(cfg, de_cfg):
+    """The dual encoder's parameter tree (``init_dual_encoder``)."""
+    return dual_encoder.init_dual_encoder(None, cfg, de_cfg, META)
+
+
+def opt_state_shapes(opt, params):
+    """``opt``'s state for a shapes-only ``params`` (Adam: f32 moments
+    ``m`` and ``v`` beside the parameters and an int32 ``step``)."""
+    return opt.init(params)
+
+
+def cache_shapes(cfg, batch: int, max_len: int):
+    """The decode cache for ``batch`` sequences of ``max_len`` positions
+    (``transformer.init_cache``)."""
+    return transformer.init_cache(cfg, batch, max_len, META)

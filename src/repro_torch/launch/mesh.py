@@ -1,16 +1,43 @@
 """Meshes and the card's constants.
 
-``make_debug_mesh`` is the reference's small ("data", "model") mesh, here
-a ``torch.distributed.device_mesh.DeviceMesh`` over the world that
-:func:`repro_torch.sharding.maybe_initialize_distributed` initialized (a
-function, never a module-level constant, so importing this module touches
-no device and no process group). The reference's TPU production mesh
-(``make_production_mesh``) waits with its dry run for ROADMAP §1, item 6,
-part 3, 'Sharded and streaming cohorts'.
+``make_production_mesh`` and ``make_debug_mesh`` are the reference's
+("data", "model") meshes, here ``torch.distributed.device_mesh.DeviceMesh``
+objects over the world that
+:func:`repro_torch.sharding.maybe_initialize_distributed` initialized
+(functions, never module-level constants, so importing this module
+touches no device and no process group).
 """
 from __future__ import annotations
 
-from repro_torch.sharding.multihost import init_mesh
+import torch.distributed as dist
+
+from repro_torch.sharding import multihost
+from repro_torch.sharding.multihost import init_mesh, ranks_on_this_host
+
+PODS = 2                # the reference's multi-pod mesh: 2 pods in front
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production layout of the world it is given: ("data", "model"),
+    "model" over the ranks of one host (the ranks sharing this host's
+    name: one collective) and "data" over the hosts; ``multi_pod=True``
+    splits the hosts into ("pod", "data") with 2 pods in front, the
+    reference's (2, 16, 16) TPU layout on a world of 2 x 16 hosts of 16.
+    A world that does not split so raises ValueError."""
+    multihost._device_type()        # raises without a process group
+    world = dist.get_world_size()
+    per = ranks_on_this_host()
+    if world % per:
+        raise ValueError(f"{world} ranks do not split into hosts of "
+                         f"{per} ranks")
+    hosts = world // per
+    if not multi_pod:
+        return init_mesh((hosts, per), ("data", "model"))
+    if hosts % PODS:
+        raise ValueError(f"multi_pod needs the hosts to split into {PODS} "
+                         f"pods; the world has {hosts} host(s) of {per} "
+                         f"ranks")
+    return init_mesh((PODS, hosts // PODS, per), ("pod", "data", "model"))
 
 
 def make_debug_mesh(data: int = 1, model: int = 1):

@@ -25,10 +25,20 @@ def dtype_of(name: str):
             "float16": torch.float16, "float64": torch.float64}[name]
 
 
-def truncated_normal(gen: torch.Generator, shape, lo: float = -2.0,
+def randn(gen, shape) -> torch.Tensor:
+    """Standard normal f32 draws on the generator's device; with no
+    generator an empty ``meta`` tensor (module docstring)."""
+    if gen is None:
+        return torch.empty(shape, dtype=F32, device="meta")
+    return torch.randn(shape, generator=gen, dtype=F32, device=gen.device)
+
+
+def truncated_normal(gen, shape, lo: float = -2.0,
                      hi: float = 2.0) -> torch.Tensor:
     """Standard normal truncated to [lo, hi], by inverse CDF (f32, on the
-    generator's device)."""
+    generator's device; with no generator an empty ``meta`` tensor)."""
+    if gen is None:
+        return torch.empty(shape, dtype=F32, device="meta")
     cdf = lambda v: 0.5 * (1.0 + math.erf(v / math.sqrt(2.0)))  # noqa: E731
     u = torch.rand(shape, generator=gen, dtype=torch.float64,
                    device=gen.device)
@@ -125,8 +135,7 @@ def apply_rope(x, positions, theta: float = 10000.0):
 
 def embedding_init(gen, vocab: int, d_model: int, dtype=torch.bfloat16,
                    device="cpu"):
-    emb = torch.randn((vocab, d_model), generator=gen, dtype=F32,
-                      device=gen.device) * 0.02
+    emb = randn(gen, (vocab, d_model)) * 0.02
     return {"table": emb.to(device, dtype)}
 
 

@@ -36,8 +36,11 @@ def input_leaf(cfg) -> str:
 
 def init_dual_encoder(gen, cfg, de_cfg, device="cpu"):
     """Random parameters from ``gen`` (a CPU ``torch.Generator`` or an int
-    seed), placed on ``device``."""
-    if isinstance(gen, int):
+    seed), placed on ``device``; on ``"meta"`` the tree of shapes alone,
+    nothing drawn."""
+    if torch.device(device).type == "meta":
+        gen = None
+    elif isinstance(gen, int):
         gen = torch.Generator().manual_seed(gen)
     dtype = dtype_of(cfg.dtype)
     if is_resnet(cfg):

@@ -38,7 +38,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.models.common import F32, swiglu, swiglu_init, \
+from repro_torch.models.common import F32, randn, swiglu, swiglu_init, \
     truncated_normal
 
 _routes = None     # a list while record_routes() is open, else None
@@ -80,8 +80,7 @@ def moe_init(gen, d_model: int, moe_cfg, dtype, device="cpu"):
         return (truncated_normal(gen, shape) * scale).to(device, dtype)
 
     p = {
-        "router": {"w": (torch.randn((d_model, e), generator=gen, dtype=F32,
-                                     device=gen.device) * std).to(device)},
+        "router": {"w": (randn(gen, (d_model, e)) * std).to(device)},
         # stacked expert weights, leading dim = experts
         "experts": {
             "gate": experts((e, d_model, dff), std),

@@ -26,8 +26,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (F32, linear, linear_init, rmsnorm,
-                                       rmsnorm_init)
+from repro_torch.models.common import (F32, linear, linear_init, randn,
+                                       rmsnorm, rmsnorm_init)
 
 NEG_INF = -1e30
 
@@ -47,8 +47,7 @@ def mamba2_init(gen, cfg, dtype, device="cpu"):
     d = cfg.d_model
     d_inner, heads, conv_dim = _dims(cfg)
     n, w = cfg.ssm.state, cfg.ssm.conv_width
-    conv_w = torch.randn((w, conv_dim), generator=gen, dtype=F32,
-                         device=gen.device) / math.sqrt(w)
+    conv_w = randn(gen, (w, conv_dim)) / math.sqrt(w)
     return {
         # order: [z (gate, d_inner) | x (d_inner) | B (n) | C (n) | dt (heads)]
         "in_proj": linear_init(gen, d, 2 * d_inner + 2 * n + heads, dtype,

@@ -144,9 +144,12 @@ def init_params(cfg, gen, device="cpu") -> Dict[str, Any]:
     leading axis under ``"layers"`` (``{"b0": slot 0, ...}``, the
     reference's tree), the
     dense prologue under ``"prologue"``, a vision-text tower's patch
-    projector under ``"vis_proj"``."""
+    projector under ``"vis_proj"``. On ``device="meta"`` nothing is drawn
+    and ``gen`` is not read: the tree of shapes and dtypes alone."""
     dtype = dtype_of(cfg.dtype)
-    if (cfg.moe is not None or set(cfg.block_pattern) != {"attn"}
+    if torch.device(device).type == "meta":
+        gen = None           # shapes only: nothing drawn (models.common)
+    elif (cfg.moe is not None or set(cfg.block_pattern) != {"attn"}
             or cfg.modality != "text"):
         gen = utils.generator(
             int(torch.randint(0, 2 ** 62, (), generator=gen)), device)

@@ -22,8 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (F32, linear, linear_init, rmsnorm,
-                                       rmsnorm_init)
+from repro_torch.models.common import (F32, linear, linear_init, randn,
+                                       rmsnorm, rmsnorm_init)
 
 LOG_EPS = -1e30
 
@@ -189,8 +189,7 @@ def slstm_init(gen, cfg, dtype, device="cpu"):
     # 4 gates (i, f, z, o): input weights (d -> 4d) and per-head
     # recurrent (h, dh, dh)
     def rec():
-        r = torch.randn((h, dh, dh), generator=gen, dtype=F32,
-                        device=gen.device) / math.sqrt(dh)
+        r = randn(gen, (h, dh, dh)) / math.sqrt(dh)
         return r.to(device, dtype)
 
     return {

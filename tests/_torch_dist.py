@@ -287,9 +287,66 @@ def task_mesh(inp):
             "replicated": host_local_to_global(mesh, None, local)}
 
 
+def task_layouts(inp):
+    """``make_production_mesh`` on the world (its ranks on one host, and
+    seen as 2 hosts of 2 or hosts of 3), and each parameter tree laid out
+    on the (2, 2) mesh by ``named(mesh, param_pspecs(...))`` (both modes;
+    the Adam state by ZeRO-1's ``opt_state_pspecs``): every leaf's local
+    shard shape, and whether ``full_tensor()`` gives the leaf back bit
+    for bit."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding import specs
+
+    def shape_of(m):
+        return list(m.shape), list(m.mesh_dim_names)
+
+    def on_hosts_of(per, **kw):
+        # a world of one machine, seen as hosts of ``per`` ranks
+        real = mesh_lib.ranks_on_this_host
+        mesh_lib.ranks_on_this_host = lambda: per
+        try:
+            return mesh_lib.make_production_mesh(**kw)
+        finally:
+            mesh_lib.ranks_on_this_host = real
+
+    out = {"mesh": {"default": shape_of(mesh_lib.make_production_mesh())}}
+    mesh = on_hosts_of(2)
+    out["mesh"]["2x2"] = shape_of(mesh)
+    out["mesh"]["multi_pod"] = shape_of(on_hosts_of(2, multi_pod=True))
+    for key, make in (
+            ("multi_pod_one_host",
+             lambda: mesh_lib.make_production_mesh(multi_pod=True)),
+            ("uneven", lambda: on_hosts_of(3))):
+        try:
+            make()
+        except ValueError as e:
+            out["mesh"][key] = str(e)
+
+    def lay_out(tree, spec_tree):
+        local, same = {}, {}
+
+        def one(path, leaf, spec):
+            dt = distribute_tensor(leaf, mesh, specs.named(mesh, spec))
+            local[path] = torch.tensor(tuple(dt.to_local().shape))
+            same[path] = torch.tensor(torch.equal(dt.full_tensor(), leaf))
+        specs._map_with_path(one, tree, spec_tree)
+        return {"local": local, "same": same}
+
+    for arch, tree in inp["params"].items():
+        for mode in ("tp", "fsdp"):
+            out[f"{arch}/{mode}"] = lay_out(
+                tree, specs.param_pspecs(tree, mesh, mode=mode))
+    adam = inp["adam"]
+    out["adam/zero1"] = lay_out(adam, specs.opt_state_pspecs(
+        specs.param_pspecs(adam, mesh), adam, mesh))
+    return out
+
+
 TASKS = {"rounds": task_rounds, "engine": task_engine,
          "losses": task_losses, "step": task_step, "corpus": task_corpus,
-         "mesh": task_mesh}
+         "mesh": task_mesh, "layouts": task_layouts}
 
 
 def main() -> None:
