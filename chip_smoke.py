@@ -244,6 +244,17 @@ Phases (each prints its lines; any failure exits non-zero):
      ``multi_pod`` refused, the full-width TinyLlama-1.1B laid out by
      ``sharding.specs`` with ``distribute_tensor`` and back bit for bit,
      and every token arch's bytes a device on the 256-GPU stand-ins.
+  17. the dry run (``launch/dryrun.py``): (a) DRY_CASES, every family, on
+     fake worlds of 256 and 512 ranks with fake ``cuda`` tensors, each
+     arch cut to one superblock (its prologue kept) at full width, train
+     at DRY_MICRO microbatches, the cases in parallel worker processes:
+     one roofline line a case; (b) on a fake world of one, the fake
+     trace of TinyLlama-1.1B's fused step (DRY_B sequences of DRY_S,
+     full depth, micro 1), then the same step run for real on the card
+     in a launch window (flash as many times as the trace recorded, held
+     against its plain version at the step's shape): the FLOPs
+     (``FlopCounterMode`` plus the flash formula) equal to the trace's,
+     and ``max_memory_allocated`` within DRY_BAND of the trace's peak.
 Then one JSON line of kernel figures, and the device line last.
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -2941,11 +2952,12 @@ def sharded_phase(device):
 # cuDNN's deterministic algorithms on (the examples' Eq.-3 exactness
 # lines print max|diff| between two runs); federated_vicreg also with
 # ``--channel none``, where no quantized wire keeps the statistics
-# kernel's full moment set from running. quickstart, federated_cifar,
-# dual_encoder_text and serve_retrieval run at the reference scripts'
-# defaults; the five with a "CI smoke" line in their docstrings at those
-# arguments (SMOKE), since at their defaults phase 16 took 101.5 s on
-# the card, past its 90 s. Rounds of
+# kernel's full moment set from running. quickstart, dual_encoder_text
+# and serve_retrieval run at the reference scripts' defaults; the six
+# with a "CI smoke" line in their docstrings at those arguments (SMOKE),
+# since at their defaults phase 16 took 101.5 s on the card, past its
+# 90 s (federated_cifar, 28.4 s of it at its defaults, joined them to
+# make room for phase 17). Rounds of
 # the smoke ResNet: the engine's D-CCO body takes ``cco_stats`` once a
 # round (cross; the full set for D-VICReg and D-WMSE) unless the channel
 # needs per-client payloads; an int8 client hop quantizes the statistics
@@ -2960,13 +2972,13 @@ def sharded_phase(device):
 # checkpointed forward and its recompute, 2 views), its two probes 2
 # each; serve_retrieval's index build 2 a chunk of 64, the queries 2, the
 # drift probes 2 and 2 a refreshed block, the prefill 2, decode none.
-QS_ROUNDS, CIFAR_ROUNDS, TEXT_ROUNDS, SMOKE_ROUNDS = 30, 60, 40, 3
+QS_ROUNDS, TEXT_ROUNDS, SMOKE_ROUNDS = 30, 40, 3
 SMOKE = ["--rounds", str(SMOKE_ROUNDS), "--dataset-size", "120"]
 TEXT_FLASH = 2 * 12 * TEXT_ROUNDS + 2 * 2
 EXAMPLES = [
     ("quickstart", [], {"cross": QS_ROUNDS}),
     # dcco on each of the 3 splits
-    ("federated_cifar", [], {"cross": 3 * CIFAR_ROUNDS}),
+    ("federated_cifar", SMOKE, {"cross": 3 * SMOKE_ROUNDS}),
     ("federated_vicreg", SMOKE, {"column": 3 * 2 * SMOKE_ROUNDS}),
     ("federated_vicreg", SMOKE + ["--channel", "none"],
      {"cross": SMOKE_ROUNDS, "full": 2 * SMOKE_ROUNDS}),
@@ -3165,6 +3177,147 @@ def production_layouts(device):
         print(f"phase 16 (d): {arch} parameters {total / gib:.4f} GiB in "
               f"all; a device of (16, 16): " + ", ".join(cells), flush=True)
     print(f"phase 16 (b)-(d) {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# phase 17: the dry run. (a) a subset of `launch.dryrun`'s cases that
+# covers every family (dense GQA on all four shapes and a multi-pod train,
+# MoE train, MLA decode, the Mamba2 hybrid's and the xLSTM's prefill, the
+# vision-text train), each cut to one superblock so that the traces fit
+# the phase's time; the sweep at full depth is the CLI's (`--all
+# --multi-pod both`, PERF.md). (b) the trace held to a real run on a
+# world of one: the same step, the same FLOPs, the peak within DRY_BAND
+# (the band PERF.md stated before the first run).
+DRY_CASES = [("tinyllama-1.1b", s, False) for s in (
+    "train_4k", "prefill_32k", "decode_32k", "long_500k")] + [
+    ("tinyllama-1.1b", "train_4k", True),
+    ("deepseek-moe-16b", "train_4k", False),
+    ("deepseek-v2-lite-16b", "decode_32k", False),
+    ("zamba2-2.7b", "prefill_32k", False),
+    ("xlstm-350m", "prefill_32k", False),
+    ("internvl2-2b", "train_4k", False)]
+DRY_MICRO = 2
+DRY_WORKERS = 5
+DRY_ARCH, DRY_B, DRY_S = "tinyllama-1.1b", 8, 128
+DRY_BAND = 0.20
+
+
+def _dry_case(arch, shape, multi_pod):
+    """One case of phase 17 (a), in a worker process: the record."""
+    from repro_torch.launch import dryrun
+    cfg = get_config(arch)
+    cfg = cfg.replace(num_layers=cfg.num_prologue + len(cfg.block_pattern))
+    return dryrun.run_case(arch, shape, multi_pod, device="cuda", cfg=cfg,
+                           num_microbatches=DRY_MICRO)
+
+
+def _dry_line(rec):
+    r, m, c = rec["roofline"], rec["memory"], rec["collectives"]
+    axes = {k: f"{v['wire_bytes'] / 2 ** 20:.1f}MiB/{v['calls']}"
+            for k, v in c["by_axis"].items()}
+    return (f"{rec['arch']} {rec['shape']} "
+            f"{'multi' if rec['multi_pod'] else 'single'} {rec['mesh']}: "
+            f"trace {rec['trace_s']} s, peak {m['peak_bytes'] / 2 ** 30:.3f} "
+            f"GiB a device (arguments {m['argument_size_in_bytes']}, temp "
+            f"{m['temp_size_in_bytes']}), {rec['flops_per_device']:.4e} "
+            f"FLOP (flash {rec['flash_calls']} calls), "
+            f"{rec['bytes_per_device']:.4e} B, wire by axis {axes}; "
+            f"compute {r['compute_s']:.4e} s, memory {r['memory_s']:.4e} "
+            f"s, collectives {r['collective_s']:.4e} s: {r['dominant']}")
+
+
+def dryrun_phase(device):
+    """Phase 17 (see the module docstring); returns (b)'s window's
+    counts."""
+    import multiprocessing
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(DRY_WORKERS) as pool:
+        recs = pool.starmap(_dry_case, DRY_CASES)
+    for rec in recs:
+        vals = [rec["flops_per_device"], rec["bytes_per_device"],
+                rec["memory"]["peak_bytes"], rec["roofline"]["compute_s"]]
+        if not all(math.isfinite(v) and v > 0 for v in vals):
+            fail(f"phase 17 (a): {rec['arch']} {rec['shape']}: {vals}")
+        print("phase 17 (a) " + _dry_line(rec), flush=True)
+    print(f"phase 17 (a) {time.perf_counter() - t_phase:.1f} s "
+          f"({len(recs)} cases, {DRY_WORKERS} workers)", flush=True)
+
+    # (b) the fake trace on a world of one, then the step for real
+    t0 = time.perf_counter()
+    shape = inputs_lib.InputShape("phase17", DRY_S, DRY_B, "train")
+    kw = {"num_microbatches": 1}
+    with dryrun.fake_world(1):
+        mesh = make_production_mesh(ranks_per_host=1, device_type="cuda")
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            step, args = dryrun.build_case(DRY_ARCH, shape, mesh, **kw)
+            fake_rec = dryrun.trace_step(step, args, mesh)
+    del step, args
+    trace_s = time.perf_counter() - t0
+    cfg = get_config(DRY_ARCH).replace(attn_impl="blockwise", remat="full")
+    de_cfg = get_dual_encoder_config(DRY_ARCH)
+    opt = opt_lib.adam(5e-3)
+    real_step = steps_lib.make_dcco_train_step(
+        cfg, de_cfg, TrainConfig(global_batch=DRY_B), opt,
+        num_microbatches=1, constrain_sharding=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    # random weights of the shapes-only tree, drawn on the card; the
+    # peak is counted from here, with the step's arguments in place
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = utils.tree_map(
+        lambda x: (torch.randn(x.shape, generator=gen, device=device)
+                   * 0.02).to(x.dtype),
+        inputs_lib.dual_encoder_shapes(cfg, de_cfg))
+    state = opt.init(params)
+    batch = {v: {"tokens": torch.randint(
+        0, cfg.vocab_size, (DRY_B, DRY_S), generator=gen, device=device,
+        dtype=torch.int32)} for v in ("view1", "view2")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        with flash_mod.record_calls() as calls, \
+                FlopCounterMode(display=False) as fc:
+            out = real_step(params, state, batch)
+        torch.cuda.synchronize()
+        return out, calls, fc.get_total_flops()
+
+    (out, calls, flops), counts = _window(
+        "phase 17 (b) real step", run, {"flash": fake_rec["flash_calls"]})
+    peak = torch.cuda.max_memory_allocated() - base
+    loss = float(out[2]["loss"])
+    real_flops = flops + sum(flash_mod.forward_flops(*c) for c in calls)
+    del out, params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_flash(DRY_B, 32, 4, DRY_S, DRY_S, 64, torch.bfloat16,
+                "phase 17 (b) step shape")
+    fake_peak = fake_rec["memory"]["peak_bytes"]
+    print(f"phase 17 (b): {DRY_ARCH} fused step {DRY_B} x {DRY_S} on a "
+          f"world of one: trace {trace_s:.1f} s, loss {loss:.4f}; FLOPs "
+          f"trace {fake_rec['flops_per_device']:.6e} real "
+          f"{real_flops:.6e}; peak trace {fake_peak / 2 ** 30:.4f} GiB "
+          f"real max_memory_allocated {peak / 2 ** 30:.4f} GiB (ratio "
+          f"{peak / fake_peak:.4f}, band {DRY_BAND}); flash {len(calls)} "
+          f"calls", flush=True)
+    if not math.isfinite(loss):
+        fail(f"phase 17 (b): loss {loss}")
+    if real_flops != fake_rec["flops_per_device"]:
+        fail(f"phase 17 (b): FLOPs differ: trace "
+             f"{fake_rec['flops_per_device']}, real {real_flops}")
+    if abs(peak / fake_peak - 1.0) > DRY_BAND:
+        fail(f"phase 17 (b): peak {peak} outside {DRY_BAND} of the "
+             f"trace's {fake_peak}")
+    print(f"phase 17 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return [counts]
 
 
 def main():
@@ -3366,6 +3519,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     runs += examples_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += dryrun_phase(device)
     print(f"tinyllama peak device memory: fedavg_contrastive "
           f"{tok_fedavg['peak_gib']:.2f} GiB, dcco "
           f"{tok_dcco['peak_gib']:.2f} GiB, dcco fedprox (2 local steps) "

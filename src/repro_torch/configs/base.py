@@ -7,12 +7,14 @@ mLSTM/sLSTM), the vision-text tower (internvl2-2b: projected patch
 embeddings prepended to the tokens) and the audio decoder over codec
 tokens (musicgen-large); the fields kept are the ones their dual encoders
 read, with the reference's names and defaults.
-The reference's mesh-only fields (``act_shard_axes``,
-``fsdp_model_size``), its layer-scan options (``scan_layers``,
-``layer_chunks``, ``remat``), ``attn_block``, ``parallel_block``,
-``tie_embeddings`` (every ported config ties) and the dual encoder's
-``pool`` (always the mean) have no counterpart: no ported config sets
-them away from the default.
+The knobs the reference's dry run drives are kept with its names and
+defaults: ``remat``, ``parallel_block`` and the mesh-only
+``act_shard_axes`` and ``fsdp_model_size`` (``models/transformer.py``).
+Its layer-scan options ``scan_layers`` and ``layer_chunks`` have no
+counterpart (the layers are a Python loop, with no ``while`` loop to
+hoist a gather out of), nor do ``attn_block``, ``tie_embeddings`` (every
+ported config ties) and the dual encoder's ``pool`` (always the mean):
+no config sets them away from the default.
 """
 from __future__ import annotations
 
@@ -103,6 +105,16 @@ class ModelConfig:
     # attention impl: "blockwise" (the CUDA flash-attention kernel for
     # Sq > 1) or "naive" (materialized scores, plain torch)
     attn_impl: str = "blockwise"
+    # remat policy of the layer stack: "none" | "full" (each superblock
+    # under torch.utils.checkpoint)
+    remat: str = "none"
+    # PaLM-style parallel attention + FFN off one norm
+    parallel_block: bool = False
+    # mesh axes each block's output rows are sharded over (DTensor only)
+    act_shard_axes: Optional[Tuple[str, ...]] = None
+    # FSDP: the "model" axis size each layer's weights are re-sharded
+    # over at superblock entry (0 = off; DTensor only)
+    fsdp_model_size: int = 0
 
     @property
     def resolved_head_dim(self) -> int:

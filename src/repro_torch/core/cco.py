@@ -14,6 +14,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.sharding import dtensor
 from repro_torch.utils import at_least_f32
 
 F32 = torch.float32
@@ -46,7 +47,10 @@ def moment_stats(zf, zg, mask=None, *, second_moments: bool = False) -> Stats:
         if second_moments:
             st["cov_f"] = zf.T @ zf / n
             st["cov_g"] = zg.T @ zg / n
-        return st
+        # on DTensors whose rows are sharded: each statistic reduced over
+        # the ranks here (its all-reduce), so that no pending mean meets a
+        # pending sum downstream
+        return {k: dtensor.settle(v) for k, v in st.items()}
     w = mask.to(F32)
     n = torch.clamp(w.sum(), min=1.0)
     zf_m = zf * w[:, None]
@@ -115,7 +119,12 @@ def correlation_matrix(stats: Stats, eps: float = 1e-8,
 
 
 def cco_loss_from_stats(stats: Stats, lam: float = 20.0) -> torch.Tensor:
-    """Paper Eq. 1 with the 1/(d-1) off-diagonal normalization."""
+    """Paper Eq. 1 with the 1/(d-1) off-diagonal normalization. On
+    DTensor statistics (reduced, so replicated) each rank computes it on
+    its copy (``dtensor.replicated_call``)."""
+    if dtensor.is_dtensor(stats["cross"]):
+        return dtensor.replicated_call(
+            lambda st: cco_loss_from_stats(st, lam), stats)
     c = correlation_matrix(stats)
     d = c.shape[0]
     diag = torch.diagonal(c)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import _build, ref
 
@@ -25,7 +26,10 @@ F32 = torch.float32
 
 
 def _device_type(t: torch.Tensor) -> str:
-    return t.device.type
+    """``"meta"`` for a shape trace (a meta or fake tensor, which the
+    wrapper refuses: it never reads a fake tensor's pointer), else the
+    tensor's device type."""
+    return "meta" if is_fake(t) else t.device.type
 
 
 _OUTS = {"cross": 5, "full": 7}   # output pointers of each entry point

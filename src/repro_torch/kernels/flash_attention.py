@@ -17,8 +17,12 @@ that its blocks divide them.
 On a CUDA tensor the wrapper launches the kernel, or raises: it never
 hands a CUDA tensor to the plain version. On a CPU tensor it runs the
 plain version, :func:`repro_torch.kernels.ref.flash_attention_ref` (and on
-a ``meta`` tensor, a shape trace, it only makes the outputs).
-``flash_attention.launches["forward"]`` counts kernel launches.
+a ``meta`` tensor or a ``FakeTensor`` of any device, a shape trace, it
+only makes the outputs: it never reads a pointer or launches).
+``flash_attention.launches["forward"]`` counts kernel launches. Within
+:func:`record_calls` every forward, on any route, appends its shape, from
+which :func:`forward_flops` counts the kernel's work (a dispatch-mode FLOP
+counter cannot see inside the kernel).
 
 The Pallas kernel has no backward; the reference trains through the
 ``jax.checkpoint``-ed jnp scan of ``models/attention.py``. Here the
@@ -30,10 +34,12 @@ over K clients (phase 2 of a round) makes ONE launch for all of them.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import _build, ref
 
@@ -43,8 +49,49 @@ HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (128, 128), (192, 128))
 MAX_BATCH = 65535              # B is the grid's z dimension
 
 
+BQ = BKV = 64                  # the kernel's query and kv tile rows
+
+
 def _device_type(t: torch.Tensor) -> str:
-    return t.device.type
+    """``"meta"`` for a shape trace (a meta or fake tensor), else the
+    tensor's device type."""
+    return "meta" if is_fake(t) else t.device.type
+
+
+_calls = None       # a list while record_calls() is open, else None
+
+
+@contextlib.contextmanager
+def record_calls():
+    """Within the block every forward appends ``(b, h, sq, skv, dqk, dv,
+    causal, window)`` to the list it yields."""
+    global _calls
+    prev, _calls = _calls, []
+    try:
+        yield _calls
+    finally:
+        _calls = prev
+
+
+def forward_flops(b, h, sq, skv, dqk, dv, causal, window) -> int:
+    """The kernel's work in one forward: for each of the B * H (batch,
+    head) pairs and each 64-row query tile, the 64-row kv tiles it
+    visits, each tile ``2 * 64 * 64 * (Dqk + Dv)`` FLOPs (the Q K^T and
+    P V products over the whole tile, masked rows included). A causal
+    tile sees kv tiles up to its last row's position, a window starts at
+    the tile holding its first row's ``position - window + 1``: the tiles
+    the kernel skips are not counted. The gradient is not the kernel's:
+    its plain-torch recompute (:func:`attention_backward`) is counted as
+    the dense products it runs, by whatever counts the other ops."""
+    tiles = 0
+    q_offset = skv - sq
+    for q0 in range(0, sq, BQ):
+        last = min(q0 + BQ, sq) - 1
+        end = q_offset + last + 1 if causal else skv
+        begin = max(0, q_offset + q0 - window + 1) if window > 0 else 0
+        begin = begin // BKV * BKV
+        tiles += -(-(end - begin) // BKV)
+    return b * h * tiles * 2 * BQ * BKV * (dqk + dv)
 
 
 def _kernel():
@@ -89,6 +136,9 @@ def _forward(q, k, v, causal: bool, window: int, scale: float):
     """(output, row log-sum-exp): the kernel on CUDA tensors, the plain
     version on CPU tensors."""
     kind = _device_type(q)
+    if _calls is not None:
+        _calls.append((q.shape[0], q.shape[1], q.shape[2], k.shape[2],
+                       q.shape[3], v.shape[3], causal, window))
     if kind == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale, return_lse=True)

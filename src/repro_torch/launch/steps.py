@@ -11,6 +11,9 @@ all-reduce of the parameter gradients over the data axes.
 """
 from __future__ import annotations
 
+import itertools
+import math
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -18,7 +21,8 @@ from repro_torch import utils
 from repro_torch.core import cco, dcco
 from repro_torch.models import dual_encoder, transformer
 from repro_torch.optim import optimizers as opt_lib
-from repro_torch.sharding import collectives
+from repro_torch.sharding import collectives, dtensor
+from repro_torch.sharding import specs as shard_specs
 
 F32 = torch.float32
 
@@ -41,7 +45,10 @@ def _grads(loss, params):
 
 def _encoding_std(zf, mesh=None, data_axes=("data",)):
     """Mean per-dimension std of the encodings; over a mesh, of the whole
-    batch's, from the moments' mean over the data axes."""
+    batch's, from the moments' mean over the data axes; on DTensor
+    encodings, of the rows gathered (each rank on its copy)."""
+    if dtensor.is_dtensor(zf):
+        return dtensor.replicated_call(_encoding_std, zf)
     if mesh is None:
         return torch.sqrt(zf.var(0, unbiased=False) + 1e-8).mean()
     z = zf.to(F32)
@@ -89,14 +96,20 @@ def make_dcco_train_step(cfg, de_cfg, tcfg, server_opt, mesh=None,
     IS that loss, in value and gradient (Appendix A); the ranks' gradient
     shares are summed by one all-reduce. At micro M > 1 phase 1's
     statistics are averaged over the ranks too, and so are the ranks'
-    gradients. ``constrain_sharding`` (the reference keeps the
-    microbatches' batch dim sharded under XLA's reshape propagation) holds
-    by construction here, since a rank only ever holds its shard; it is
-    accepted and changes nothing. The per-client loss and an MoE tower's
-    aux losses (batch statistics of the routing) are not sharded, and are
-    refused with a mesh.
+    gradients. The per-client loss and an MoE tower's aux losses (batch
+    statistics of the routing) are not sharded, and are refused with a
+    mesh.
+
+    Without a mesh the step also runs as one DTensor program, on DTensor
+    parameters, state and batch (``launch/dryrun.py``): the model code
+    places what it makes and DTensor inserts the collectives.
+    ``constrain_sharding`` then keeps each microbatch's rows sharded as
+    the batch's were (the reference's sharding constraint after its
+    microbatch reshape): the batch (N, ...) is reshaped to (M, N / M,
+    ...) and redistributed to shard its second dim over the mesh axes
+    that sharded the first (an all-to-all), where slicing a sharded
+    batch would gather it whole. On plain tensors it changes nothing.
     """
-    del constrain_sharding
     lam = de_cfg.lambda_cco
     clients = 0
     if tcfg.dcco_impl == "per_client":
@@ -141,8 +154,13 @@ def make_dcco_train_step(cfg, de_cfg, tcfg, server_opt, mesh=None,
         if n % nm:
             raise ValueError(f"a batch of {n} does not split into {nm} "
                              f"microbatches")
-        micro = [utils.tree_map(lambda x: x[i * (n // nm):(i + 1) * (n // nm)],
-                                batch) for i in range(nm)]
+        if constrain_sharding and dtensor.is_dtensor(
+                utils.tree_leaves(batch)[0]):
+            micro = _sharded_microbatches(batch, nm)
+        else:
+            micro = [utils.tree_map(
+                lambda x: x[i * (n // nm):(i + 1) * (n // nm)], batch)
+                for i in range(nm)]
         # phase 1: the global statistics, forward only
         agg = None
         with torch.no_grad():
@@ -202,6 +220,38 @@ def make_dcco_train_step(cfg, de_cfg, tcfg, server_opt, mesh=None,
     return train_step
 
 
+def _sharded_microbatches(batch, nm: int):
+    """The ``nm`` microbatches of a DTensor batch, each laid out with its
+    rows sharded as the batch's rows were: (N, ...) reshaped to (nm, N /
+    nm, ...) and its second dim sharded, an all-to-all. Where nm does not
+    split into the rows' blocks (DTensor cannot reshape them so) the
+    batch is gathered first and each rank keeps its part of every
+    microbatch; a microbatch with fewer rows than the blocks is
+    replicated over the mesh axes it cannot fill (XLA would pad it)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def split(x):
+        n, mesh = x.shape[0], x.device_mesh
+        rows = [i for i, p in enumerate(x.placements)
+                if isinstance(p, Shard) and p.dim == 0]
+        # the mesh axes that split a microbatch's rows: the largest
+        # product that divides them (the others replicate it)
+        keep = max((c for r in range(len(rows) + 1)
+                    for c in itertools.combinations(rows, r)
+                    if (n // nm) % math.prod(mesh.size(i) for i in c) == 0),
+                   key=lambda c: math.prod(mesh.size(i) for i in c))
+        pl = [Replicate() if i in rows and i not in keep else
+              Shard(p.dim + 1) if isinstance(p, Shard) else p
+              for i, p in enumerate(x.placements)]
+        if nm % dtensor.shards(x, 0):
+            x = dtensor.replicate_dim(x, 0)
+        return x.reshape((nm, n // nm) + tuple(x.shape[1:])).redistribute(
+            mesh, pl)
+
+    stacked = utils.tree_map(split, batch)
+    return [utils.tree_map(lambda x: x[i], stacked) for i in range(nm)]
+
+
 def make_lm_train_step(cfg, server_opt):
     """The plain next-token LM train step of a dense tower:
     ``step(tower_params, opt_state, {"tokens": (B, S)}) -> (params,
@@ -234,12 +284,66 @@ def make_prefill_step(cfg, max_len: int):
 
     def prefill_step(params, batch):
         tokens = batch["tokens"]
-        cache = transformer.init_cache(cfg, tokens.shape[0], max_len,
-                                       tokens.device)
+        if dtensor.is_dtensor(tokens):
+            cache = sharded_cache(cfg, tokens.shape[0], max_len,
+                                  tokens.device_mesh)
+        else:
+            cache = transformer.init_cache(cfg, tokens.shape[0], max_len,
+                                           tokens.device)
         return transformer.prefill(cfg, params, tokens, cache,
                                    patch_embeds=batch.get("patch_embeds"))
 
     return prefill_step
+
+
+def _prefill_cache_pspecs(cache, mesh):
+    """The layout of what prefill writes into its cache, which XLA gives
+    the cache it creates: rows over the data axes and an attention
+    cache's kv heads over "model", where they divide; positions
+    replicated."""
+    data = shard_specs.data_axes(mesh)
+    sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    n_data = math.prod(sizes[a] for a in ((data,) if isinstance(data, str)
+                                          else data or ()))
+
+    def rule(path, leaf):
+        name = path.rsplit("/", 1)[-1]
+        if leaf.ndim == 0 or name == "kv_pos":
+            return shard_specs.P()
+        b_dim = 1 if path.startswith("layers/") else 0
+        parts = [None] * leaf.ndim
+        if n_data > 1 and leaf.shape[b_dim] % n_data == 0:
+            parts[b_dim] = data
+        m = sizes.get("model", 1)
+        if name in ("k", "v", "k_scale", "v_scale") and m > 1 \
+                and leaf.shape[b_dim + 2] % m == 0:
+            parts[b_dim + 2] = "model"
+        return shard_specs.P(*parts)
+
+    return shard_specs._map_with_path(rule, cache)
+
+
+def sharded_cache(cfg, batch: int, max_len: int, mesh):
+    """``transformer.init_cache``'s empty cache as DTensors on ``mesh``,
+    laid out as prefill's keys and values are (:func:`_prefill_cache_
+    pspecs`), each rank making only its block. A leaf's fill is read
+    from a one-slot cache on the CPU (every leaf is constant)."""
+    from torch.distributed.tensor import DTensor
+
+    shapes = transformer.init_cache(cfg, batch, max_len, "meta")
+    fills = transformer.init_cache(cfg, 1, 1, "cpu")
+    specs = _prefill_cache_pspecs(shapes, mesh)
+    device = torch.device(mesh.device_type)
+
+    def make(leaf, fill, spec):
+        local = torch.empty(shard_specs.local_shape(leaf.shape, spec, mesh),
+                            dtype=leaf.dtype, device=device)
+        local.copy_(fill.reshape(-1)[0])
+        return DTensor.from_local(local, mesh, shard_specs.named(mesh, spec),
+                                  run_check=False, shape=leaf.shape,
+                                  stride=leaf.stride())
+
+    return utils.tree_map(make, shapes, fills, specs)
 
 
 def make_serve_step(cfg):

@@ -10,11 +10,13 @@ every device.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 
+from repro_torch.sharding import dtensor
 from repro_torch.utils import at_least_f32
 
 F32 = torch.float32
@@ -60,16 +62,38 @@ def linear_init(gen, d_in: int, d_out: int, dtype=torch.bfloat16,
     return p
 
 
+# The type in which a row-parallel product's partial sums cross the wire
+# (the reference's ``preferred_element_type``): None is f32. XLA reduces
+# a sharded contraction's f32 output before the cast back to the
+# activation's type; ``set_matmul_preferred(torch.bfloat16)`` halves
+# those all-reduces at a small cost in cross-device accumulation.
+_MATMUL_PREFERRED = {"dtype": None}
+
+
+def set_matmul_preferred(dtype) -> None:
+    _MATMUL_PREFERRED["dtype"] = dtype
+
+
 def linear(p, x):
     """x (..., d_in) @ w (d_in, d_out) + b, in ``x``'s type. Operands of
     two types (an f32 input to bf16 weights under bf16 compute) meet in
-    the wider one, as the reference's ``einsum`` promotes them."""
+    the wider one, as the reference's ``einsum`` promotes them.
+
+    On DTensors a product over a sharded contraction (a row-parallel
+    weight) leaves ``Partial`` sums. They are returned pending, in the
+    preferred type (:func:`set_matmul_preferred`, f32 by default) and
+    not cast back: the caller's ``dtensor.settle`` reduces them (one
+    all-reduce in that type) and casts, as XLA reduces the f32 product
+    before the cast. A plain tensor takes none of this."""
     w = p["w"]
     if w.dtype != x.dtype:
         wide = torch.promote_types(x.dtype, w.dtype)
         y = x.to(wide) @ w.to(wide)
     else:
         y = x @ w
+    if dtensor.is_pending(y):
+        y = y.to(_MATMUL_PREFERRED["dtype"] or F32)
+        return y + p["b"].to(y.dtype) if "b" in p else y
     if "b" in p:
         y = y + p["b"]
     return y.to(x.dtype)
@@ -121,7 +145,8 @@ def apply_rope(x, positions, theta: float = 10000.0):
     """x: (..., S, H, Dh), its two halves rotated pairwise by the angles of
     ``positions`` (..., S) or (S,); computed in f32 and cast back."""
     dh = x.shape[-1]
-    freqs = torch.as_tensor(rope_frequencies(dh, theta), device=x.device)
+    freqs = dtensor.replicated(torch.as_tensor(
+        rope_frequencies(dh, theta), device=x.device), x)
     wide = torch.promote_types(x.dtype, F32)
     angles = positions.to(F32)[..., None] * freqs             # (..., S, dh/2)
     angles = angles[..., None, :].to(wide)                    # (..., S, 1, dh/2)
@@ -129,6 +154,55 @@ def apply_rope(x, positions, theta: float = 10000.0):
     xf1, xf2 = x[..., : dh // 2].to(wide), x[..., dh // 2:].to(wide)
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------- scan ---
+
+# Whether ``scan_steps`` folds its steps into the batch (``fold_scans``).
+_FOLD_SCANS = {"on": False}
+
+
+@contextlib.contextmanager
+def fold_scans():
+    """Within it, :func:`scan_steps` runs its n steps as ONE call of the
+    body with the steps folded into the batch (B * n rows, the carry
+    broadcast over them): not the recurrence, but its shape. A shape
+    trace (``launch/dryrun.py``) asks for it: it has no values, so a
+    step's dependence on the one before changes nothing it measures, and
+    the products, elementwise ops and saved activations are the n
+    steps', shape for shape, where tracing the loop step by step (4k-32k
+    positions, a chunk or a time step each) would take hours. A weight
+    the body reads is read once, as XLA's cost analysis counts a
+    ``while`` body once."""
+    prev, _FOLD_SCANS["on"] = _FOLD_SCANS["on"], True
+    try:
+        yield
+    finally:
+        _FOLD_SCANS["on"] = prev
+
+
+def scan_steps(body, carry, xs, n: int):
+    """The reference's ``lax.scan`` over the step axis 1 of each of
+    ``xs`` (B, n, ...): ``carry, y_t = body(carry, x_t)`` for t < n, a
+    Python loop; returns (the last carry, the y_t stacked on axis 1).
+    Inside :func:`fold_scans`, one call over the steps folded into the
+    batch."""
+    if n > 1 and _FOLD_SCANS["on"]:
+        b = xs[0].shape[0]
+
+        def spread(c):
+            return c[:, None].expand(b, n, *c.shape[1:]).reshape(
+                b * n, *c.shape[1:])
+
+        out, y = body(tuple(spread(c) for c in carry),
+                      tuple(x.reshape(b * n, *x.shape[2:]) for x in xs))
+        return (tuple(c.reshape(b, n, *c.shape[1:])[:, -1] for c in out),
+                y.reshape(b, n, *y.shape[1:]))
+    ys = []
+    for t in range(n):
+        carry, y = body(carry, tuple(x[:, t] for x in xs))
+        ys.append(y)
+    return carry, torch.stack(ys, dim=1)
 
 
 # -------------------------------------------------------------- embedding ---
@@ -140,8 +214,44 @@ def embedding_init(gen, vocab: int, d_model: int, dtype=torch.bfloat16,
 
 
 def embed(p, tokens):
-    """Rows of the table: (...,) int tokens -> (..., d_model)."""
+    """Rows of the table: (...,) int tokens -> (..., d_model). On a
+    DTensor table, :func:`_embed_spmd`."""
+    if dtensor.is_dtensor(p["table"]):
+        return _embed_spmd(p["table"], tokens)
     return torch.nn.functional.embedding(tokens, p["table"])
+
+
+def _embed_spmd(table, tokens):
+    """The vocab-parallel lookup under ``local_map``: each rank looks its
+    rows' tokens up in its block of the vocabulary (zeros for the others)
+    and the blocks' outputs are pending sums over the mesh dimensions
+    that split the vocabulary; the caller's ``settle`` reduces them (the
+    masked gather and all-reduce XLA compiles). DTensor's own rule leaves
+    a masked partial whose gradient it cannot lay out in bf16."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    vocab = [isinstance(p, Shard) and p.dim == 0 for p in table.placements]
+    rows = dtensor.row_placements(tokens) if dtensor.is_dtensor(tokens) \
+        else [Replicate()] * mesh.ndim
+    tok_pl = [Replicate() if vocab[i] else rows[i] for i in range(mesh.ndim)]
+    tab_pl = [Shard(0) if vocab[i] else Replicate() for i in range(mesh.ndim)]
+    out_pl = [Partial() if vocab[i] else tok_pl[i] for i in range(mesh.ndim)]
+    grad_pl = [Shard(0) if vocab[i] else
+               (Partial() if isinstance(tok_pl[i], Shard) else Replicate())
+               for i in range(mesh.ndim)]
+    tokens = dtensor.replicated(tokens, table)
+    v_off = dtensor.offset(table, 0)
+
+    def local(tok, tab):
+        idx = tok.long() - v_off
+        hit = (idx >= 0) & (idx < tab.shape[0])
+        rows_ = torch.nn.functional.embedding(
+            torch.where(hit, idx, torch.zeros_like(idx)), tab)
+        return rows_ * hit[..., None].to(rows_.dtype)
+
+    return dtensor.local_map_tree(
+        local, mesh, [(tokens, tok_pl, None), (table, tab_pl, grad_pl)],
+        [out_pl])
 
 
 def unembed(p, x):

@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.models.common import F32, randn, swiglu, swiglu_init, \
     truncated_normal
+from repro_torch.sharding import dtensor
 
 _routes = None     # a list while record_routes() is open, else None
 _forced = None     # an iterator while force_routes() is open, else None
@@ -108,6 +109,14 @@ def _top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _group_size(x, group_size: int) -> int:
+    t = x.shape[0] * x.shape[1]
+    g_sz = min(group_size, t)
+    if t % g_sz:
+        raise ValueError(f"tokens {t} not divisible by group {g_sz}")
+    return g_sz
+
+
 def moe_forward(p, x, moe_cfg, group_size: int = 512):
     """x: (B, S, D) -> (y (B, S, D), aux) with aux the f32 scalars
     ``balance`` (the load-balance loss), ``router_z`` (the router
@@ -115,52 +124,16 @@ def moe_forward(p, x, moe_cfg, group_size: int = 512):
     past their expert's capacity).
 
     The B*S tokens are cut into groups of ``min(group_size, B*S)``, which
-    must divide B*S (a ValueError, where the reference asserts)."""
+    must divide B*S (a ValueError, where the reference asserts). On
+    DTensors, :func:`_moe_spmd`."""
+    g_sz = _group_size(x, group_size)
+    if dtensor.is_dtensor(x):
+        return _moe_spmd(p, x, moe_cfg, g_sz)
     b, s, d = x.shape
     e, k = moe_cfg.num_experts, moe_cfg.top_k
-    t = b * s
-    g_sz = min(group_size, t)
-    if t % g_sz:
-        raise ValueError(f"tokens {t} not divisible by group {g_sz}")
-    g = t // g_sz
-    xt = x.reshape(g, g_sz, d)
-    wide = torch.promote_types(x.dtype, F32)
-
-    logits = xt.to(wide) @ p["router"]["w"].to(wide)          # (G,S,E)
-    probs = torch.softmax(logits, dim=-1)
-    if _forced is not None:
-        topk_idx = next(_forced).reshape(g, g_sz, k).to(x.device)
-        topk_p = torch.gather(probs, -1, topk_idx)
-    else:
-        topk_p, topk_idx = _top_k(probs, k)                    # (G,S,K)
-    if _routes is not None:
-        _routes.append(topk_idx.reshape(b, s, k))
-    topk_w = topk_p / torch.clamp(topk_p.sum(-1, keepdim=True), min=1e-9)
-
-    cap = _capacity(g_sz, moe_cfg)
-    experts = torch.arange(e, device=x.device)
-    sel = (topk_idx[..., None] == experts).to(wide)            # (G,S,K,E)
-    # position of each (token, k) in its expert's queue: token-major
-    pos_in_e = torch.cumsum(sel.reshape(g, g_sz * k, e), dim=1).reshape(
-        g, g_sz, k, e) - 1.0
-    keep = (pos_in_e < cap).to(wide) * sel                     # drop overflow
-    # fold k (one term each): the weight and the slot of each kept pick
-    w_e = (topk_w[..., None] * keep).sum(2)                    # (G,S,E)
-    pos_e = (pos_in_e * keep).sum(2)
-    kept = keep.sum(2) > 0
-    slots = torch.arange(cap, device=x.device, dtype=wide)
-    combine = w_e[..., None] * ((pos_e[..., None] == slots)
-                                & kept[..., None]).to(wide)    # (G,S,E,C)
-    dispatch = (combine > 0).to(x.dtype)
-
-    xe = torch.einsum("gsec,gsd->gecd", dispatch, xt)
-    we = p["experts"]
-    h = torch.einsum("gecd,edf->gecf", xe, we["gate"])
-    u = torch.einsum("gecd,edf->gecf", xe, we["up"])
-    h = (torch.nn.functional.silu(h.to(wide)) * u.to(wide)).to(x.dtype)
-    ye = torch.einsum("gecf,efd->gecd", h, we["down"])
-    y = torch.einsum("gsec,gecd->gsd", combine, ye.to(wide)).to(x.dtype)
-    y = y.reshape(b, s, d)
+    xt = x.reshape(b * s // g_sz, g_sz, d)
+    logits, probs, sel, keep, combine = _route(p, xt, moe_cfg, b, s)
+    y = _experts(p["experts"], combine, xt).to(x.dtype).reshape(b, s, d)
 
     if "shared" in p:
         y = y + swiglu(p["shared"], x)
@@ -172,4 +145,121 @@ def moe_forward(p, x, moe_cfg, group_size: int = 512):
     z = (torch.logsumexp(logits, dim=-1) ** 2).mean()
     aux = {"balance": balance, "router_z": z,
            "dropped_frac": 1.0 - keep.sum() / (sel.sum() + 1e-9)}
+    return y, aux
+
+
+def _route(p, xt, moe_cfg, b: int, s: int):
+    """Routing of the token groups ``xt`` (G, S_g, D) over all experts:
+    (router logits, probs, the one-hot picks (G, S_g, K, E), the kept
+    picks, the combine weights (G, S_g, E, C)), f32 (f64 for an f64
+    model)."""
+    g, g_sz, _ = xt.shape
+    e, k = moe_cfg.num_experts, moe_cfg.top_k
+    wide = torch.promote_types(xt.dtype, F32)
+    x_device = xt.device
+
+    logits = xt.to(wide) @ p["router"]["w"].to(wide)          # (G,S,E)
+    probs = torch.softmax(logits, dim=-1)
+    if _forced is not None:
+        topk_idx = next(_forced).reshape(g, g_sz, k).to(x_device)
+        topk_p = torch.gather(probs, -1, topk_idx)
+    else:
+        topk_p, topk_idx = _top_k(probs, k)                    # (G,S,K)
+    if _routes is not None:
+        _routes.append(topk_idx.reshape(b, s, k))
+    topk_w = topk_p / torch.clamp(topk_p.sum(-1, keepdim=True), min=1e-9)
+
+    cap = _capacity(g_sz, moe_cfg)
+    experts = torch.arange(e, device=x_device)
+    sel = (topk_idx[..., None] == experts).to(wide)            # (G,S,K,E)
+    # position of each (token, k) in its expert's queue: token-major
+    pos_in_e = torch.cumsum(sel.reshape(g, g_sz * k, e), dim=1).reshape(
+        g, g_sz, k, e) - 1.0
+    keep = (pos_in_e < cap).to(wide) * sel                     # drop overflow
+    # fold k (one term each): the weight and the slot of each kept pick
+    w_e = (topk_w[..., None] * keep).sum(2)                    # (G,S,E)
+    pos_e = (pos_in_e * keep).sum(2)
+    kept = keep.sum(2) > 0
+    slots = torch.arange(cap, device=x_device, dtype=wide)
+    combine = w_e[..., None] * ((pos_e[..., None] == slots)
+                                & kept[..., None]).to(wide)    # (G,S,E,C)
+    return logits, probs, sel, keep, combine
+
+
+def _experts(we, combine, xt):
+    """The experts of ``we`` (their leading dim matching ``combine``'s E)
+    on the tokens ``combine`` sends them: (G, S_g, D) in the routing's
+    wide type."""
+    wide = combine.dtype
+    dispatch = (combine > 0).to(xt.dtype)
+    xe = torch.einsum("gsec,gsd->gecd", dispatch, xt)
+    h = torch.einsum("gecd,edf->gecf", xe, we["gate"])
+    u = torch.einsum("gecd,edf->gecf", xe, we["up"])
+    h = (torch.nn.functional.silu(h.to(wide)) * u.to(wide)).to(xt.dtype)
+    ye = torch.einsum("gecf,efd->gecd", h, we["down"])
+    return torch.einsum("gsec,gecd->gsd", combine, ye.to(wide))
+
+
+def _moe_spmd(p, x, moe_cfg, g_sz: int):
+    """``moe_forward`` on DTensors, expert parallel under ``local_map``.
+
+    Each rank routes its rows' groups over all experts (the router is
+    replicated), sends the picks of its own block of experts (their
+    leading dim as the layout rules shard it over "model") and returns
+    its experts' share of the output, a partial sum over the mesh
+    dimensions that split the experts; the rows are gathered over those
+    dimensions, and over the rest too where a rank's rows would not hold
+    whole groups (a decode step's B tokens are one group). The losses'
+    sums come back as partial sums as well, each rank's 1/M of its own
+    (M the ranks sharing its rows), so that both their values and their
+    gradients sum to the whole batch's: the losses and ``dropped_frac``
+    are the reference's, over the global batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    b, s, d = x.shape
+    e, k = moe_cfg.num_experts, moe_cfg.top_k
+    mesh = x.device_mesh
+    ex = p["experts"]["gate"]
+    ex_pl = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+             for pl in ex.placements]
+    split = [isinstance(pl, Shard) for pl in ex_pl]
+    rows = [Replicate() if split[i] else pl
+            for i, pl in enumerate(dtensor.row_placements(x))]
+    local_rows = b // math.prod(mesh.size(i) for i, pl in enumerate(rows)
+                                if isinstance(pl, Shard))
+    if local_rows * s % g_sz:
+        rows = [Replicate()] * mesh.ndim
+    m = math.prod(mesh.size(i) for i in range(mesh.ndim) if split[i])
+    rep = [Replicate()] * mesh.ndim
+    e_off = dtensor.offset(ex.redistribute(mesh, ex_pl), 0)
+    e_local = e // m
+    part = [Partial() if split[i] or isinstance(rows[i], Shard)
+            else Replicate() for i in range(mesh.ndim)]
+    y_pl = [Partial() if split[i] else rows[i] for i in range(mesh.ndim)]
+    x_grad = y_pl
+    ex_grad = [ex_pl[i] if split[i] else
+               (Partial() if isinstance(rows[i], Shard) else Replicate())
+               for i in range(mesh.ndim)]
+
+    def local(xl, router, we):
+        bl = xl.shape[0]
+        xt = xl.reshape(bl * s // g_sz, g_sz, d)
+        logits, probs, sel, keep, combine = _route(
+            {"router": router}, xt, moe_cfg, bl, s)
+        y = _experts(we, combine[:, :, e_off:e_off + e_local], xt)
+        lse = torch.logsumexp(logits, dim=-1)
+        return (y.reshape(bl, s, d), probs.sum(dim=(0, 1)) / m,
+                sel.sum(2).sum(dim=(0, 1)) / m, (lse ** 2).sum() / m,
+                keep.sum() / m, sel.sum() / m)
+
+    y, probs_sum, sel_sum, z_sum, kept, picks = dtensor.local_map_tree(
+        local, mesh,
+        [(x, rows, x_grad), (p["router"], rep, part),
+         (p["experts"], ex_pl, ex_grad)],
+        [y_pl] + [part] * 5)
+    if "shared" in p:
+        y = y + swiglu(p["shared"], x)
+    t = b * s
+    balance = e * ((probs_sum / t) * (sel_sum / t)).sum() / k
+    aux = {"balance": balance, "router_z": z_sum / t,
+           "dropped_frac": 1.0 - kept / (picks + 1e-9)}
     return y, aux

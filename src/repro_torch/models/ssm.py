@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (F32, linear, linear_init, randn,
-                                       rmsnorm, rmsnorm_init)
+                                       rmsnorm, rmsnorm_init, scan_steps)
 
 NEG_INF = -1e30
 
@@ -107,9 +107,9 @@ def _ssd_chunked(x, dt, a, b, c, chunk: int):
     mask = torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
     mask = mask[None, :, :, None]
     hprev = x.new_zeros((bb, h, n, pdim), dtype=wide)
-    ys = []
-    for g in range(nc):
-        x_g, dt_g, b_g, c_g = xs[:, g], dts[:, g], bs[:, g], cs[:, g]
+
+    def chunk_step(carry, inputs):
+        (hprev,), (x_g, dt_g, b_g, c_g) = carry, inputs
         da = dt_g * a                                     # (B,l,H) log-decay
         cum = torch.cumsum(da, dim=1)
         tot = cum[:, -1]                                  # (B,H)
@@ -129,8 +129,10 @@ def _ssd_chunked(x, dt, a, b, c, chunk: int):
         sdecay = torch.exp(tot[:, None, :] - cum) * dt_g  # (B,l,H)
         states = torch.einsum("bsh,bsn,bshp->bhnp", sdecay, b_g, x_g)
         hprev = hprev * torch.exp(tot)[..., None, None] + states
-        ys.append(y_intra + y_inter)
-    return torch.stack(ys, dim=1).reshape(bb, s, h, pdim), hprev
+        return (hprev,), y_intra + y_inter
+
+    (hprev,), ys = scan_steps(chunk_step, (hprev,), (xs, dts, bs, cs), nc)
+    return ys.reshape(bb, s, h, pdim), hprev
 
 
 def _gate_out(cfg, p, y, z, dtype):

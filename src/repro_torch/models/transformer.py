@@ -12,11 +12,28 @@ Python loop over the unbound layers, each running its slots in pattern
 order. An MoE config's first ``moe.first_k_dense`` layers are the
 ``params["prologue"]`` list of unstacked blocks with a dense FFN of
 ``moe.dense_d_ff``; every stacked attention slot then has the MoE FFN
-(:mod:`repro_torch.models.moe`). The reference's activation and FSDP
-sharding constraints are mesh-only and have no counterpart; nor do its
-``remat`` (a round's phase 2 runs under ``torch.func.grad``, which refuses
-``torch.utils.checkpoint``), its parallel block and its untied
-unembedding, which no ported config sets.
+(:mod:`repro_torch.models.moe`). The reference's knobs, off by default:
+``cfg.parallel_block`` (PaLM's block: attention and FFN off one norm,
+summed, so a tensor-parallel layer closes with one all-reduce),
+``cfg.remat == "full"`` (each superblock under ``torch.utils.checkpoint``,
+the reference's ``jax.checkpoint`` of its scan body; a round's phase 2,
+which runs under ``torch.func.grad``, cannot take it), and the mesh-only
+``cfg.act_shard_axes`` (each block's output redistributed to rows sharded
+over those axes) and ``cfg.fsdp_model_size`` (each layer's weights
+redistributed to their "model" shard at superblock entry). The
+reference's ``scan_layers`` and ``layer_chunks`` have no counterpart: the
+layers are a Python loop, the form ``scan_layers=False`` takes, and there
+is no ``while`` loop out of which a gather could be hoisted. Its untied
+unembedding is not ported (no config sets it).
+
+On DTensor parameters and activations (``launch/dryrun.py``, the sharded
+step) the tower runs as a DTensor program: the plain tensors it makes
+(positions, the MoE losses' zeros) are placed with
+:mod:`repro_torch.sharding.dtensor`, a row-parallel product's pending
+sums are reduced once where they join the residual stream, the
+recurrent mixers run on each rank's rows under ``local_map``, and the
+attention and MoE blocks under their own (:mod:`.attention`,
+:mod:`.moe`). On plain tensors nothing of this runs.
 
 An MoE, recurrent, vision-text or audio tower's parameters (16B, 2.8B,
 1.7B and 3.2B at full width) draw on ``device``, from a generator seeded
@@ -62,6 +79,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import utils
 from repro_torch.models import (attention as attn, moe as moe_mod,
@@ -69,6 +87,7 @@ from repro_torch.models import (attention as attn, moe as moe_mod,
 from repro_torch.models.common import (F32, dtype_of, embed, embedding_init,
                                        mlp, mlp_init, rmsnorm, rmsnorm_init,
                                        swiglu, swiglu_init, unembed)
+from repro_torch.sharding import dtensor
 
 AUX_KEYS = ("balance", "router_z")
 
@@ -111,19 +130,48 @@ def _ffn(cfg, p, h, group_size: int = 512):
     return swiglu(p["ffn"], h), {}
 
 
+def _add(x, *ys):
+    """The residual ``x + y1 (+ y2)``. On DTensors the branches' pending
+    row-parallel sums are added first and reduced once (one all-reduce a
+    block, or a parallel block), then cast to ``x``'s type."""
+    if dtensor.is_dtensor(x):
+        return x + dtensor.settle(sum(ys[1:], ys[0]), x.dtype)
+    for y in ys:
+        x = x + y
+    return x
+
+
+def _mixer(cfg, kind, fn, p, h, state=None):
+    """A recurrent mixer ``fn(cfg, p, h[, state])``; on DTensors under
+    ``local_map`` on each rank's rows, its weights replicated (the layout
+    rules replicate them)."""
+    if state is None:
+        call = lambda hh, pp: fn(cfg, pp, hh)          # noqa: E731
+    else:
+        call = lambda hh, pp, st: fn(cfg, pp, hh, st)  # noqa: E731
+    if not dtensor.is_dtensor(h):
+        return call(h, p) if state is None else call(h, p, state)
+    return dtensor.rows_map(call, h, p, state)
+
+
+_FORWARD = {"mamba2": lambda cfg, p, h: ssm_mod.mamba2_forward(cfg, p, h),
+            "mlstm": lambda cfg, p, h: xlstm_mod.mlstm_forward(cfg, p, h)[0],
+            "slstm": lambda cfg, p, h: xlstm_mod.slstm_forward(cfg, p, h)[0]}
+
+
 def _block_forward(cfg, kind: str, p, x, positions):
     """Full-sequence forward of one block: (y, aux)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "attn":
         attn_fn = attn.mla_forward if cfg.use_mla else attn.gqa_forward
-        x = x + attn_fn(cfg, p["attn"], h, positions)
+        a = attn_fn(cfg, p["attn"], h, positions)
+        if cfg.parallel_block:
+            y, aux = _ffn(cfg, p, h)
+            return _add(x, a, y), aux
+        x = _add(x, a)
         y, aux = _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps))
-        return x + y, aux
-    if kind == "mamba2":
-        return x + ssm_mod.mamba2_forward(cfg, p["mixer"], h), {}
-    fwd = {"mlstm": xlstm_mod.mlstm_forward,
-           "slstm": xlstm_mod.slstm_forward}[kind]
-    return x + fwd(cfg, p["mixer"], h)[0], {}
+        return _add(x, y), aux
+    return _add(x, _mixer(cfg, kind, _FORWARD[kind], p["mixer"], h)), {}
 
 
 def _stacked(make, n: int):
@@ -175,12 +223,61 @@ def init_params(cfg, gen, device="cpu") -> Dict[str, Any]:
     return params
 
 
+def _aux_zeros(x):
+    return {k: dtensor.replicated(torch.zeros((), dtype=F32, device=x.device),
+                                  x) for k in AUX_KEYS}
+
+
+def _constrain_act(cfg, x):
+    """With ``cfg.act_shard_axes``, a DTensor activation redistributed to
+    rows sharded over those mesh axes (replicated over the others), the
+    reference's sharding constraint; a plain tensor is returned as it
+    is (a constraint on one device does nothing)."""
+    if cfg.act_shard_axes is None or not dtensor.is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    names = x.device_mesh.mesh_dim_names
+    pl = [Shard(0) if n in cfg.act_shard_axes else Replicate()
+          for n in names]
+    return x if list(x.placements) == pl else x.redistribute(
+        x.device_mesh, pl)
+
+
+def _constrain_fsdp_layer_params(cfg, sp):
+    """With ``cfg.fsdp_model_size`` m, each DTensor weight of a layer (2-D
+    and up) redistributed to its "model" shard along its largest
+    dimension that m divides (replicated over the other mesh axes): FSDP
+    storage, gathered by the products a layer at a time. Plain tensors
+    are returned as they are."""
+    m = cfg.fsdp_model_size
+    if not m:
+        return sp
+
+    def rule(leaf):
+        if not dtensor.is_dtensor(leaf) or leaf.ndim < 2:
+            return leaf
+        cands = [(leaf.shape[i], i) for i in range(leaf.ndim)
+                 if leaf.shape[i] % m == 0 and leaf.shape[i] >= m]
+        if not cands:
+            return leaf
+        from torch.distributed.tensor import Replicate, Shard
+        dim = max(cands)[1]
+        pl = [Shard(dim) if n == "model" else Replicate()
+              for n in leaf.device_mesh.mesh_dim_names]
+        return leaf if list(leaf.placements) == pl else leaf.redistribute(
+            leaf.device_mesh, pl)
+
+    return utils.tree_map(rule, sp)
+
+
 def _superblock_forward(cfg, sp, x, positions):
     """Every slot in pattern order; the MoE losses summed over them
     (zeros where a slot has none)."""
-    tot = {k: torch.zeros((), dtype=F32, device=x.device) for k in AUX_KEYS}
+    sp = _constrain_fsdp_layer_params(cfg, sp)
+    tot = _aux_zeros(x)
     for i, kind in enumerate(cfg.block_pattern):
         x, aux = _block_forward(cfg, kind, sp[f"b{i}"], x, positions)
+        x = _constrain_act(cfg, x)
         tot = {k: tot[k] + aux[k] if k in aux else tot[k] for k in tot}
     return x, tot
 
@@ -201,10 +298,12 @@ def _embed_inputs(cfg, params, tokens, patch_embeds):
     """The tokens' embeddings (B, S, D), after a vision-text tower's
     projected ``patch_embeds`` (B, P, vis_dim) where given: (B, P + S,
     D)."""
-    x = embed(params["embed"], tokens)
+    x = dtensor.settle(embed(params["embed"], tokens))
     if cfg.modality == "vision_text" and patch_embeds is not None:
         vis = mlp(params["vis_proj"], patch_embeds.to(x.dtype))
-        x = torch.cat([vis.to(x.dtype), x], dim=1)
+        # on DTensors the patches' gradient comes back in their own rows'
+        # layout, whatever the concatenation's backward leaves
+        x = torch.cat([dtensor.grad_as(vis.to(x.dtype)), x], dim=1)
     return x
 
 
@@ -215,13 +314,16 @@ def forward(cfg, params, tokens, patch_embeds=None,
     prepended); with ``return_aux`` also ``{"balance", "router_z"}``, the
     MoE losses summed over the stacked layers (zeros without MoE)."""
     x = _embed_inputs(cfg, params, tokens, patch_embeds)
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    positions = dtensor.positions(x, x.shape[1])
     for p in params.get("prologue", []):
         x, _ = _block_forward(cfg, "attn", p, x, positions)
-    tot = {k: torch.zeros((), dtype=F32, device=x.device) for k in AUX_KEYS}
+    tot = _aux_zeros(x)
     for sp in _unstack(params["layers"], cfg.num_superblocks):
-        x, aux = _superblock_forward(cfg, sp, x, positions)
+        if cfg.remat == "full":
+            x, aux = checkpoint(_superblock_forward, cfg, sp, x, positions,
+                                use_reentrant=False)
+        else:
+            x, aux = _superblock_forward(cfg, sp, x, positions)
         tot = {k: tot[k] + aux[k] for k in tot}
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return (x, tot) if return_aux else x
@@ -283,22 +385,35 @@ def _write_state(cache, state):
         cache[k].copy_(v)
 
 
+def _attn_block(cfg, p, x, h, attn_out, group_size: int = 512):
+    """The rest of an attention block after its attention ``attn_out``:
+    the FFN off ``ln2`` (or, with ``cfg.parallel_block``, off the
+    attention's own norm ``h``) and the residuals."""
+    if cfg.parallel_block:
+        y, _ = _ffn(cfg, p, h, group_size)
+        return _add(x, attn_out, y)
+    x = _add(x, attn_out)
+    y, _ = _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps), group_size)
+    return _add(x, y)
+
+
+_PREFILL = {"mamba2": ssm_mod.mamba2_prefill,
+            "mlstm": xlstm_mod.mlstm_forward,
+            "slstm": xlstm_mod.slstm_forward}
+_DECODE = {"mamba2": ssm_mod.mamba2_decode,
+           "mlstm": xlstm_mod.mlstm_decode,
+           "slstm": xlstm_mod.slstm_decode}
+
+
 def _block_prefill(cfg, kind, p, x, positions, cache):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "attn":
         pre_fn = attn.mla_prefill if cfg.use_mla else attn.gqa_prefill
         y, _ = pre_fn(cfg, p["attn"], h, positions, cache)
-        x = x + y
-        y, _ = _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps))
-        return x + y
-    if kind == "mamba2":
-        y, state = ssm_mod.mamba2_prefill(cfg, p["mixer"], h, cache)
-    else:
-        fwd = {"mlstm": xlstm_mod.mlstm_forward,
-               "slstm": xlstm_mod.slstm_forward}[kind]
-        y, state = fwd(cfg, p["mixer"], h, cache)
+        return _attn_block(cfg, p, x, h, y)
+    y, state = _mixer(cfg, kind, _PREFILL[kind], p["mixer"], h, cache)
     _write_state(cache, state)
-    return x + y
+    return _add(x, y)
 
 
 def _block_decode(cfg, kind, p, x, pos, cache):
@@ -306,17 +421,11 @@ def _block_decode(cfg, kind, p, x, pos, cache):
     if kind == "attn":
         dec_fn = attn.mla_decode if cfg.use_mla else attn.gqa_decode
         y, _ = dec_fn(cfg, p["attn"], h, pos, cache)
-        x = x + y
         # the decode step's B tokens route as one group
-        y, _ = _ffn(cfg, p, rmsnorm(p["ln2"], x, cfg.norm_eps),
-                    group_size=x.shape[0])
-        return x + y
-    dec = {"mamba2": ssm_mod.mamba2_decode,
-           "mlstm": xlstm_mod.mlstm_decode,
-           "slstm": xlstm_mod.slstm_decode}[kind]
-    y, state = dec(cfg, p["mixer"], h, cache)
+        return _attn_block(cfg, p, x, h, y, group_size=x.shape[0])
+    y, state = _mixer(cfg, kind, _DECODE[kind], p["mixer"], h, cache)
     _write_state(cache, state)
-    return x + y
+    return _add(x, y)
 
 
 @torch.no_grad()
@@ -328,8 +437,8 @@ def prefill(cfg, params, tokens, cache, patch_embeds=None):
     the P + S positions keeps the last ones (the attention ring), as the
     reference's does."""
     x = _embed_inputs(cfg, params, tokens, patch_embeds)
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    s = x.shape[1]
+    positions = dtensor.positions(x, s)
     for kind, p, c in _blocks_and_caches(cfg, params, cache):
         x = _block_prefill(cfg, kind, p, x, positions, c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -341,7 +450,7 @@ def prefill(cfg, params, tokens, cache, patch_embeds=None):
 def decode_step(cfg, params, cache, token_ids):
     """One token a sequence, ``token_ids`` (B, 1), at position
     ``cache["pos"]``. Returns (f32 logits (B, V), cache)."""
-    x = embed(params["embed"], token_ids)
+    x = dtensor.settle(embed(params["embed"], token_ids))
     pos = cache["pos"]
     for kind, p, c in _blocks_and_caches(cfg, params, cache):
         x = _block_decode(cfg, kind, p, x, pos, c)

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (F32, linear, linear_init, randn,
-                                       rmsnorm, rmsnorm_init)
+                                       rmsnorm, rmsnorm_init, scan_steps)
 
 LOG_EPS = -1e30
 
@@ -86,10 +86,10 @@ def _mlstm_chunk_scan(q, k, v, i_pre, f_pre, state, chunk: int):
         return t.to(wide).reshape(bb, nc, l, *t.shape[2:])
 
     qs, ks, vs, is_, fs = r(q), r(k), r(v), r(i_pre), r(logf)
-    ys = []
-    for g in range(nc):
-        q_g, k_g, v_g, i_g, f_g = qs[:, g], ks[:, g], vs[:, g], is_[:, g], \
-            fs[:, g]                                       # (B,l,H,dh) (B,l,H)
+
+    def chunk_step(carry, inputs):
+        c_prev, n_prev, m_prev = carry
+        q_g, k_g, v_g, i_g, f_g = inputs                   # (B,l,H,dh) (B,l,H)
         b_cum = torch.cumsum(f_g, dim=1)                   # (B,l,H)
         a_run = torch.cummax(i_g - b_cum, dim=1).values    # running max of
                                                            # (i_s - b_s)
@@ -112,7 +112,7 @@ def _mlstm_chunk_scan(q, k, v, i_pre, f_pre, state, chunk: int):
         num = num_intra + num_inter
         den = den_intra + den_inter
         m_last = m_t[:, -1]                                # (B,H)
-        ys.append(num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None])
+        y = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
         # state update to the chunk's end
         b_tot = b_cum[:, -1]                               # (B,H)
         sc = torch.exp(m_prev + b_tot - m_last)            # (B,H)
@@ -123,9 +123,11 @@ def _mlstm_chunk_scan(q, k, v, i_pre, f_pre, state, chunk: int):
             "bsh,bshd,bshe->bhde", kv_dec, k_s, v_g)
         n_prev = n_prev * sc[..., None] + torch.einsum(
             "bsh,bshd->bhd", kv_dec, k_s)
-        m_prev = m_last
-    y = torch.stack(ys, dim=1).reshape(bb, s, h, dh)
-    return y, (c_prev, n_prev, m_prev)
+        return (c_prev, n_prev, m_last), y
+
+    state, ys = scan_steps(chunk_step, (c_prev, n_prev, m_prev),
+                           (qs, ks, vs, is_, fs), nc)
+    return ys.reshape(bb, s, h, dh), state
 
 
 def mlstm_state_init(cfg, batch: int, device="cpu", dtype=F32):
@@ -244,11 +246,13 @@ def slstm_forward(cfg, p, x, state=None):
     r_all = torch.stack([p[k].to(wide) for k in ("r_i", "r_f", "r_z",
                                                  "r_o")])
     carry = (st["c"], st["n"], st["h"], st["m"])
-    hs = []
-    for t in range(s):
-        carry = _slstm_step(cfg, r_all, carry, g_all[:, t])
-        hs.append(carry[2])
-    y = torch.stack(hs, dim=1).to(x.dtype)                 # (B,S,D)
+
+    def time_step(carry, inputs):
+        carry = _slstm_step(cfg, r_all, carry, inputs[0])
+        return carry, carry[2]
+
+    carry, y = scan_steps(time_step, carry, (g_all,), s)
+    y = y.to(x.dtype)                                      # (B,S,D)
     y = rmsnorm(p["norm"], y, cfg.norm_eps)
     up = linear(p["ffn_up"], y)
     d_ff = up.shape[-1] // 2

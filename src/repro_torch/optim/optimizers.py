@@ -14,6 +14,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.sharding import dtensor
 from repro_torch.utils import tree_leaves, tree_map
 
 F32 = torch.float32
@@ -28,6 +29,17 @@ class Optimizer:
 def apply_updates(params, updates):
     return tree_map(lambda p, u: (p.to(F32) + u.to(F32)).to(p.dtype),
                     params, updates)
+
+
+def _laid_out_as(g, moment):
+    """A DTensor gradient laid out as its moment before the nonlinear
+    update: its pending (``Partial``) sums reduced, onto the moment's
+    shard where ZeRO-1 splits it (a reduce-scatter), rather than through
+    products of partial sums. Plain tensors are returned as they are."""
+    if dtensor.is_dtensor(g) and tuple(g.placements) != tuple(
+            moment.placements):
+        return g.redistribute(moment.device_mesh, moment.placements)
+    return g
 
 
 def _sched(lr):
@@ -80,7 +92,8 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     def update(grads, state, params=None):
         step = state["step"] + 1
-        g = tree_map(lambda x: x.to(F32), grads)
+        g = tree_map(lambda x, mi: _laid_out_as(x, mi).to(F32), grads,
+                     state["m"])
         m = tree_map(lambda mi, gi: b1 * mi + (1 - b1) * gi, state["m"], g)
         v = tree_map(lambda vi, gi: b2 * vi + (1 - b2) * gi * gi,
                      state["v"], g)

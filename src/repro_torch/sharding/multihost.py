@@ -88,12 +88,14 @@ def _device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def init_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...]):
+def init_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...],
+              device_type: Optional[str] = None):
     """A DeviceMesh of ``shape`` over the initialized world, ranks in
-    row-major order, dimensions named ``axis_names``."""
+    row-major order, dimensions named ``axis_names``, on the backend's
+    device type unless ``device_type`` is given."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    device_type = _device_type()
+    device_type = device_type or _device_type()
     n = 1
     for s in shape:
         n *= s

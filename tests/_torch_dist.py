@@ -344,9 +344,142 @@ def task_layouts(inp):
     return out
 
 
+def _whole(tree):
+    from repro_torch import utils
+    return utils.tree_map(lambda t: t.full_tensor(), tree)
+
+
+def task_dryrun(inp):
+    """The dry run's train programs with real values on the (2, 2)
+    production mesh of the world, each beside the port's unsharded
+    computation on the same inputs (DTensor results gathered whole with
+    ``full_tensor``):
+
+    * ``train``: the D-CCO train step of the smoke TinyLlama tower, tp-
+      and fsdp-placed, and of the smoke DeepSeek-MoE tower (expert
+      parallel, its balance and router-z losses in the loss), tp-placed:
+      loss, gradients, updated parameters; and the MoE tower's encoding
+      with its aux values;
+    * ``knobs``: the TinyLlama tower's forward on the tp-placed parameters
+      with and without ``act_shard_axes`` and ``fsdp_model_size``."""
+    from repro_torch.configs.base import TrainConfig, get_config, \
+        get_dual_encoder_config
+    from repro_torch.launch import dryrun, inputs as inp_lib
+    from repro_torch.launch import mesh as mesh_lib, steps
+    from repro_torch.models import dual_encoder, transformer
+    from repro_torch.optim import optimizers as opt_lib
+
+    mesh = mesh_lib.make_production_mesh(ranks_per_host=2)
+    out = {"train": {}}
+    shape = inp_lib.InputShape("train_s", 16, 8, "train")
+    opt = opt_lib.adam(5e-3)
+    for arch, mode, micro in (("tinyllama-1.1b", "tp", 2),
+                              ("tinyllama-1.1b", "fsdp", 1),
+                              ("deepseek-moe-16b", "tp", 1)):
+        cfg = get_config(arch, smoke=True)
+        de_cfg = get_dual_encoder_config(arch)
+        params, batch = inp["train"][arch]["params"], inp["train"][arch][
+            "batch"]
+        values = {"params": params, "opt_state": opt.init(params),
+                  "batch": batch}
+        step, args = dryrun.build_case(
+            arch, shape, mesh, cfg=cfg, sharding=mode, values=values,
+            num_microbatches=micro)
+        grads, _ = step.grads(args[0], args[2])
+        p, _, m = step(*args)
+        plain = steps.make_dcco_train_step(
+            cfg.replace(remat="full"), de_cfg,
+            TrainConfig(global_batch=8), opt, num_microbatches=micro)
+        g0, _ = plain.grads(params, batch)
+        p0, _, m0 = plain(params, opt.init(params), batch)
+        rec = {"params": _whole(p), "grads": _whole(grads),
+               "loss": m["loss"].full_tensor(), "plain_params": p0,
+               "plain_grads": g0, "plain_loss": m0["loss"]}
+        if cfg.moe is not None:
+            _, aux = dual_encoder.encode(cfg, de_cfg, args[0],
+                                         args[2]["view1"])
+            _, aux0 = dual_encoder.encode(cfg, de_cfg, params,
+                                          batch["view1"])
+            rec["aux"] = {k: v.full_tensor() for k, v in aux.items()}
+            rec["plain_aux"] = aux0
+        out["train"][f"{arch}/{mode}"] = rec
+
+    arch = "tinyllama-1.1b"
+    cfg = get_config(arch, smoke=True)
+    _, (tp_params, _, tp_batch) = dryrun.build_case(
+        arch, shape, mesh, cfg=cfg, values={
+            "params": inp["train"][arch]["params"],
+            "batch": inp["train"][arch]["batch"]})
+    tokens = tp_batch["view1"]["tokens"]
+    tower = tp_params["tower"]
+    out["knobs"] = {name: transformer.forward(c, tower, tokens).full_tensor()
+                    for name, c in (
+                        ("plain", cfg),
+                        ("act_shard_axes", cfg.replace(
+                            act_shard_axes=("data", "model"))),
+                        ("fsdp_model_size", cfg.replace(fsdp_model_size=2)))}
+    return out
+
+
+def task_dryrun_serve(inp):
+    """The dry run's serving programs with real values on the (2, 2)
+    production mesh of the world, beside the unsharded port: prefill and
+    two decode steps, the cache laid out by the dry run's decode rules
+    between steps (TinyLlama at batch 1, the cache's slots split over
+    "data" and a sliding window of 8 whose ring wraps, and at batch 4,
+    rows over "data" and slots over "model"; DeepSeek-V2-Lite's MLA, the
+    absorbed decode, at batch 4 and 1; Zamba2's Mamba2 hybrid and xLSTM
+    at batch 4): the logits of each step and the cache after the last;
+    and the two recurrent towers' forward."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun, inputs as inp_lib
+    from repro_torch.launch import mesh as mesh_lib, steps
+    from repro_torch.models import transformer
+
+    mesh = mesh_lib.make_production_mesh(ranks_per_host=2)
+    out = {"serve": {}, "forward": {}}
+    for key, (arch, b, prompt, window) in inp["serve_cases"].items():
+        cfg = get_config(arch, smoke=True).replace(sliding_window=window)
+        tower, toks = inp["towers"][arch], inp["tokens"][:b]
+        total = prompt + 2
+        pcfg = cfg.replace(attn_impl="blockwise")
+        step, args = dryrun.build_case(
+            arch, inp_lib.InputShape("p", total, b, "prefill"), mesh,
+            cfg=cfg, values={"params": tower,
+                             "batch": {"tokens": toks[:, :prompt]}})
+        logits, cache = step(*args)
+        plain_l, plain_c = steps.make_prefill_step(pcfg, total)(
+            tower, {"tokens": toks[:, :prompt]})
+        rec = {"logits": [logits.full_tensor()], "plain": [plain_l]}
+        if cfg.block_pattern != ("attn",) and b > 1:
+            out["forward"][arch] = {
+                "h": transformer.forward(pcfg, args[0],
+                                         args[1]["tokens"]).full_tensor(),
+                "plain": transformer.forward(pcfg, tower,
+                                             toks[:, :prompt])}
+        cache = _whole(cache)
+        for t in range(prompt, total):
+            tok = {"tokens": toks[:, t:t + 1]}
+            step, args = dryrun.build_case(
+                arch, inp_lib.InputShape("d", total, b, "decode"), mesh,
+                cfg=cfg, values={"params": tower, "cache": cache,
+                                 "batch": tok})
+            logits, cache = step(*args)
+            cache = _whole(cache)
+            plain_l, plain_c = steps.make_serve_step(pcfg)(tower, plain_c,
+                                                          tok)
+            rec["logits"].append(logits.full_tensor())
+            rec["plain"].append(plain_l)
+        rec["cache"], rec["plain_cache"] = cache, plain_c
+        out["serve"][key] = rec
+
+    return out
+
+
 TASKS = {"rounds": task_rounds, "engine": task_engine,
          "losses": task_losses, "step": task_step, "corpus": task_corpus,
-         "mesh": task_mesh, "layouts": task_layouts}
+         "mesh": task_mesh, "layouts": task_layouts, "dryrun": task_dryrun,
+         "dryrun_serve": task_dryrun_serve}
 
 
 def main() -> None:
