@@ -57,9 +57,11 @@ Phases (each prints its lines; any failure exits non-zero):
      3e-2, the row log-sum-exp to 2e-5 (1 + |lse|)) at the TinyLlama
      path's shape (phase 1 and phase 2 both give B = K * n), Dh 128 in
      groups of 2, the smoke configs' Dh 32 in f32, windows 32 and 96,
-     non-causal, Sq 64 of Skv 128 and a ragged S of 100, each timed beside
-     its plain version and ``scaled_dot_product_attention`` (a yardstick
-     the port never calls); the gradient of its autograd Function against
+     non-causal, Sq 64 of Skv 128, a ragged S of 100, TinyLlama's heads
+     at B = 1 over 4096 positions and (B, S, H, Dh) views read in place
+     (bit-equal to their contiguous copies), each timed beside its plain
+     version and ``scaled_dot_product_attention`` (a yardstick the port
+     never calls); the gradient of its autograd Function against
      autograd of the plain version at the path's shape in f32; then, after
      the serving phase's memory is released, D-CCO training of the
      full-width TinyLlama-1.1B token dual encoder (3 rounds, TOK_K clients
@@ -313,6 +315,7 @@ from repro_torch.launch.mesh import (  # noqa: E402
 from repro_torch.sharding import (  # noqa: E402
     collectives, make_corpus_mesh, maybe_initialize_distributed, specs)
 from tools.time_cco_stats import eager_ms, time_ms  # noqa: E402
+from tools.time_flash import flash_bound_ms  # noqa: E402
 
 ROUNDS = 5            # the DCCO path
 PATH_ROUNDS = 3       # every other path
@@ -338,7 +341,6 @@ IVF_C, IVF_NPROBE = 128, 8
 # the token path: TinyLlama-1.1B at full width (22 layers, H 32, KVH 4,
 # Dh 64, bf16), TOK_K clients x TOK_N sequences of TOK_S tokens
 TOK_ARCH, TOK_LAYERS, TOK_K, TOK_N, TOK_S = "tinyllama-1.1b", 22, 4, 2, 128
-PEAK_BF16 = HardwareSpec.PEAK_BF16   # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_TF32 = HardwareSpec.PEAK_TF32   # H100 SXM dense TF32 tensor-core FLOP/s
 # flash attention vs plain: both compute in f32 from the same inputs, in
 # other orders; a bf16 output is rounded once on each side (1 bf16 ulp of
@@ -797,28 +799,17 @@ def appendix_a(device, objective="dcco"):
              f"f32 loss 1e-4)")
 
 
-def flash_bound_ms(q, k, v, valid):
-    """q, k, v read once, the output (B, H, Sq, Dv) and the f32 row
-    log-sum-exp written once; 2 (Dqk + Dv) operations (two products) for
-    each score the mask keeps, at the peak of the inputs' type (the bf16
-    tensor rate, or the f32 non-tensor rate)."""
-    b, h, sq, dh = q.shape
-    dv = v.shape[3]
-    moved = ((q.numel() + k.numel() + v.numel() + b * h * sq * dv)
-             * q.element_size() + 4 * b * h * sq)
-    ops = 2 * b * h * (dh + dv) * int(valid.sum())
-    peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_F32
-    t_bytes, t_ops = moved / PEAK_BYTES, ops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def check_flash(b, h, kvh, sq, skv, dh, dtype, label, *, causal=True,
-                window=0, seed=0, dv=None):
+                window=0, seed=0, dv=None, view=False):
     """Kernel vs plain version at one shape (v ``dv`` wide, by default
     ``dh``): the output to FLASH_TOL of its type and the row log-sum-exp
     to 2e-5 (1 + |lse|); returns (max_abs_err, ms, plain_ms, library_ms,
-    bound). The kernel and the plain version are timed in CUDA graphs;
+    bound). With ``view`` the operands are (B, S, H, Dh) tensors seen as
+    (B, H, S, Dh), as the model hands them, read in place: the output and
+    lse must equal those of their contiguous copies bit for bit. The bound
+    takes the f32 route's operations at the TF32 peak (its products run on
+    the tensor cores); the f32 CUDA-core figure is printed beside it. The
+    kernel and the plain version are timed in CUDA graphs;
     the yardstick is one ``scaled_dot_product_attention(...,
     enable_gqa=True)``, causal where its top-left causal mask is the
     kernel's (Sq == Skv, no window), else with the kernel's mask passed
@@ -826,12 +817,24 @@ def check_flash(b, h, kvh, sq, skv, dh, dtype, label, *, causal=True,
     dev = torch.device("cuda")
     dv = dh if dv is None else dv
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(b, h, sq, dh, generator=gen, device=dev).to(dtype)
-    k = torch.randn(b, kvh, skv, dh, generator=gen, device=dev).to(dtype)
-    v = torch.randn(b, kvh, skv, dv, generator=gen, device=dev).to(dtype)
+    if view:
+        q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev).to(
+            dtype).transpose(1, 2) for s, n, d in (
+                (sq, h, dh), (skv, kvh, dh), (skv, kvh, dv)))
+    else:
+        q = torch.randn(b, h, sq, dh, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, kvh, skv, dh, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, kvh, skv, dv, generator=gen, device=dev).to(dtype)
     kw = {"causal": causal, "window": window, "scale": 1.0 / dh ** 0.5}
     out, lse = FlashAttention.apply(q, k, v, causal, window, kw["scale"])
     again = flash_attention(q, k, v, causal=causal, window=window)
+    in_place = True
+    if view:
+        c_out, c_lse = FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), causal, window,
+                                            kw["scale"])
+        in_place = torch.equal(out, c_out) and torch.equal(lse, c_lse)
+        del c_out, c_lse
     torch.cuda.synchronize()
     plain, plain_lse = ref.flash_attention_ref(q, k, v, return_lse=True,
                                                **kw)
@@ -845,6 +848,9 @@ def check_flash(b, h, kvh, sq, skv, dh, dtype, label, *, causal=True,
     del again, plain, plain_lse, lse
     valid = ref.flash_attention_mask(sq, skv, causal, window, dev)
     bnd = flash_bound_ms(q, k, v, valid)
+    cores = ("" if dtype != torch.float32 else
+             f"; at the f32 CUDA-core rate "
+             f"{flash_bound_ms(q, k, v, valid, PEAK_F32)[0]:.5f}")
     ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
                                          window=window), 20, 10)
     plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 5, 4)
@@ -868,8 +874,11 @@ def check_flash(b, h, kvh, sq, skv, dh, dtype, label, *, causal=True,
           f"{tol:g}), lse rel err {lse_err:.3e} (tol 2e-5), run-to-run "
           f"equal {same}; device ms: kernel {ms:.5f} plain {plain_ms:.5f} "
           f"sdpa {'none' if lib_ms is None else f'{lib_ms:.5f}'} bound "
-          f"{bnd[0]:.5f} ({bnd[1]})", flush=True)
-    if not (err <= tol and lse_err <= 2e-5 and same):
+          f"{bnd[0]:.5f} ({bnd[1]}{cores})"
+          + (f"; (B, S, H, Dh) views read in place, equal to their "
+             f"contiguous copies bit for bit {in_place}" if view else ""),
+          flush=True)
+    if not (err <= tol and lse_err <= 2e-5 and same and in_place):
         fail(f"flash_attention {label} disagrees with its plain version or "
              f"with itself")
     del q, k, v, out, valid
@@ -900,6 +909,10 @@ def check_flash_shapes():
                 seed=8)
     check_flash(3, 8, 2, 100, 300, 32, torch.float32,
                 "ragged Sq 100 of Skv 300, window 70", window=70, seed=9)
+    check_flash(1, 32, 4, 4096, 4096, 64, torch.bfloat16,
+                "TinyLlama heads over 4096 positions", seed=10)
+    check_flash(b, 16, 8, 257, 257, 128, torch.bfloat16,
+                "(B, S, H, Dh) views, groups of 2", seed=11, view=True)
     return figures
 
 

@@ -1,5 +1,5 @@
 // Causal or sliding-window GQA attention with an online softmax, for
-// Hopper (sm_90a): bf16 on the tensor cores, f32 on the CUDA cores.
+// Hopper (sm_90a), on wgmma fed by a TMA ring, in bf16 and in f32.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py:
 // _flash_kernel, launched by flash_attention_pallas. On q (B, H, Sq, Dqk),
@@ -13,281 +13,132 @@
 //          running (m, l, acc) in f32, acc / max(l, 1e-30), cast to q's type
 //   lse  = m + log(max(l, 1e-30)), f32 (B, H, Sq): the row log-sum-exp the
 //          plain-PyTorch backward recomputes the probabilities from.
-// P . V is computed to f32 accuracy, as in the Pallas body (the reference
-// model's jnp scan rounds p to v's type first). Departure: the Pallas
-// kernel asserts that the blocks divide Sq and Skv; here a ragged tail is
-// masked (rows past Sq are not written, kv rows past Skv get probability
-// 0). (Dqk, Dv) instances: (32, 32), (64, 64), (80, 80) (zamba2-2.7b's
-// attention blocks), (128, 128) and MLA's (192, 128)
-// (deepseek-v2-lite-16b's prefill: nope 128 + rope 64 for q and k, 128
-// for v), one template over both dims; the Pallas kernel takes one Dh,
-// and the reference's MLA prefill runs its jnp scan.
+// Both products are computed to f32 accuracy, as in the Pallas body. The
+// Pallas kernel asserts that its blocks divide Sq and Skv; here a ragged
+// tail is masked. (Dqk, Dv) instances: (32, 32), (64, 64), (80, 80)
+// (zamba2-2.7b), (128, 128) and MLA's (192, 128) (deepseek-v2-lite-16b's
+// prefill), one template over both dims and both types.
 //
-// Both routes: the TPU kernel runs its grid in order on one core and
-// carries (m, l, acc) in VMEM scratch from one kv block to the next. Here
-// a thread block of 4 warps owns one (b, h, tile of BQ = 64 query rows)
-// and loops over the kv tiles of BKV = 64 rows itself, so nothing carries
-// between blocks and no atomics are needed. Causal kv tiles wholly after
-// a query tile's last row, and window tiles wholly before its first row's
-// window, are skipped: the first add p = exp(-1e30 - m) = 0, the second
-// are wiped by the next valid tile's alpha = exp(-1e30 - m) = 0, so
-// skipping them changes nothing.
+// What bounds it. 2 * B * H * (unmasked scores) * (Dqk + Dv) FLOPs on
+// B * (H + KVH) * S * (Dqk + Dv) elements read or written: at the token
+// path's (B 8, H 32, KVH 4, S 128, Dh 64, bf16, causal) 0.55 us at the
+// bf16 tensor rate against 2.9 us at 3.35 TB/s, so the bytes; past a few
+// hundred positions the operations (at 32768 positions, 99% of the time
+// at the data sheet's rates). The work a block does is small at the short
+// shapes of the training paths (1-6 kv tiles), so what decides the time
+// there is how soon every SM is busy and how little of a block's life is
+// spent waiting: on loads, on its own softmax, on the slowest block.
 //
-// Bound on an H100 SXM: 2 * B * H * (unmasked scores) * (Dqk + Dv) FLOPs
-// on B * (H + KVH) * S * (Dqk + Dv) elements read or written. At the
-// TinyLlama path's shape (B 8, H 32, KVH 4, S 128, Dh 64, bf16, causal)
-// that is 0.54 GFLOP and 9.6 MB: 0.55 us at the bf16 tensor rate, 2.9 us
-// at 3.35 TB/s, so the bytes bound it; a block lives for 1-2 kv tiles at
-// S = 128.
+// The design.
+// - One block is a tile of BM = 64 query rows: one consumer warpgroup
+//   (warps 0-3) and one producer warp (warp 4). The rows are (position,
+//   head) pairs of the P = gcd(H / KVH, 64) query heads that read one kv
+//   head, position-major: 64 / P positions x P heads. So one staged K/V
+//   tile serves the whole group, and a few queries over a long cache still
+//   fill a tile. Each row's causal and window mask comes from its own
+//   position; the block's kv range is the union of its rows' ranges, from
+//   its first row's window start to its last row's causal end, and no kv
+//   tile outside it is visited.
+// - The producer's one thread loads Q once and K and V tile by tile with
+//   cp.async.bulk.tensor into a ring of NS = 2 stages, K and V with full
+//   and empty mbarriers each, so S of the next tile waits only on K.
+//   Tensor maps (built on the host per call, through the driver entry
+//   point, so the library does not link libcuda) carry the operands' real
+//   strides: a (B, S, H, Dh) tensor viewed as (B, H, S, Dh) loads in place.
+//   Each map swizzles its rows at the widest of 128, 64 or 32 bytes that
+//   divides them; a row wider than that is loaded as several boxes (Dh 80
+//   in bf16: five of 32 bytes). Rows past Sq or Skv land as zeros.
+// - S = Q K^T is one wgmma chain (m64 x BKV, k16 steps) from shared
+//   memory; the online softmax runs on its accumulator registers (a row's
+//   max over its quad of threads, one FFMA and one ex2 a score); P never
+//   leaves the registers: as P_hi + P_lo, two bf16 terms, it is the A
+//   operand of the P V chain against V in shared memory (MN-major, so
+//   transposed by the descriptor). One P term alone would miss f32
+//   accuracy by 2^-9 |P|; the dropped residual is below 2^-18 |P|. Each
+//   chain adds its smaller term first: an MMA truncates its sum, so a
+//   small term added to a large running sum loses more.
+// - Inside the warpgroup, tile t + 1's S chain is issued with tile t's
+//   P V chain, and tile t + 1's softmax runs on the CUDA cores while the
+//   P V chain runs on the tensor cores. Keeping tile t + 2's S chain in
+//   flight during that softmax takes a second S accumulator; with P_hi
+//   and P_lo already held, every bf16 instance then spills 192-412 bytes
+//   and ran 1.25-2.0x slower (PERF.md).
+// - Blocks are launched heaviest first: the query tiles in reverse, so
+//   causal tiles with the most kv tiles start in the first wave and the
+//   light ones fill the ragged end.
+// - The output is written from the registers into a (B, Sq, H, Dv) buffer,
+//   the layout the model reads next; the wrapper returns its (B, H, Sq, Dv)
+//   view.
 //
-// bf16 route (flash_fwd_bf16). The first design ran both products as f32
-// FMAs on the CUDA cores (~15 TFLOP/s reached), converted each element to
-// f32 with a scalar load as it staged it, wrote transposed tiles at a
-// 4-way bank conflict and overlapped nothing; its f32 tiles took 120 KB
-// of shared memory at Dh 128, one block an SM. Now:
-// - Q, K and V stay bf16 in shared memory, rows padded by 16 bytes so that
-//   ldmatrix reads them without bank conflicts, loaded with 16-byte
-//   cp.async (rows past Sq or Skv zero-filled). K/V tiles are double
-//   buffered: tile t + 2 loads while tile t + 1 waits and tile t computes.
-//   Shared memory: 46 KB at Dh 64, 55 KB at Dh 80 (rows of 88 elements,
-//   176 bytes: 16-byte aligned, and 8 rows start on 8 distinct 4-bank
-//   groups, so ldmatrix is conflict-free), 87 KB at Dh 128, 112 KB at
-//   (Dqk 192, Dv 128) (Q and K rows of 400 bytes, V rows of 272), so two
-//   blocks an SM at most there.
-// - Warp w owns query rows 16w .. 16w + 15. Its Q fragments are loaded
-//   once (ldmatrix) and held in registers for the whole kv loop. Dqk is a
-//   whole number of MMA k-steps of 16 and Dv of pairs of n-tiles of 8
-//   (Dh 80: 5 k-steps, 10 n-tiles), so every loop that pairs tiles stays
-//   whole.
-// - S = Q K^T on mma.sync.m16n8k16 bf16 -> f32: products of bf16 values
-//   are exact in f32, so this is the Pallas body's f32 product up to
-//   summation order. Scale and mask act on the accumulator fragments, and
-//   only tiles that straddle the diagonal, the window edge or Skv mask.
-// - The online softmax runs on the fragments (exp2 of log2-scaled scores);
-//   a row's max is two xor shuffles within its quad, and (m, l, acc) stay
-//   in f32 registers, l summed per thread and reduced once at the end.
-// - P never goes to shared memory: the m16n8 C fragments of S are laid out
-//   as the A operand of the next m16n8k16. To keep P . V at f32 accuracy,
-//   P = P_hi + P_lo, both bf16, and two MMAs run against V (exact in
-//   bf16); the dropped term is below 2^-16 |P|.
-// - The output is normalised in registers, staged through the warp's own
-//   rows of the Q tile (Dv <= Dqk, so its rows hold them) and written with
-//   16-byte stores.
-// wgmma is not used: at S = 128 a block sees 1-2 kv tiles of 64 rows,
-// too little work a block to fill a warpgroup pipeline; mma.sync on the
-// register-resident fragments keeps P out of shared memory.
-//
-// f32 route (flash_fwd_f32, the smoke configs' Dh 32; no PyTorch f32
-// flash backend exists to beat): the Q tile is staged once, transposed, in
-// shared memory; each kv tile is staged as K transposed and V as is
-// (shared memory (2 Dqk + 64) x 68 + 64 Dv floats: 80 KB at Dh 80, 155 KB
-// at (192, 128)). 128 threads hold the 64 x 64 score tile as 16 row
-// groups x 8 column groups: a thread owns 4 rows and 8 columns, so each
-// step over Dh reads three float4s from shared memory for 32 FMAs. P goes
-// through shared memory to the P . V product, with acc in registers: a
-// thread owns columns 32 jj + 4 tx .. + 3 of each run jj of 32 output
-// columns, and where Dv is not a multiple of 32 (Dh 80: runs at 0, 32 and
-// a last run of 16) the threads past the last run's width hold nothing
-// there.
+// The f32 route runs on the same pipeline, on the tensor cores. With h()
+// TF32 rounding (cvt.rna) and b() bf16 rounding:
+//   q . k = b(q - h(q)) . b(k) + b(q) . b(k - h(k))    [bf16 wgmma]
+//           + h(q) . h(k)                              [TF32 wgmma]
+//           (r(q) . r(k), ~2^-22 |q||k|, dropped)
+//   P V   = P_lo V2 + P_lo V1 + P_hi V3 + P_hi V2 + P_hi V1   [bf16 wgmma]
+//           with v = V1 + V2 + V3, three bf16 terms (2^-27 |v|): two terms
+//           of V would leave 2^-18 |v|, ~1.5e-5 at |v| = 4, in a row that
+//           attends to one key. TF32 wgmma takes B K-major only, and V is
+//           MN-major here, so P V stays on bf16 terms.
+// The consumer warpgroup rounds each landed Q and K tile to TF32 in place
+// and writes its two bf16 terms beside it, and writes V's three terms.
+// Shared memory a row element: Q and K 8 bytes (TF32 + two bf16), V 4
+// bytes landed + 6 of terms. At (192, 128), the tight case, that is 224 KB
+// with BKV = 32 kv rows a tile: Q 96 KB, rings of 2 x 24 (K) and 2 x 16
+// (V) KB, and 24 + 24 KB of K and V terms; BKV = 64 below Dqk 128.
+#include <cuda.h>            // CUtensorMap and its enums; no libcuda link
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;           // query rows a block holds
-constexpr int BKV = 64;          // kv rows a tile stages
-constexpr int THREADS = 128;     // 4 warps
+constexpr int BM = 64;           // query rows a block: one warpgroup's M
+constexpr int THREADS = 160;     // the consumer warpgroup and the producer warp
+constexpr int NS = 2;            // stages of the K and V rings
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-constexpr int MAX_GRID_Z = 65535;
 
-// ------------------------------------------------------------ f32 route --
+// A row of D elements of ES bytes in shared memory: boxes of SW bytes (the
+// widest swizzle that divides the row), a tile of R rows stored as NB
+// sub-tiles of R x SW bytes, each swizzled as the TMA writes it.
+template <int D, int ES>
+struct Rows {
+  static constexpr int BYTES = D * ES;
+  static constexpr int SW = BYTES % 128 == 0 ? 128 : BYTES % 64 == 0 ? 64 : 32;
+  static constexpr int BOXW = SW / ES;         // elements a box row
+  static constexpr int NB = BYTES / SW;        // boxes a row
+  static_assert(BYTES % 32 == 0, "rows of whole 32-byte k-steps");
+};
 
-constexpr int LDT = 68;          // row stride (floats) of qT, kT and P
+template <int DQK, int DV, bool F32>
+struct Cfg {
+  using QK = Rows<DQK, F32 ? 4 : 2>;           // Q and K as they land
+  using V = Rows<DV, F32 ? 4 : 2>;             // V as it lands
+  using QK2 = Rows<DQK, 2>;                    // bf16 terms of Q and K (f32)
+  using V2 = Rows<DV, 2>;                      // bf16 V terms (f32)
+  static constexpr int BKV = F32 && DQK >= 128 ? 32 : 64;
+  static constexpr int Q_BYTES = BM * QK::BYTES;
+  static constexpr int K_BYTES = BKV * QK::BYTES;
+  static constexpr int V_BYTES = BKV * V::BYTES;
+  static constexpr int Q2_BYTES = F32 ? BM * QK2::BYTES : 0;
+  static constexpr int K2_BYTES = F32 ? BKV * QK2::BYTES : 0;
+  static constexpr int V2_BYTES = F32 ? BKV * V2::BYTES : 0;
+  static constexpr int OFF_K = Q_BYTES;                       // NS slots
+  static constexpr int OFF_V = OFF_K + NS * K_BYTES;          // NS slots
+  static constexpr int OFF_Q2 = OFF_V + NS * V_BYTES;         // qr, qb
+  static constexpr int OFF_K2 = OFF_Q2 + 2 * Q2_BYTES;        // kr, kb
+  static constexpr int OFF_V2 = OFF_K2 + 2 * K2_BYTES;        // v1, v2, v3
+  static constexpr int OFF_BAR = OFF_V2 + 3 * V2_BYTES;
+  // barriers: full Q, then full K, empty K, full V, empty V (NS each);
+  // 1024 bytes of slack to align the base for the 128-byte swizzle
+  static constexpr int SMEM = OFF_BAR + 8 * (1 + 4 * NS) + 1024;
+  static constexpr int MIN_BLOCKS = F32 ? 1 : (DQK <= 64 ? 3 : 2);
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
 
-template <int DQK, int DV>
-constexpr int smem_floats_f32() {
-  return 2 * DQK * LDT + BKV * DV + BQ * LDT;
-}
-
-// Rows [row0, row0 + 64) of a (rows, DH) matrix into shared memory,
-// transposed (t[d * LDT + r]) or as is (t[r * DH + d]); rows at or past
-// `rows` read 0. Neighbouring threads read neighbouring elements.
-template <bool TRANSPOSE, int DH>
-__device__ __forceinline__ void stage(const float* __restrict__ src, int row0,
-                                      int rows, float* __restrict__ t) {
-  for (int idx = threadIdx.x; idx < 64 * DH; idx += THREADS) {
-    const int r = idx / DH, d = idx % DH;
-    const int row = row0 + r;
-    const float x = row < rows ? src[(int64_t)row * DH + d] : 0.f;
-    t[TRANSPOSE ? d * LDT + r : r * DH + d] = x;
-  }
-}
-
-template <int DQK, int DV>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
-              float* __restrict__ lse, int H, int KVH, int Sq, int Skv,
-              int causal, int window, float scale) {
-  extern __shared__ float4 smem4[];
-  float* qT = reinterpret_cast<float*>(smem4);   // [DQK][LDT]
-  float* kT = qT + DQK * LDT;                     // [DQK][LDT]
-  float* vs = kT + DQK * LDT;                     // [BKV][DV]
-  float* ps = vs + BKV * DV;                      // [BQ][LDT]
-  constexpr int DJ = (DV + 31) / 32;              // output runs of 4 a thread holds
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KVH);
-  const int64_t bh = (int64_t)b * H + h;
-  const float* qb = q + bh * Sq * DQK;
-  const float* kb = k + ((int64_t)b * KVH + kvh) * Skv * DQK;
-  const float* vb = v + ((int64_t)b * KVH + kvh) * Skv * DV;
-  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
-  const int q_offset = Skv - Sq;
-  // whether run jj's four columns exist (only a last, partial run of a
-  // Dv that is not a multiple of 32 leaves some threads out)
-  auto run_ok = [tx](int jj) { return 32 * jj + tx * 4 < DV; };
-
-  stage<true, DQK>(qb, q0, Sq, qT);
-
-  float m[4], l[4], acc[4][DJ][4];
-  int qpos[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-    qpos[i] = q_offset + q0 + ty * 4 + i;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][jj][e] = 0.f;
-  }
-
-  // the kv range any real row of this tile can see, in whole tiles
-  const int last_row = min(q0 + BQ, Sq) - 1;
-  const int kv_end = causal ? q_offset + last_row + 1 : Skv;
-  int kv_begin = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
-  kv_begin = (kv_begin / BKV) * BKV;
-
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BKV) {
-    __syncthreads();               // the last tile's kT, vs and ps are read
-    stage<true, DQK>(kb, kv0, Skv, kT);
-    stage<false, DV>(vb, kv0, Skv, vs);
-    __syncthreads();
-
-    // scores: rows ty*4 + i, columns 32*(j/4) + tx*4 + j%4 of the tile
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DQK; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(qT + d * LDT + ty * 4);
-      const float4 k0 = *reinterpret_cast<const float4*>(kT + d * LDT + tx * 4);
-      const float4 k1 =
-          *reinterpret_cast<const float4*>(kT + d * LDT + 32 + tx * 4);
-      const float qr[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kc[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
-    }
-
-    // mask, then the online softmax update of each row
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = kv0 + 32 * (j >> 2) + tx * 4 + (j & 3);
-        bool ok = true;
-        if (causal) ok = ok && c <= qpos[i];
-        if (window > 0) ok = ok && c > qpos[i] - window;
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = kv0 + 32 * (j >> 2) + tx * 4 + (j & 3);
-        s[i][j] = c < Skv ? expf(s[i][j] - m_new) : 0.f;   // ragged tail
-        sum += s[i][j];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][jj][e] *= alpha;
-      float* prow = ps + (ty * 4 + i) * LDT + tx * 4;
-      *reinterpret_cast<float4*>(prow) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-      *reinterpret_cast<float4*>(prow + 32) =
-          make_float4(s[i][4], s[i][5], s[i][6], s[i][7]);
-    }
-    __syncthreads();
-
-    // acc += P . V over the tile's kv rows, four at a time
-#pragma unroll 2
-    for (int c = 0; c < BKV; c += 4) {
-      float pr[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 p4 =
-            *reinterpret_cast<const float4*>(ps + (ty * 4 + i) * LDT + c);
-        pr[i][0] = p4.x; pr[i][1] = p4.y; pr[i][2] = p4.z; pr[i][3] = p4.w;
-      }
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) {
-          if (!run_ok(jj)) continue;
-          const float4 v4 = *reinterpret_cast<const float4*>(
-              vs + (c + cc) * DV + 32 * jj + tx * 4);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][jj][0] = fmaf(pr[i][cc], v4.x, acc[i][jj][0]);
-            acc[i][jj][1] = fmaf(pr[i][cc], v4.y, acc[i][jj][1]);
-            acc[i][jj][2] = fmaf(pr[i][cc], v4.z, acc[i][jj][2]);
-            acc[i][jj][3] = fmaf(pr[i][cc], v4.w, acc[i][jj][3]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    float* orow = o + (bh * Sq + row) * DV;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      if (!run_ok(jj)) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        orow[32 * jj + tx * 4 + e] = acc[i][jj][e] / den;
-    }
-    if (tx == 0) lse[bh * Sq + row] = m[i] + logf(den);
-  }
-}
-
-// ----------------------------------------------------------- bf16 route --
+// ------------------------------------------------------------ helpers --
 
 typedef __nv_bfloat16 bf16;
 
@@ -295,365 +146,881 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously; zeros when !valid (src-size
-// 0: nothing is read, but src must still be a mapped address)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
+// byte offset of element (r, c) in an R-row tile of layout L, swizzled as
+// Swizzle<log2(SW / 16), 4, 3> (the tile starts on a 1024-byte boundary)
+template <class L, int R>
+__device__ __forceinline__ uint32_t at(int r, int c) {
+  const uint32_t off = (c / L::BOXW) * R * L::SW + r * L::SW +
+                       (c % L::BOXW) * (L::SW / L::BOXW);
+  return off ^ ((off >> 3) & ((L::SW / 16 - 1) << 4));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete. A wait of more than
+// 2^35 cycles (~19 s) traps: a pipeline fault raises an error in the
+// launching process instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1LL << 35)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// the consumer warpgroup's own barrier; generic-proxy writes to shared
+// memory made visible to the async proxy (wgmma, TMA)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor: start, leading and stride byte offsets,
+// the swizzle of SW bytes
+template <int SW>
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  constexpr uint64_t layout = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+// k-step kk (32 bytes of each row) of an R-row K-major tile of layout L
+template <class L, int R>
+__device__ __forceinline__ uint64_t kmajor(uint32_t base, int kk) {
+  const int col = kk * 32;
+  return desc<L::SW>(base + (col / L::SW) * R * L::SW + col % L::SW, 16,
+                     8 * L::SW);
+}
+
+// k-step kk (16 rows) of an R-row MN-major tile of layout L: the next SW
+// bytes of a row (a box) are R * SW further, the next 8 rows 8 * SW
+template <class L, int R>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t base, int kk) {
+  return desc<L::SW>(base + kk * 16 * L::SW, R * L::SW, 8 * L::SW);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x0, x1) as two bf16 in one register, x0 in the low half; `lo` gets the
-// rounding residual, also as bf16: x = hi + lo to within 2^-16 |x|
-__device__ __forceinline__ uint32_t split_bf16x2(float x0, float x1,
-                                                 uint32_t* lo) {
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-  const __nv_bfloat162 re = __floats2bfloat162_rn(x0 - __low2float(hi),
-                                                  x1 - __high2float(hi));
-  *lo = *reinterpret_cast<const uint32_t*>(&re);
-  return *reinterpret_cast<const uint32_t*>(&hi);
-}
-
-// padded row stride, in elements, of a staged bf16 tile
-template <int DH>
-__host__ __device__ constexpr int bf16_ld() { return DH + 8; }
-
-template <int DQK, int DV>
-constexpr int smem_bytes_bf16() {   // Q, 2 x K, 2 x V
-  return (3 * bf16_ld<DQK>() + 2 * bf16_ld<DV>()) * 64 * (int)sizeof(bf16);
-}
-
-// Rows [row0, row0 + 64) of a (rows, DH) bf16 matrix into shared memory
-// at a row stride of bf16_ld<DH>(), 16 bytes a copy; rows past `rows`
-// are zero-filled.
-template <int DH>
-__device__ __forceinline__ void load_tile(const bf16* __restrict__ src,
-                                          int row0, int rows, bf16* dst) {
-  constexpr int CPR = DH / 8;                  // 16-byte copies a row
-  constexpr int LD = bf16_ld<DH>();
+// keep the compiler from touching registers an in-flight wgmma reads or
+// writes: every use after a wait goes through this
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int c = threadIdx.x; c < 64 * CPR; c += THREADS) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    const int row = row0 + r;
-    const bool ok = row < rows;
-    cp_async16(smem_u32(dst + r * LD + col),
-               src + (int64_t)(ok ? row : 0) * DH + col, ok);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (+)= A B on the tensor cores, M = 64, N columns: A and B from shared
+// memory, K-major (bf16 k16 steps, or TF32 k8 steps); acc 0 overwrites d
+template <int N, bool TF32>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int acc);
+
+// d += A B, bf16 A from registers (an m16 x k16 fragment a warp), B from
+// shared memory MN-major (transposed)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a,
+                                         uint64_t b);
+
+// ------------------------------------- the wgmma instructions, by shape --
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32, false>(float (&d)[16], uint64_t a,
+                                                 uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32, true>(float (&d)[16], uint64_t a,
+                                                 uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64, false>(float (&d)[32], uint64_t a,
+                                                 uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64, true>(float (&d)[32], uint64_t a,
+                                                 uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t* a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t* a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t* a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t* a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ------------------------------------------------------ the f32 splits --
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// An f32 tile of R rows as it landed (layout Rows<D, 4>): h(x) = TF32(x)
+// in place, b(x - h(x)) into `lo` and b(x) into `full` (layout Rows<D, 2>).
+template <int D, int R>
+__device__ __forceinline__ void split_qk(uint8_t* f, uint8_t* lo,
+                                         uint8_t* full) {
+  using F = Rows<D, 4>;
+  using T = Rows<D, 2>;
+  for (int c = threadIdx.x; c < R * D / 4; c += 128) {
+    const int r = c / (D / 4), col = c % (D / 4) * 4;
+    float4* src = reinterpret_cast<float4*>(f + at<F, R>(r, col));
+    const float4 x = *src;
+    const float4 h = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z),
+                                 tf32_rna(x.w));
+    *src = h;
+    const uint32_t o = at<T, R>(r, col);
+    *reinterpret_cast<uint2*>(lo + o) =
+        make_uint2(pack_bf16(x.x - h.x, x.y - h.y),
+                   pack_bf16(x.z - h.z, x.w - h.w));
+    *reinterpret_cast<uint2*>(full + o) =
+        make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
   }
 }
 
-template <int DQK, int DV>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o,
-               float* __restrict__ lse, int H, int KVH, int Sq, int Skv,
-               int causal, int window, float scale_log2) {
-  static_assert(DV <= DQK, "the output is staged in the Q tile's rows");
-  static_assert(DQK % 16 == 0 && DV % 16 == 0,
-                "whole MMA k-steps of Q K^T and pairs of P V n-tiles");
-  constexpr int LD = bf16_ld<DQK>();           // Q and K rows
-  constexpr int LDV = bf16_ld<DV>();           // V rows
-  constexpr int TILE = 64 * LD;
-  constexpr int TILEV = 64 * LDV;
-  constexpr int NT = DV / 8;                   // output n-tiles of 8 columns
-  extern __shared__ uint4 smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
-  bf16* ks = qs + TILE;                          // [2][64][LD]
-  bf16* vs = ks + 2 * TILE;                      // [2][64][LDV]
+// An f32 V tile of R rows as three bf16 terms (layout Rows<D, 2>): v1 =
+// b(v), v2 = b(v - v1), v3 = b(v - v1 - v2), their sum v to 2^-27 |v|.
+template <int D, int R>
+__device__ __forceinline__ void split_v(const uint8_t* f, uint8_t* v1,
+                                        uint8_t* v2, uint8_t* v3) {
+  using F = Rows<D, 4>;
+  using T = Rows<D, 2>;
+  for (int c = threadIdx.x; c < R * D / 4; c += 128) {
+    const int r = c / (D / 4), col = c % (D / 4) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(f + at<F, R>(r, col));
+    const uint32_t o = at<T, R>(r, col);
+    float e[4] = {x.x, x.y, x.z, x.w};
+    uint8_t* dst[3] = {v1, v2, v3};
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const __nv_bfloat162 a = __floats2bfloat162_rn(e[0], e[1]);
+      const __nv_bfloat162 b = __floats2bfloat162_rn(e[2], e[3]);
+      *reinterpret_cast<uint2*>(dst[t] + o) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                     *reinterpret_cast<const uint32_t*>(&b));
+      e[0] -= __low2float(a);
+      e[1] -= __high2float(a);
+      e[2] -= __low2float(b);
+      e[3] -= __high2float(b);
+    }
+  }
+}
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KVH);
-  const int64_t bh = (int64_t)b * H + h;
-  const bf16* qb = q + bh * Sq * DQK;
-  const bf16* kb = k + ((int64_t)b * KVH + kvh) * Skv * DQK;
-  const bf16* vb = v + ((int64_t)b * KVH + kvh) * Skv * DV;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;     // fragment row, column pair
+// P (the softmax numerators in the S accumulator) as the A fragments of
+// the P V chain: k-step kk takes S columns 16 kk .. 16 kk + 15, P_hi and
+// its bf16 residual P_lo
+template <int BKV>
+__device__ __forceinline__ void split_p(const float (&s)[BKV / 2],
+                                        uint32_t (&ph)[BKV / 4],
+                                        uint32_t (&pl)[BKV / 4]) {
+#pragma unroll
+  for (int i = 0; i < BKV / 4; ++i) {
+    const float x0 = s[2 * i], x1 = s[2 * i + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    ph[i] = *reinterpret_cast<const uint32_t*>(&h);
+    pl[i] = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {   // 2^x, 2^-22 relative
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one kv tile on the S accumulator: thread (g, tig)
+// of warp w holds rows 16 w + g (s[4 j], s[4 j + 1]) and 16 w + g + 8
+// (s[4 j + 2], s[4 j + 3]), columns 8 j + 2 tig and + 1. Masks (each row
+// its own [lo, hi) of kv positions), takes each row's max of the raw
+// scores, and leaves the numerators 2^(s scale_log2 - m) in s (one FFMA
+// and one ex2 a score), the running max m (log2 units), the running sum l
+// (this thread's columns) and the rescale alpha of the rows' earlier
+// terms.
+template <int BKV>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[BKV / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    int kv0, bool need_mask, const int (&lo)[2], const int (&hi)[2], int tig,
+    float scale_log2) {
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (need_mask) {
+        const int c = kv0 + 8 * j + 2 * tig + (e & 1);
+        const int i = e >> 1;
+        if (!(c >= lo[i] && c < hi[i])) s[4 * j + e] = NEG_INF;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * scale_log2);
+    alpha[i] = ex2(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(fmaf(s[4 * j + e], scale_log2, -m[e >> 1]));
+      s[4 * j + e] = p;
+      l[e >> 1] += p;
+    }
+}
+
+// ------------------------------------------------------------- kernel --
+
+template <int DQK, int DV, bool F32>
+__global__ void __launch_bounds__(THREADS, (Cfg<DQK, DV, F32>::MIN_BLOCKS))
+flash_fwd(const __grid_constant__ CUtensorMap tm_q,
+          const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v, void* __restrict__ o,
+          float* __restrict__ lse, int B, int H, int KVH, int Sq, int Skv,
+          int log2p, int causal, int window, float scale_log2) {
+  using C = Cfg<DQK, DV, F32>;
+  using QK = typename C::QK;
+  using QK2 = typename C::QK2;
+  using VL = typename C::V;
+  using V2 = typename C::V2;
+  constexpr int BKV = C::BKV;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t s_q = smem_u32(smem), s_k = s_q + C::OFF_K,
+                 s_v = s_q + C::OFF_V;
+  const uint32_t full_q = s_q + C::OFF_BAR, full_k = full_q + 8,
+                 empty_k = full_k + 8 * NS, full_v = empty_k + 8 * NS,
+                 empty_v = full_v + 8 * NS;
+
+  // the tile: blocks in reverse query-tile order (heaviest first), then
+  // batch, then the group of P packed heads
+  const int P = 1 << log2p;
+  const int HP = H >> log2p, npos = BM >> log2p;
+  const int nqt = (Sq + npos - 1) / npos;
+  const int per = B * HP;
+  const int qt = nqt - 1 - static_cast<int>(blockIdx.x) / per;
+  const int b = static_cast<int>(blockIdx.x) % per / HP;
+  const int hp = static_cast<int>(blockIdx.x) % HP;
+  const int kvh = (hp << log2p) / (H / KVH);
+  const int p0 = qt * npos, p_last = min(p0 + npos, Sq) - 1;
   const int q_offset = Skv - Sq;
+  // the union of the real rows' kv ranges, in tiles of BKV from its start
+  const int kv_lo = window > 0 ? max(0, q_offset + p0 - window + 1) : 0;
+  const int kv_hi = causal ? q_offset + p_last + 1 : Skv;
+  const int n_tiles = (kv_hi - kv_lo + BKV - 1) / BKV;
 
-  // the kv range any real row of this tile can see, in whole tiles
-  const int last_row = min(q0 + BQ, Sq) - 1;
-  const int kv_end = causal ? q_offset + last_row + 1 : Skv;
-  int kv_begin = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
-  kv_begin = (kv_begin / BKV) * BKV;
-  const int n_tiles = (kv_end - kv_begin + BKV - 1) / BKV;
-
-  // group 0: Q and kv tile 0; group 1: kv tile 1 (empty if none)
-  load_tile<DQK>(qb, q0, Sq, qs);
-  load_tile<DQK>(kb, kv_begin, Skv, ks);
-  load_tile<DV>(vb, kv_begin, Skv, vs);
-  cp_async_commit();
-  if (n_tiles > 1) {
-    load_tile<DQK>(kb, kv_begin + BKV, Skv, ks + TILE);
-    load_tile<DV>(vb, kv_begin + BKV, Skv, vs + TILEV);
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 128);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_v + 8 * s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  // rows g and g + 8 of the warp's 16; m in log2 units
-  const int qpos0 = q_offset + q0 + warp * 16 + g, qpos1 = qpos0 + 8;
-  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
-  float acc[NT][4];
+  if (warp == 4) {                 // the producer: one thread issues the TMA
+    if (lane == 0) {
+      mbar_expect_tx(full_q, C::Q_BYTES);
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+      for (int j = 0; j < QK::NB; ++j)
+        tma_load_5d(s_q + j * BM * QK::SW, &tm_q, full_q, j * QK::BOXW, 0, hp,
+                    p0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % NS, par = ((t / NS) & 1) ^ 1;
+        const int kv0 = kv_lo + t * BKV;
+        mbar_wait(empty_k + 8 * s, par);
+        mbar_expect_tx(full_k + 8 * s, C::K_BYTES);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  uint32_t qf[DQK / 16][4];
+        for (int j = 0; j < QK::NB; ++j)
+          tma_load_4d(s_k + s * C::K_BYTES + j * BKV * QK::SW, &tm_k,
+                      full_k + 8 * s, j * QK::BOXW, kvh, kv0, b);
+        mbar_wait(empty_v + 8 * s, par);
+        mbar_expect_tx(full_v + 8 * s, C::V_BYTES);
+#pragma unroll
+        for (int j = 0; j < VL::NB; ++j)
+          tma_load_4d(s_v + s * C::V_BYTES + j * BKV * VL::SW, &tm_v,
+                      full_v + 8 * s, j * VL::BOXW, kvh, kv0, b);
+      }
+    }
+    return;
+  }
 
-  // ldmatrix.x4 lane addressing: the A operand (16 rows x 16) and, for K,
-  // two n-tiles of the B operand (8 rows x 16 each)
-  const int a_row = (lane & 7) + (((lane >> 3) & 1) << 3);
-  const int a_col = (lane >> 4) << 3;
-  const int k_row = (lane & 7) + ((lane >> 4) << 3);
-  const int k_col = ((lane >> 3) & 1) << 3;
+  // ---- the consumer warpgroup
+  const int g = lane >> 2, tig = lane & 3;
+  const int r0 = warp * 16 + g;                  // rows r0 and r0 + 8
+  const int pos[2] = {p0 + (r0 >> log2p), p0 + ((r0 + 8) >> log2p)};
+  int lo[2], hi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q_offset + pos[i];
+    lo[i] = window > 0 ? qp - window + 1 : 0;
+    hi[i] = causal ? min(qp + 1, Skv) : Skv;
+  }
+  // kv columns every real row of the tile sees
+  const int all_lo = window > 0 ? q_offset + p_last - window + 1 : 0;
+  const int all_hi = causal ? q_offset + p0 + 1 : Skv;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kv0 = kv_begin + t * BKV;
-    const bf16* kt = ks + (t & 1) * TILE;
-    const bf16* vt = vs + (t & 1) * TILEV;
-    cp_async_wait<1>();            // tile t has landed
-    __syncthreads();
-    if (t == 0) {
+  uint8_t* q2 = smem + C::OFF_Q2;                // f32 route: qr, qb
+  uint8_t* k2 = smem + C::OFF_K2;                // kr, kb
+  uint8_t* v2 = smem + C::OFF_V2;                // v1, v2, v3
+  const uint32_t s_q2 = s_q + C::OFF_Q2, s_k2 = s_q + C::OFF_K2,
+                 s_v2 = s_q + C::OFF_V2;
+
+  // S = Q K^T of the K tile in slot `slot`
+  auto issue_s = [&](float (&sc)[BKV / 2], int slot) {
+    const uint32_t kt = s_k + slot * C::K_BYTES;
+    if constexpr (!F32) {
 #pragma unroll
       for (int kk = 0; kk < DQK / 16; ++kk)
-        ldmatrix_x4(qf[kk], smem_u32(qs + (warp * 16 + a_row) * LD +
-                                     kk * 16 + a_col));
+        wgmma_ss<BKV, false>(sc, kmajor<QK, BM>(s_q, kk),
+                             kmajor<QK, BKV>(kt, kk), kk > 0);
+    } else {                       // the small terms first (see above)
+#pragma unroll
+      for (int kk = 0; kk < DQK / 16; ++kk)
+        wgmma_ss<BKV, false>(sc, kmajor<QK2, BM>(s_q2, kk),
+                             kmajor<QK2, BKV>(s_k2 + C::K2_BYTES, kk),
+                             kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DQK / 16; ++kk)
+        wgmma_ss<BKV, false>(sc, kmajor<QK2, BM>(s_q2 + C::Q2_BYTES, kk),
+                             kmajor<QK2, BKV>(s_k2, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < DQK / 8; ++kk)
+        wgmma_ss<BKV, true>(sc, kmajor<QK, BM>(s_q, kk),
+                            kmajor<QK, BKV>(kt, kk), 1);
     }
+  };
+  // O += P V of the V tile in slot `slot` (f32: of its three terms), one
+  // term at a time, the smallest first
+  auto issue_pv = [&](float (&acc)[DV / 2], uint32_t (&ph)[BKV / 4],
+                      uint32_t (&pl)[BKV / 4], int slot) {
+    auto chain = [&](const uint32_t* p, uint32_t v) {
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+        wgmma_rs<DV>(acc, p + 4 * kk, mnmajor<V2, BKV>(v, kk));
+    };
+    if constexpr (!F32) {
+      const uint32_t vt = s_v + slot * C::V_BYTES;
+      chain(pl, vt);
+      chain(ph, vt);
+    } else {
+      chain(pl, s_v2 + C::V2_BYTES);
+      chain(pl, s_v2);
+      chain(ph, s_v2 + 2 * C::V2_BYTES);
+      chain(ph, s_v2 + C::V2_BYTES);
+      chain(ph, s_v2);
+    }
+  };
+  // f32 route: round the K tile in `slot` and write its bf16 terms
+  auto split_k = [&](int slot) {
+    if constexpr (F32) {
+      consumer_sync();             // the last S chain has read kr, kb
+      split_qk<DQK, BKV>(smem + C::OFF_K + slot * C::K_BYTES, k2,
+                         k2 + C::K2_BYTES);
+      fence_proxy_async();
+      consumer_sync();
+    }
+  };
+  // f32 route: the V tile in `slot` into its three terms; the slot is
+  // free then
+  auto split_v_slot = [&](int slot) {
+    if constexpr (F32) {
+      split_v<DV, BKV>(smem + C::OFF_V + slot * C::V_BYTES, v2,
+                       v2 + C::V2_BYTES, v2 + 2 * C::V2_BYTES);
+      fence_proxy_async();
+      consumer_sync();
+      mbar_arrive(empty_v + 8 * slot);
+    }
+  };
 
-    // S = Q K^T: 8 n-tiles of 8 kv columns
-    float s[8][4];
+  float acc[DV / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DQK / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, smem_u32(kt + (j * 8 + k_row) * LD + kk * 16 + k_col));
-        mma_bf16(s[j], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[j + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+  float sc[BKV / 2];
+  uint32_t ph[BKV / 4], pl[BKV / 4];
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+  auto need_mask = [&](int kv0) {
+    return kv0 < all_lo || kv0 + BKV > all_hi;
+  };
 
-    // scale (to log2 units) and mask; only tiles across the diagonal, the
-    // window's edge or Skv need the mask
-    const bool need_mask =
-        (causal && kv0 + BKV - 1 > q_offset + q0) ||
-        (window > 0 && kv0 <= q_offset + q0 + BQ - 1 - window) ||
-        kv0 + BKV > Skv;
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
-        if (need_mask) {
-          const int c = kv0 + j * 8 + tig * 2 + (e & 1);
-          const int qp = e < 2 ? qpos0 : qpos1;
-          bool ok = c < Skv;
-          if (causal) ok = ok && c <= qp;
-          if (window > 0) ok = ok && c > qp - window;
-          x = ok ? x : NEG_INF;
-        }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_r[r], mx[r]);
-      alpha[r] = exp2f(m_r[r] - m_new);
-      m_r[r] = m_new;
-      l_r[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(s[j][e] - m_r[e >> 1]);
-        if (need_mask && kv0 + j * 8 + tig * 2 + (e & 1) >= Skv)
-          p = 0.f;                                       // ragged tail
-        s[j][e] = p;
-        l_r[e >> 1] += p;
-      }
+  mbar_wait(full_q, 0);
+  if constexpr (F32) split_qk<DQK, BM>(smem, q2, q2 + C::Q2_BYTES);
+  mbar_wait(full_k, 0);
+  split_k(0);
+  wg_fence();
+  issue_s(sc, 0);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(sc);
+  mbar_arrive(empty_k);
+  online_softmax<BKV>(sc, m, l, alpha, kv_lo, need_mask(kv_lo), lo, hi, tig,
+                      scale_log2);
+  split_p<BKV>(sc, ph, pl);
 
-    // acc += P . V, P from the S fragments as P_hi + P_lo
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      uint32_t ph[4], pl[4];
-      ph[0] = split_bf16x2(s[2 * kk][0], s[2 * kk][1], &pl[0]);
-      ph[1] = split_bf16x2(s[2 * kk][2], s[2 * kk][3], &pl[1]);
-      ph[2] = split_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1], &pl[2]);
-      ph[3] = split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], &pl[3]);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, smem_u32(vt + (kk * 16 + a_row) * LDV + j * 8 +
-                                       a_col));
-        mma_bf16(acc[j], ph, vf[0], vf[1]);
-        mma_bf16(acc[j + 1], ph, vf[2], vf[3]);
-        mma_bf16(acc[j], pl, vf[0], vf[1]);
-        mma_bf16(acc[j + 1], pl, vf[2], vf[3]);
-      }
+  for (int t = 1; t < n_tiles; ++t) {
+    const int s = t % NS, sp = (t - 1) % NS;
+    mbar_wait(full_k + 8 * s, (t / NS) & 1);
+    split_k(s);
+    wg_fence();
+    issue_s(sc, s);                // tile t's scores ...
+    wg_commit();
+    mbar_wait(full_v + 8 * sp, ((t - 1) / NS) & 1);
+    if constexpr (F32) {
+      split_v_slot(sp);
+      wg_fence();
     }
-
-    __syncthreads();               // every warp is done with buffer t & 1
-    if (t + 2 < n_tiles) {
-      load_tile<DQK>(kb, kv0 + 2 * BKV, Skv, ks + (t & 1) * TILE);
-      load_tile<DV>(vb, kv0 + 2 * BKV, Skv, vs + (t & 1) * TILEV);
+    issue_pv(acc, ph, pl, sp);     // ... while tile t - 1's P V runs
+    wg_commit();
+    wg_wait<1>();
+    fence_regs(sc);
+    mbar_arrive(empty_k + 8 * s);
+    const int kv0 = kv_lo + t * BKV;
+    online_softmax<BKV>(sc, m, l, alpha, kv0, need_mask(kv0), lo, hi, tig,
+                        scale_log2);
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_regs(ph);
+    fence_regs(pl);
+    if constexpr (!F32) mbar_arrive(empty_v + 8 * sp);
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
     }
-    cp_async_commit();
+    split_p<BKV>(sc, ph, pl);
+  }
+  {
+    const int sp = (n_tiles - 1) % NS;
+    mbar_wait(full_v + 8 * sp, ((n_tiles - 1) / NS) & 1);
+    if constexpr (F32) {
+      consumer_sync();             // the last P V chain has read v1-v3
+      split_v_slot(sp);
+    }
+    wg_fence();
+    issue_pv(acc, ph, pl, sp);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_regs(ph);
+    fence_regs(pl);
+    if constexpr (!F32) mbar_arrive(empty_v + 8 * sp);
   }
 
-  // normalise; stage the warp's 16 rows in its own rows of the Q tile (only
-  // this warp read them) and write them with 16-byte stores
-  float den[2];
+  // normalise (one IEEE reciprocal a row, then products: 1.5 ulp) and
+  // write: row r is (position p0 + r / P, head hp P + r % P) of the (B, Sq,
+  // H, DV) output
+  float den[2], inv[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-    den[r] = fmaxf(l_r[r], 1e-30f);
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    den[i] = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / den[i];
   }
-  bf16* os = qs + warp * 16 * LD;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    *reinterpret_cast<__nv_bfloat162*>(os + g * LD + j * 8 + tig * 2) =
-        __floats2bfloat162_rn(acc[j][0] / den[0], acc[j][1] / den[0]);
-    *reinterpret_cast<__nv_bfloat162*>(os + (g + 8) * LD + j * 8 + tig * 2) =
-        __floats2bfloat162_rn(acc[j][2] / den[1], acc[j][3] / den[1]);
-  }
-  __syncwarp();
-  bf16* ob = o + bh * Sq * DV;
+  for (int i = 0; i < 2; ++i) {
+    if (pos[i] >= Sq) continue;
+    const int head = (hp << log2p) + ((r0 + 8 * i) & (P - 1));
+    const int64_t row = ((static_cast<int64_t>(b) * Sq + pos[i]) * H + head) *
+                        DV;
 #pragma unroll
-  for (int c = lane; c < 16 * (DV / 8); c += 32) {
-    const int r = c / (DV / 8), col = (c % (DV / 8)) * 8;
-    const int row = q0 + warp * 16 + r;
-    if (row < Sq)
-      *reinterpret_cast<uint4*>(ob + (int64_t)row * DV + col) =
-          *reinterpret_cast<const uint4*>(os + r * LD + col);
-  }
-  if (tig == 0) {
-    const int row = q0 + warp * 16 + g;
-    if (row < Sq) lse[bh * Sq + row] = m_r[0] * LN2 + logf(den[0]);
-    if (row + 8 < Sq) lse[bh * Sq + row + 8] = m_r[1] * LN2 + logf(den[1]);
+    for (int j = 0; j < DV / 8; ++j) {
+      const int c = 8 * j + 2 * tig;
+      const float x0 = acc[4 * j + 2 * i] * inv[i];
+      const float x1 = acc[4 * j + 2 * i + 1] * inv[i];
+      if constexpr (F32)
+        *reinterpret_cast<float2*>(static_cast<float*>(o) + row + c) =
+            make_float2(x0, x1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(o) + row + c) =
+            __floats2bfloat162_rn(x0, x1);
+    }
+    if (tig == 0)
+      lse[(static_cast<int64_t>(b) * H + head) * Sq + pos[i]] =
+          m[i] * LN2 + logf(den[i]);
   }
 }
 
 // ------------------------------------------------------------- launches --
 
-template <int DQK, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int bf16_in, int B, int H, int KVH, int Sq, int Skv, int causal,
-           int window, float scale, cudaStream_t stream) {
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  if (bf16_in) {
-    const int bytes = smem_bytes_bf16<DQK, DV>();
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_bf16<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return (int)e;
-    flash_fwd_bf16<DQK, DV><<<grid, THREADS, bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, KVH, Sq,
-        Skv, causal, window, scale * LOG2E);
-  } else {
-    const int bytes = smem_floats_f32<DQK, DV>() * (int)sizeof(float);
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_f32<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return (int)e;
-    flash_fwd_f32<DQK, DV><<<grid, THREADS, bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, H, KVH, Sq,
-        Skv, causal, window, scale);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, looked up
+// once (null if the driver lacks it)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+// A tensor map of `rank` dims (innermost first), strides in bytes of dims
+// 1.., a box of `box` elements a dim, swizzled at `sw` bytes.
+bool encode(CUtensorMap* map, const void* base, bool f32, int rank,
+            const cuuint64_t* dims, const cuuint64_t* strides,
+            const cuuint32_t* box, int sw) {
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encoder()(map,
+                   f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   rank, const_cast<void*>(base), dims, strides, box, ones,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// st: the element strides (b, h, s) of q, then k, then v
+template <int DQK, int DV, bool F32>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KVH, int Sq, int Skv, int causal, int window,
+           float scale, const long long* st, cudaStream_t stream) {
+  using C = Cfg<DQK, DV, F32>;
+  constexpr cuuint64_t ES = F32 ? 4 : 2;
+  // P = gcd(H / KVH, 64) heads packed a tile
+  const int group = H / KVH;
+  int log2p = 0;
+  while (log2p < 6 && group % (2 << log2p) == 0) ++log2p;
+  const int P = 1 << log2p, npos = BM / P;
+  const long long tiles =
+      static_cast<long long>(B) * (H / P) * ((Sq + npos - 1) / npos);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+
+  CUtensorMap mq, mk, mv;
+  const cuuint64_t qd[5] = {DQK, (cuuint64_t)P, (cuuint64_t)(H / P),
+                            (cuuint64_t)Sq, (cuuint64_t)B};
+  const cuuint64_t qs[4] = {st[1] * ES, st[1] * P * ES, st[2] * ES,
+                            st[0] * ES};
+  const cuuint32_t qb[5] = {C::QK::BOXW, (cuuint32_t)P, 1, (cuuint32_t)npos,
+                            1};
+  const cuuint64_t kd[4] = {DQK, (cuuint64_t)KVH, (cuuint64_t)Skv,
+                            (cuuint64_t)B};
+  const cuuint64_t ks[3] = {st[4] * ES, st[5] * ES, st[3] * ES};
+  const cuuint32_t kb[4] = {C::QK::BOXW, 1, C::BKV, 1};
+  const cuuint64_t vd[4] = {DV, (cuuint64_t)KVH, (cuuint64_t)Skv,
+                            (cuuint64_t)B};
+  const cuuint64_t vs[3] = {st[7] * ES, st[8] * ES, st[6] * ES};
+  const cuuint32_t vb[4] = {C::V::BOXW, 1, C::BKV, 1};
+  if (!encode(&mq, q, F32, 5, qd, qs, qb, C::QK::SW) ||
+      !encode(&mk, k, F32, 4, kd, ks, kb, C::QK::SW) ||
+      !encode(&mv, v, F32, 4, vd, vs, vb, C::V::SW))
+    return (int)cudaErrorInvalidValue;
+
+  // the shared-memory opt-in, once a device
+  static unsigned opted = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 32 || !(opted & (1u << dev))) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd<DQK, DV, F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 32) opted |= 1u << dev;
+  }
+  flash_fwd<DQK, DV, F32><<<(unsigned)tiles, THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, o, lse, B, H, KVH, Sq, Skv, log2p, causal, window,
+      scale * LOG2E);
   return (int)cudaGetLastError();
+}
+
+template <int DQK, int DV>
+int launch_type(int bf16_in, const void* q, const void* k, const void* v,
+                void* o, float* lse, int B, int H, int KVH, int Sq, int Skv,
+                int causal, int window, float scale, const long long* st,
+                cudaStream_t s) {
+  return bf16_in ? launch<DQK, DV, false>(q, k, v, o, lse, B, H, KVH, Sq, Skv,
+                                          causal, window, scale, st, s)
+                 : launch<DQK, DV, true>(q, k, v, o, lse, B, H, KVH, Sq, Skv,
+                                         causal, window, scale, st, s);
 }
 
 }  // namespace
 
-// q (B, H, Sq, Dh), k (B, KVH, Skv, Dh), v (B, KVH, Skv, Dv), o (B, H, Sq,
-// Dv), all contiguous and of one type (bf16 != 0: __nv_bfloat16, 16-byte
-// aligned; else float); lse (B, H, Sq) f32. (Dh, Dv) is (32, 32), (64,
-// 64), (80, 80), (128, 128) or (192, 128); Sq <= Skv; H a multiple of
-// KVH; B <= 65535. Launches on `stream` and returns cudaGetLastError()
-// (0 on success), or cudaErrorInvalidValue for a shape it does not take;
-// it does not synchronise.
+// q (B, H, Sq, Dh), k (B, KVH, Skv, Dh) and v (B, KVH, Skv, Dv) of one
+// type (bf16 != 0: __nv_bfloat16, else float), with the element strides
+// (q_sb, q_sh, q_ss) of q's b, h and s dims, and so for k and v: each a
+// positive multiple of 16 bytes. The head dim must be unit-stride (its
+// stride is not passed), and the data 16-byte aligned. The strides are
+// scalars, not an array, as ctypes passes scalars cheaper: this runs on
+// every call of host-bound rounds. o is a contiguous (B, Sq, H, Dv)
+// buffer of the same type, lse a contiguous (B, H, Sq) f32 one. (Dh, Dv)
+// is (32, 32), (64, 64), (80, 80), (128, 128) or (192, 128); Sq <= Skv; H
+// a multiple of KVH. Launches on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue /
+// cudaErrorMisalignedAddress for operands it does not take, or
+// cudaErrorNotSupported if the driver has no cuTensorMapEncodeTiled; it
+// does not synchronise.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int bf16, int B, int H, int KVH, int Sq,
                                    int Skv, int Dh, int Dv, int causal,
-                                   int window, float scale, void* stream) {
-  if (B <= 0 || B > MAX_GRID_Z || H <= 0 || KVH <= 0 || H % KVH != 0 ||
-      Sq <= 0 || Skv < Sq)
+                                   int window, float scale, void* stream,
+                                   long long q_sb, long long q_sh,
+                                   long long q_ss, long long k_sb,
+                                   long long k_sh, long long k_ss,
+                                   long long v_sb, long long v_sh,
+                                   long long v_ss) {
+  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || Sq <= 0 || Skv < Sq)
     return (int)cudaErrorInvalidValue;
-  if (bf16 && ((reinterpret_cast<uintptr_t>(q) |
-                reinterpret_cast<uintptr_t>(k) |
-                reinterpret_cast<uintptr_t>(v) |
-                reinterpret_cast<uintptr_t>(o)) & 15))
+  const long long es = bf16 ? 2 : 4;
+  const long long strides[9] = {q_sb, q_sh, q_ss, k_sb, k_sh,
+                                k_ss, v_sb, v_sh, v_ss};
+  for (long long st : strides)
+    if (st <= 0 || st * es % 16) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) & 15)
     return (int)cudaErrorMisalignedAddress;
+  if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh == 32 && Dv == 32)
-    return launch<32, 32>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv, causal,
-                          window, scale, s);
+    return launch_type<32, 32>(bf16, q, k, v, o, lse, B, H, KVH, Sq, Skv,
+                               causal, window, scale, strides, s);
   if (Dh == 64 && Dv == 64)
-    return launch<64, 64>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv, causal,
-                          window, scale, s);
+    return launch_type<64, 64>(bf16, q, k, v, o, lse, B, H, KVH, Sq, Skv,
+                               causal, window, scale, strides, s);
   if (Dh == 80 && Dv == 80)
-    return launch<80, 80>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv, causal,
-                          window, scale, s);
+    return launch_type<80, 80>(bf16, q, k, v, o, lse, B, H, KVH, Sq, Skv,
+                               causal, window, scale, strides, s);
   if (Dh == 128 && Dv == 128)
-    return launch<128, 128>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv,
-                            causal, window, scale, s);
+    return launch_type<128, 128>(bf16, q, k, v, o, lse, B, H, KVH, Sq, Skv,
+                                 causal, window, scale, strides, s);
   if (Dh == 192 && Dv == 128)
-    return launch<192, 128>(q, k, v, o, lse, bf16, B, H, KVH, Sq, Skv,
-                            causal, window, scale, s);
+    return launch_type<192, 128>(bf16, q, k, v, o, lse, B, H, KVH, Sq, Skv,
+                                 causal, window, scale, strides, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,11 +8,17 @@ reading kv head ``h // (H / KVH)``, the queries the last Sq of the Skv
 positions. The kernel's (Dqk, Dv) instances are ``HEAD_DIMS``: equal
 dims 32, 64, 80 (zamba2-2.7b's attention) and 128, and MLA's (192, 128)
 (the reference's MLA prefill runs its jnp scan at those dims; the Pallas
-kernel takes one Dh). See the
-source for the design and its bound on the card. The Pallas kernel's
-``block_q``, ``block_kv`` and ``interpret`` have no counterpart: there is
-one route. A ragged Sq or Skv is masked, where the Pallas kernel asserts
-that its blocks divide them.
+kernel takes one Dh). See the source for the design and its bound on the
+card. The Pallas kernel's ``block_q``, ``block_kv`` and ``interpret``
+have no counterpart: there is one route. A ragged Sq or Skv is masked,
+where the Pallas kernel asserts that its blocks divide them.
+
+The kernel reads its operands where they lie through TMA tensor maps: a
+strided view (the model's (B, S, H, Dh) activations seen as (B, H, S, Dh))
+is not copied unless a stride is not a multiple of 16 bytes or the head
+dim is not unit-stride; only data that start off a 16-byte boundary are
+copied (:func:`_aligned`). The output is allocated as (B, Sq, H, Dv), the
+layout the model reads next, and returned as its (B, H, Sq, Dv) view.
 
 On a CUDA tensor the wrapper launches the kernel, or raises: it never
 hands a CUDA tensor to the plain version. On a CPU tensor it runs the
@@ -46,10 +52,8 @@ from repro_torch.kernels import _build, ref
 F32 = torch.float32
 # the kernel's (Dqk, Dv) template instances
 HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (128, 128), (192, 128))
-MAX_BATCH = 65535              # B is the grid's z dimension
 
-
-BQ = BKV = 64                  # the kernel's query and kv tile rows
+BQ = BKV = 64                  # the query and kv tile rows forward_flops counts
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -74,13 +78,17 @@ def record_calls():
 
 
 def forward_flops(b, h, sq, skv, dqk, dv, causal, window) -> int:
-    """The kernel's work in one forward: for each of the B * H (batch,
+    """The forward's work as the dry run and ``chip_smoke.py`` count it,
+    tiled as the Pallas body tiles it: for each of the B * H (batch,
     head) pairs and each 64-row query tile, the 64-row kv tiles it
     visits, each tile ``2 * 64 * 64 * (Dqk + Dv)`` FLOPs (the Q K^T and
     P V products over the whole tile, masked rows included). A causal
     tile sees kv tiles up to its last row's position, a window starts at
-    the tile holding its first row's ``position - window + 1``: the tiles
-    the kernel skips are not counted. The gradient is not the kernel's:
+    the tile holding its first row's ``position - window + 1``: skipped
+    tiles are not counted. (The kernel's own tiles pack a GQA group's
+    heads and start a window at its first row: their count can differ by
+    a tile at a window's edge, and the P V product runs twice, on P_hi
+    and P_lo.) The gradient is not the kernel's:
     its plain-torch recompute (:func:`attention_backward`) is counted as
     the dense products it runs, by whatever counts the other ops."""
     tiles = 0
@@ -96,9 +104,11 @@ def forward_flops(b, h, sq, skv, dqk, dv, causal, window) -> int:
 
 def _kernel():
     fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:             # the library's one function object
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_void_p]
+                       + [ctypes.c_longlong] * 9)  # q, k, v strides (b, h, s)
+        fn.restype = ctypes.c_int
     return fn
 
 
@@ -127,9 +137,32 @@ def _check(q, k, v):
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x``, or a copy of it whose data starts on a 16-byte boundary:
-    the bf16 kernel stages its tiles with 16-byte copies."""
+    """``x``, or a copy of it (its strides kept) whose data starts on a
+    16-byte boundary: a TMA tensor map needs one."""
     return x.clone() if x.data_ptr() % 16 else x
+
+
+def _in_place(x: torch.Tensor):
+    """``(x, strides)``: ``x`` where the kernel's tensor maps can read it
+    as it lies (the head dim unit-stride, every other dim longer than one
+    at a positive stride of whole 16 bytes), else its contiguous copy, then
+    aligned; ``strides`` its element strides along (b, h, s), a dim of
+    length one given 16 bytes' worth (the map reads its one index at any
+    stride, but wants strides of whole 16 bytes). Written out, not looped:
+    this runs three times on every call of host-bound rounds."""
+    unit = 16 // x.element_size()
+    n0, n1, n2, _ = x.shape
+    s0, s1, s2, s3 = x.stride()
+    if (s3 != 1 or (n0 > 1 and (s0 <= 0 or s0 % unit))
+            or (n1 > 1 and (s1 <= 0 or s1 % unit))
+            or (n2 > 1 and (s2 <= 0 or s2 % unit))):
+        x = x.contiguous()
+        s0, s1, s2, _ = x.stride()
+    if x.data_ptr() % 16:
+        x = _aligned(x)
+        s0, s1, s2, _ = x.stride()
+    return x, (s0 if n0 > 1 else unit, s1 if n1 > 1 else unit,
+               s2 if n2 > 1 else unit)
 
 
 def _forward(q, k, v, causal: bool, window: int, scale: float):
@@ -158,18 +191,20 @@ def _forward(q, k, v, causal: bool, window: int, scale: float):
                          + (f" with v head dim {dv}" if dv != dh else "")
                          + f" is not one of the kernel's (Dqk, Dv) "
                            f"{HEAD_DIMS}")
-    if b > MAX_BATCH:
-        raise ValueError(f"B={b} exceeds the kernel's grid limit "
-                         f"{MAX_BATCH}")
     fn = _kernel()
-    q, k, v = (_aligned(x.contiguous()) for x in (q, k, v))
-    o = q.new_empty((b, h, sq, dv))
+    q, q_st = _in_place(q)
+    k, k_st = _in_place(k)
+    v, v_st = _in_place(v)
+    # a (B, Sq, H, Dv) buffer, made as its (B, H, Sq, Dv) view
+    o = torch.empty_strided((b, h, sq, dv), (sq * h * dv, dv, h * dv, 1),
+                            dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=F32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), int(q.dtype == torch.bfloat16), b, h, kvh,
-                 sq, skv, dh, dv, int(causal), int(window), scale, stream)
+                 sq, skv, dh, dv, int(causal), int(window), scale, stream,
+                 *q_st, *k_st, *v_st)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

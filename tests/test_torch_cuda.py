@@ -519,7 +519,7 @@ def test_flash_mla_gradient_and_vmap_on_card(cuda_device):
 @pytest.mark.cuda
 def test_flash_bf16_takes_misaligned_inputs(cuda_device):
     """bf16 inputs whose data start off a 16-byte boundary are copied to
-    an aligned buffer by the wrapper (the kernel stages 16-byte copies)."""
+    an aligned buffer by the wrapper (a TMA tensor map needs one)."""
     q, k, v = _qkv(cuda_device, 1, 4, 2, 40, 40, 64, torch.bfloat16, 9)
 
     def shifted(t):
@@ -529,6 +529,111 @@ def test_flash_bf16_takes_misaligned_inputs(cuda_device):
     qs, ks, vs = shifted(q), shifted(k), shifted(v)
     assert qs.data_ptr() % 16 != 0
     assert torch.equal(flash_attention(qs, ks, vs), flash_attention(q, k, v))
+
+
+def _flash_close(q, k, v, out, lse, causal, window, scale):
+    """``out`` and ``lse`` against the plain version: f32 to 2e-5, bf16 to
+    3e-2, lse to 2e-5 (1 + |lse|)."""
+    plain, plain_lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window, scale=scale,
+                                               return_lse=True)
+    tol = 2e-5 if q.dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    assert float(((lse - plain_lse).abs()
+                  / (1 + plain_lse.abs())).max()) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", [(32, 32), (64, 64), (80, 80),
+                                    (128, 128), (192, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [1, 2, 8, 16])
+def test_flash_every_instance_and_group(cuda_device, dqk, dv, dtype, group):
+    """Each (Dqk, Dv) instance of both routes with 1, 2, 8 and 16 query
+    heads a kv head (16 and 8 packed into one tile: 4 and 8 positions a
+    tile), causal at a ragged 100 positions: against the plain version,
+    bit-equal on a second run, one launch each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(dqk + group)
+    b, kvh, s = 2, 2, 100
+    q = torch.randn(b, kvh * group, s, dqk, generator=gen,
+                    device=cuda_device).to(dtype)
+    k = torch.randn(b, kvh, s, dqk, generator=gen,
+                    device=cuda_device).to(dtype)
+    v = torch.randn(b, kvh, s, dv, generator=gen,
+                    device=cuda_device).to(dtype)
+    before = flash_attention.launches["forward"]
+    out, lse = FlashAttention.apply(q, k, v, True, 0, dqk ** -0.5)
+    again, lse2 = FlashAttention.apply(q, k, v, True, 0, dqk ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["forward"] == before + 2
+    assert out.shape == (b, kvh * group, s, dv) and out.dtype == dtype
+    _flash_close(q, k, v, out, lse, True, 0, dqk ** -0.5)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv,dtype", [(64, 64, torch.bfloat16),
+                                          (128, 128, torch.bfloat16),
+                                          (80, 80, torch.float32),
+                                          (192, 128, torch.float32)])
+def test_flash_reads_model_views_in_place(cuda_device, dqk, dv, dtype):
+    """(B, S, H, Dh) tensors seen as (B, H, S, Dh), as the model hands
+    them: the output and lse equal those of their contiguous copies bit for
+    bit, and the call allocates only the output and the lse (no copy of an
+    operand), its output a (B, Sq, H, Dv) buffer seen as (B, H, Sq, Dv)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(dqk)
+    b, s, h, kvh = 2, 130, 8, 2
+    q = torch.randn(b, s, h, dqk, generator=gen,
+                    device=cuda_device).to(dtype).transpose(1, 2)
+    k = torch.randn(b, s, kvh, dqk, generator=gen,
+                    device=cuda_device).to(dtype).transpose(1, 2)
+    v = torch.randn(b, s, kvh, dv, generator=gen,
+                    device=cuda_device).to(dtype).transpose(1, 2)
+    flash_attention(q, k, v)                       # built and warm
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out, lse = FlashAttention.apply(q, k, v, True, 0, dqk ** -0.5)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == \
+        allocs + 2
+    assert out.transpose(1, 2).is_contiguous()
+    ref_out, ref_lse = FlashAttention.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), True, 0,
+        dqk ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    _flash_close(q, k, v, out, lse, True, 0, dqk ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_misaligned_strided_view(cuda_device, dtype):
+    """A (B, S, H, Dh) view whose data start off a 16-byte boundary is
+    copied (with its strides) to an aligned buffer: equal to the aligned
+    call bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    b, s, h, kvh, dh = 2, 70, 8, 4, 64
+    x = [torch.randn(b, s, n, dh, generator=gen,
+                     device=cuda_device).to(dtype) for n in (h, kvh, kvh)]
+    aligned = [t.transpose(1, 2) for t in x]
+    shifted = [_odd_base(t).transpose(1, 2) for t in x]
+    assert all(t.data_ptr() % 16 for t in shifted)
+    out = flash_attention(*shifted, window=33)
+    assert torch.equal(out, flash_attention(*aligned, window=33))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 80])
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (37, 101, False, 20), (129, 129, True, 1), (100, 150, True, 45),
+    (65, 200, False, 70)])
+def test_flash_f32_ragged_windows(cuda_device, dh, sq, skv, causal, window):
+    """The f32 route at (32, 32) and (80, 80), ragged Sq and Skv with
+    windows of 1 to 70 rows, groups of 4: against the plain version."""
+    q, k, v = _qkv(cuda_device, 2, 8, 2, sq, skv, dh, torch.float32,
+                   sq + skv + window)
+    out, lse = FlashAttention.apply(q, k, v, causal, window, dh ** -0.5)
+    _flash_close(q, k, v, out, lse, causal, window, dh ** -0.5)
 
 
 def _odd_base(t):

@@ -1,12 +1,15 @@
 """The split-precision arithmetic of the tensor-core kernels, emulated on
-the CPU, and the MIPS kernel's launch plan.
+the CPU, the MIPS kernel's launch plan and the flash wrapper's operands.
 
 The MIPS kernel scores on the tensor cores. With h() TF32 rounding and b()
 bf16 rounding, an f32 corpus takes h(q) . h(c) on TF32 MMAs plus
 b(q - h(q)) . b(c) + b(q) . b(c - h(c)) on bf16 MMAs; a bf16 corpus takes
 h(q) . c + b(q - h(q)) . c. An MMA rounds its sum toward zero, so each
 32-column chunk is summed from zero and then added to the score in f32.
-The flash kernel's P . V splits P into two bf16 terms against bf16 V.
+The flash kernel's P . V splits P into two bf16 terms against bf16 V;
+its f32 route scores on b(q - h(q)) . b(k) + b(q) . b(k - h(k)) + h(q) .
+h(k) and forms P . V from P's two bf16 terms and V's three, each chain
+adding its smaller terms first (wgmma steps of k16 in bf16, k8 in TF32).
 The statistics kernel takes the MIPS split for zf^T zg, zf^T zf and
 zg^T zg, with N as the reduction, in chunks of 32 rows of N.
 These tests emulate that arithmetic (TF32 and bf16 rounding, MMA sums in
@@ -21,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention import _aligned
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, _aligned,
+                                                 _in_place)
 from repro_torch.kernels.mips_topk import (FULL_TILE_K, MAX_SPLITS,
                                            ROWS_PER_TILE, plan)
 
@@ -242,3 +246,131 @@ def test_flash_wrapper_aligns_only_misaligned_inputs():
     assert y.data_ptr() % 16 != 0
     z = _aligned(y)
     assert z.data_ptr() % 16 == 0 and torch.equal(z, y)
+
+
+# ------------------------------------------------ the flash f32 route --
+
+def _wgmma(terms, acc=None):
+    """The sum of A B over ``terms`` [(A (M, K), B (K, N), k), ...], one
+    term after the other, k columns of K a step, each step added to the
+    f32 accumulator rounding toward zero; from zero unless ``acc``."""
+    for a, b, k in terms:
+        if acc is None:
+            acc = torch.zeros(a.shape[0], b.shape[1])
+        for k0 in range(0, a.shape[1], k):
+            acc = toward_zero_f32(acc.double() + a[:, k0:k0 + k].double()
+                                  @ b[k0:k0 + k].double())
+    return acc
+
+
+def _flash_f32(q, k, v, valid, scale, scores="kernel", values="kernel"):
+    """(output, lse) of the f32 route emulated: the scores from the
+    ``scores`` split, the softmax in f64 (the kernel's is f32 and online,
+    its P terms taken against the running max), P . V from P's two bf16
+    terms against the ``values`` split of V."""
+    qh, kh = tf32(q), tf32(k)
+    if scores == "kernel":
+        s = _wgmma([(bf16(q - qh), bf16(k).T, 16),
+                    (bf16(q), bf16(k - kh).T, 16), (qh, kh.T, 8)])
+    else:                                       # "one_tf32"
+        s = _wgmma([(qh, kh.T, 8)])
+    s = torch.where(valid, s.double() * scale, torch.tensor(-1e30,
+                                                            dtype=torch.float64))
+    m = s.max(1, keepdim=True).values
+    p = torch.exp(s - m).float()
+    p1 = bf16(p)
+    p2 = bf16(p - p1)
+    v1 = bf16(v)
+    v2 = bf16(v - v1)
+    v3 = bf16(v - v1 - v2)
+    terms = {"kernel": [(p2, v2), (p2, v1), (p1, v3), (p1, v2), (p1, v1)],
+             "two_terms": [(p1, v1), (p1, v2), (p2, v1)],
+             "bf16_v": [(p2, v1), (p1, v1)]}[values]
+    pv = _wgmma([(a, b, 16) for a, b in terms])
+    l = p.double().sum(1, keepdim=True)
+    return pv.double() / l, (m + torch.log(l)).squeeze(1)
+
+
+def _flash_f32_errors(dqk, dv, sq, skv, causal, window, seed, **forms):
+    """Max |emulated - f64| of the output and max |dlse| / (1 + |lse|)
+    against an f64 softmax . V, on unit-normal q, k, v (as the card's
+    checks draw them)."""
+    rng = np.random.RandomState(seed)
+    q, k = (torch.tensor(rng.randn(n, dqk), dtype=torch.float32)
+            for n in (sq, skv))
+    v = torch.tensor(rng.randn(skv, dv), dtype=torch.float32)
+    qpos = torch.arange(sq)[:, None] + skv - sq
+    kpos = torch.arange(skv)[None]
+    valid = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        valid &= kpos <= qpos
+    if window:
+        valid &= kpos > qpos - window
+    scale = dqk ** -0.5
+    s = torch.where(valid, (q.double() @ k.double().T) * scale,
+                    torch.tensor(-1e30, dtype=torch.float64))
+    exact_lse = torch.logsumexp(s, 1)
+    exact = torch.softmax(s, 1) @ v.double()
+    out, lse = _flash_f32(q, k, v, valid, scale, **forms)
+    return (float((out - exact).abs().max()),
+            float(((lse - exact_lse).abs() / (1 + exact_lse.abs())).max()))
+
+
+FLASH_CASES = [(128, 128, True, 0), (37, 101, False, 20)]
+
+
+@pytest.mark.parametrize("dqk,dv", HEAD_DIMS)
+def test_flash_f32_split_within_a_third_of_its_tolerance(dqk, dv):
+    """Every instance, a causal (128, 128) and a ragged windowed (37, 101)
+    case, 3 seeds: the f32 route's output within FLASH_F32_TOL / 3 of an
+    f64 softmax . V and its row log-sum-exp within 2e-5 (the card's gates
+    are FLASH_F32_TOL and 2e-5 against the f32 plain version)."""
+    for sq, skv, causal, window in FLASH_CASES:
+        for seed in range(3):
+            err, lse_err = _flash_f32_errors(dqk, dv, sq, skv, causal,
+                                             window, seed)
+            assert err <= FLASH_F32_TOL / 3, (sq, skv, seed, err)
+            assert lse_err <= 2e-5, (sq, skv, seed, lse_err)
+
+
+@pytest.mark.parametrize("dqk,dv", [(64, 64), (192, 128)])
+def test_flash_f32_cheaper_splits_miss(dqk, dv):
+    """What the route does not take: a single TF32 Q K^T misses the output
+    tolerance (~2^-11 a product), bf16 V alone misses it by ~50x, and V in
+    two bf16 terms (2^-18 |v| left in a row that attends to one key) misses
+    the third of it that the kernel's three terms keep."""
+    one = _flash_f32_errors(dqk, dv, 128, 128, True, 0, 0, scores="one_tf32")
+    assert one[0] > FLASH_F32_TOL
+    assert _flash_f32_errors(dqk, dv, 128, 128, True, 0, 0,
+                             values="bf16_v")[0] > 10 * FLASH_F32_TOL
+    assert max(_flash_f32_errors(dqk, dv, 128, 128, True, 0, seed,
+                                 values="two_terms")[0]
+               for seed in range(3)) > FLASH_F32_TOL / 3
+
+
+@pytest.mark.parametrize("dh", [32, 64, 80, 128, 192])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_wrapper_reads_model_views_in_place(dh, dtype):
+    """The model's (B, S, H, Dh) activations seen as (B, H, S, Dh) go to
+    the kernel as they lie, with their strides; a row stride off 16 bytes,
+    a stride of 0 or a head dim that is not unit-stride is copied to a
+    contiguous tensor; a dim of length one takes 16 bytes' worth."""
+    unit = 16 // torch.empty((), dtype=dtype).element_size()
+    x = torch.zeros(2, 5, 4, dh, dtype=dtype).transpose(1, 2)
+    y, st = _in_place(x)
+    assert y is x and st == (5 * 4 * dh, dh, 4 * dh)
+    odd = torch.zeros(2, 4, 5, dh + 1, dtype=dtype)[..., :dh]
+    cols = torch.zeros(2, 4, dh, 5, dtype=dtype).transpose(2, 3)
+    wide = torch.zeros(1, 4, 5, dh, dtype=dtype).expand(3, 4, 5, dh)
+    for t in (odd, cols, wide):
+        y, st = _in_place(t)
+        assert y.is_contiguous() and torch.equal(y, t)
+        assert st == y.stride()[:3]
+    one = torch.zeros(1, 4, 7, dh, dtype=dtype)[:, :, 2:3]
+    y, st = _in_place(one)
+    assert y is one and st == (unit, 7 * dh, unit)
+    off = torch.zeros(2 * 5 * 4 * dh + 1, dtype=dtype)[1:].view(
+        2, 5, 4, dh).transpose(1, 2)
+    y, st = _in_place(off)
+    assert off.data_ptr() % 16 and y.data_ptr() % 16 == 0
+    assert torch.equal(y, off) and st == y.stride()[:3] == off.stride()[:3]
