@@ -249,14 +249,18 @@ Phases (each prints its lines; any failure exits non-zero):
   17. the dry run (``launch/dryrun.py``): (a) DRY_CASES, every family, on
      fake worlds of 256 and 512 ranks with fake ``cuda`` tensors, each
      arch cut to one superblock (its prologue kept) at full width, train
-     at DRY_MICRO microbatches, the cases in parallel worker processes:
-     one roofline line a case; (b) on a fake world of one, the fake
-     trace of TinyLlama-1.1B's fused step (DRY_B sequences of DRY_S,
-     full depth, micro 1), then the same step run for real on the card
-     in a launch window (flash as many times as the trace recorded, held
-     against its plain version at the step's shape): the FLOPs
-     (``FlopCounterMode`` plus the flash formula) equal to the trace's,
-     and ``max_memory_allocated`` within DRY_BAND of the trace's peak.
+     at DRY_MICRO microbatches (TinyLlama's train_4k also with the
+     shard_map and the per-client loss, at micro 1), the cases in
+     parallel worker processes: one roofline line a case, with its wire
+     bytes by mesh axis; (b) on a fake world of one, the fake trace of
+     TinyLlama-1.1B's fused step (DRY_B sequences of DRY_S, full depth,
+     micro 1), then the same step run for real on the card in a launch
+     window (flash as many times as the trace recorded, held against its
+     plain version at the step's shape): the FLOPs (``FlopCounterMode``
+     plus the flash formula) equal to the trace's, and
+     ``max_memory_allocated`` within DRY_BAND of the trace's peak; then
+     the same for the shard_map step, its real run on a world of one
+     NCCL rank with the explicit mesh (phase 15's world, joined anew).
 Then one JSON line of kernel figures, and the device line last.
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
@@ -3195,11 +3199,13 @@ def production_layouts(device):
 # phase 17: the dry run. (a) a subset of `launch.dryrun`'s cases that
 # covers every family (dense GQA on all four shapes and a multi-pod train,
 # MoE train, MLA decode, the Mamba2 hybrid's and the xLSTM's prefill, the
-# vision-text train), each cut to one superblock so that the traces fit
-# the phase's time; the sweep at full depth is the CLI's (`--all
-# --multi-pod both`, PERF.md). (b) the trace held to a real run on a
-# world of one: the same step, the same FLOPs, the peak within DRY_BAND
-# (the band PERF.md stated before the first run).
+# vision-text train) and the reference's other D-CCO losses (shard_map,
+# per_client), each cut to one superblock so that the traces fit the
+# phase's time; the sweep at full depth is the CLI's (`--all --multi-pod
+# both`, PERF.md). (b) the trace held to a real run on a world of one,
+# for the fused and the shard_map step: the same step, the same FLOPs,
+# the peak within DRY_BAND (the band PERF.md stated before the first
+# run).
 DRY_CASES = [("tinyllama-1.1b", s, False) for s in (
     "train_4k", "prefill_32k", "decode_32k", "long_500k")] + [
     ("tinyllama-1.1b", "train_4k", True),
@@ -3207,27 +3213,34 @@ DRY_CASES = [("tinyllama-1.1b", s, False) for s in (
     ("deepseek-v2-lite-16b", "decode_32k", False),
     ("zamba2-2.7b", "prefill_32k", False),
     ("xlstm-350m", "prefill_32k", False),
-    ("internvl2-2b", "train_4k", False)]
+    ("internvl2-2b", "train_4k", False)] + [
+    ("tinyllama-1.1b", "train_4k", False, impl)
+    for impl in ("shard_map", "per_client")]
 DRY_MICRO = 2
-DRY_WORKERS = 5
+DRY_WORKERS = 6
 DRY_ARCH, DRY_B, DRY_S = "tinyllama-1.1b", 8, 128
 DRY_BAND = 0.20
 
 
-def _dry_case(arch, shape, multi_pod):
-    """One case of phase 17 (a), in a worker process: the record."""
+def _dry_case(arch, shape, multi_pod, impl="fused"):
+    """One case of phase 17 (a), in a worker process: the record. A train
+    case with another loss than the fused one runs at micro 1, where the
+    loss is the impl's (the microbatched step takes every impl's gradient
+    as the combine's)."""
     from repro_torch.launch import dryrun
     cfg = get_config(arch)
     cfg = cfg.replace(num_layers=cfg.num_prologue + len(cfg.block_pattern))
     return dryrun.run_case(arch, shape, multi_pod, device="cuda", cfg=cfg,
-                           num_microbatches=DRY_MICRO)
+                           num_microbatches=DRY_MICRO if impl == "fused"
+                           else 1, dcco_impl=impl)
 
 
 def _dry_line(rec):
     r, m, c = rec["roofline"], rec["memory"], rec["collectives"]
     axes = {k: f"{v['wire_bytes'] / 2 ** 20:.1f}MiB/{v['calls']}"
             for k, v in c["by_axis"].items()}
-    return (f"{rec['arch']} {rec['shape']} "
+    impl = f" {rec['dcco_impl']}" if "dcco_impl" in rec else ""
+    return (f"{rec['arch']} {rec['shape']}{impl} "
             f"{'multi' if rec['multi_pod'] else 'single'} {rec['mesh']}: "
             f"trace {rec['trace_s']} s, peak {m['peak_bytes'] / 2 ** 30:.3f} "
             f"GiB a device (arguments {m['argument_size_in_bytes']}, temp "
@@ -3239,14 +3252,12 @@ def _dry_line(rec):
 
 
 def dryrun_phase(device):
-    """Phase 17 (see the module docstring); returns (b)'s window's
+    """Phase 17 (see the module docstring); returns (b)'s windows'
     counts."""
     import multiprocessing
 
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.launch import dryrun
 
     t_phase = time.perf_counter()
@@ -3262,28 +3273,95 @@ def dryrun_phase(device):
     print(f"phase 17 (a) {time.perf_counter() - t_phase:.1f} s "
           f"({len(recs)} cases, {DRY_WORKERS} workers)", flush=True)
 
-    # (b) the fake trace on a world of one, then the step for real
-    t0 = time.perf_counter()
+    # (b) each step's fake trace on a world of one, then the step for
+    # real: the fused step alone, the shard_map step on a world of one
+    # NCCL rank (phase 15's, joined anew) with the explicit mesh
     shape = inputs_lib.InputShape("phase17", DRY_S, DRY_B, "train")
-    kw = {"num_microbatches": 1}
-    with dryrun.fake_world(1):
-        mesh = make_production_mesh(ranks_per_host=1, device_type="cuda")
-        with FakeTensorMode(allow_non_fake_inputs=True):
-            step, args = dryrun.build_case(DRY_ARCH, shape, mesh, **kw)
-            fake_rec = dryrun.trace_step(step, args, mesh)
-    del step, args
-    trace_s = time.perf_counter() - t0
     cfg = get_config(DRY_ARCH).replace(attn_impl="blockwise", remat="full")
     de_cfg = get_dual_encoder_config(DRY_ARCH)
     opt = opt_lib.adam(5e-3)
-    real_step = steps_lib.make_dcco_train_step(
-        cfg, de_cfg, TrainConfig(global_batch=DRY_B), opt,
-        num_microbatches=1, constrain_sharding=True)
+    windows = []
+    for impl in ("fused", "shard_map"):
+        t0 = time.perf_counter()
+        with dryrun.fake_world(1):
+            mesh = make_production_mesh(ranks_per_host=1, device_type="cuda")
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                step, args = dryrun.build_case(DRY_ARCH, shape, mesh,
+                                               num_microbatches=1,
+                                               dcco_impl=impl)
+                fake_rec = dryrun.trace_step(step, args, mesh)
+        del step, args
+        trace_s = time.perf_counter() - t0
+        tcfg = TrainConfig(global_batch=DRY_B, dcco_impl=impl)
+        if impl == "fused":
+            real_step = steps_lib.make_dcco_train_step(
+                cfg, de_cfg, tcfg, opt, num_microbatches=1,
+                constrain_sharding=True)
+            real = _dry_real(device, cfg, de_cfg, opt, real_step, fake_rec,
+                             "phase 17 (b) real step")
+            coll = ""
+        else:
+            env = {"REPRO_COORDINATOR": f"127.0.0.1:{_free_port()}",
+                   "REPRO_NUM_PROCESSES": "1", "REPRO_PROCESS_ID": "0"}
+            if not maybe_initialize_distributed(env):
+                fail("phase 17 (b): the REPRO_* environment did not "
+                     "initialize a process group")
+            try:
+                if torch.distributed.get_backend() != "nccl":
+                    fail(f"phase 17 (b) joined a "
+                         f"{torch.distributed.get_backend()} world, not "
+                         f"NCCL")
+                real_step = steps_lib.make_dcco_train_step(
+                    cfg, de_cfg, tcfg, opt, mesh=make_debug_mesh(1),
+                    num_microbatches=1)
+                collectives.reset_counts()
+                real = _dry_real(device, cfg, de_cfg, opt, real_step,
+                                 fake_rec, "phase 17 (b) real shard_map "
+                                           "step")
+                coll = "; the real step's collectives: " + ", ".join(
+                    f"{k} {v['calls']} calls {v['bytes']} bytes"
+                    for k, v in _collective_counts().items())
+            finally:
+                torch.distributed.destroy_process_group()
+        loss, real_flops, peak, n_flash, counts = real
+        windows.append(counts)
+        fake_peak = fake_rec["memory"]["peak_bytes"]
+        print(f"phase 17 (b): {DRY_ARCH} {impl} step {DRY_B} x {DRY_S} on "
+              f"a world of one: trace {trace_s:.1f} s, loss {loss:.4f}; "
+              f"FLOPs trace {fake_rec['flops_per_device']:.6e} real "
+              f"{real_flops:.6e}; peak trace {fake_peak / 2 ** 30:.4f} GiB "
+              f"real max_memory_allocated {peak / 2 ** 30:.4f} GiB (ratio "
+              f"{peak / fake_peak:.4f}, band {DRY_BAND}); flash {n_flash} "
+              f"calls; the trace's collectives "
+              f"{fake_rec['collectives']['count_by_op']}{coll}", flush=True)
+        if not math.isfinite(loss):
+            fail(f"phase 17 (b) {impl}: loss {loss}")
+        if real_flops != fake_rec["flops_per_device"]:
+            fail(f"phase 17 (b) {impl}: FLOPs differ: trace "
+                 f"{fake_rec['flops_per_device']}, real {real_flops}")
+        if abs(peak / fake_peak - 1.0) > DRY_BAND:
+            fail(f"phase 17 (b) {impl}: peak {peak} outside {DRY_BAND} of "
+                 f"the trace's {fake_peak}")
+    check_flash(DRY_B, 32, 4, DRY_S, DRY_S, 64, torch.bfloat16,
+                "phase 17 (b) step shape")
+    print(f"phase 17 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return windows
+
+
+def _dry_real(device, cfg, de_cfg, opt, real_step, fake_rec, label):
+    """(b)'s step run for real: random weights of the shapes-only tree,
+    drawn on the card, then one step in a launch window (flash as many
+    times as the trace recorded) under ``FlopCounterMode``, the peak
+    counted from the step's arguments in place. Returns the loss, the
+    FLOPs (with the flash formula), the peak bytes, the flash calls and
+    the window's counts."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import flash_attention as flash_mod
+
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
-    # random weights of the shapes-only tree, drawn on the card; the
-    # peak is counted from here, with the step's arguments in place
     gen = torch.Generator(device=device).manual_seed(0)
     params = utils.tree_map(
         lambda x: (torch.randn(x.shape, generator=gen, device=device)
@@ -3304,33 +3382,14 @@ def dryrun_phase(device):
         return out, calls, fc.get_total_flops()
 
     (out, calls, flops), counts = _window(
-        "phase 17 (b) real step", run, {"flash": fake_rec["flash_calls"]})
+        label, run, {"flash": fake_rec["flash_calls"]})
     peak = torch.cuda.max_memory_allocated() - base
     loss = float(out[2]["loss"])
     real_flops = flops + sum(flash_mod.forward_flops(*c) for c in calls)
     del out, params, state, batch
     gc.collect()
     torch.cuda.empty_cache()
-    check_flash(DRY_B, 32, 4, DRY_S, DRY_S, 64, torch.bfloat16,
-                "phase 17 (b) step shape")
-    fake_peak = fake_rec["memory"]["peak_bytes"]
-    print(f"phase 17 (b): {DRY_ARCH} fused step {DRY_B} x {DRY_S} on a "
-          f"world of one: trace {trace_s:.1f} s, loss {loss:.4f}; FLOPs "
-          f"trace {fake_rec['flops_per_device']:.6e} real "
-          f"{real_flops:.6e}; peak trace {fake_peak / 2 ** 30:.4f} GiB "
-          f"real max_memory_allocated {peak / 2 ** 30:.4f} GiB (ratio "
-          f"{peak / fake_peak:.4f}, band {DRY_BAND}); flash {len(calls)} "
-          f"calls", flush=True)
-    if not math.isfinite(loss):
-        fail(f"phase 17 (b): loss {loss}")
-    if real_flops != fake_rec["flops_per_device"]:
-        fail(f"phase 17 (b): FLOPs differ: trace "
-             f"{fake_rec['flops_per_device']}, real {real_flops}")
-    if abs(peak / fake_peak - 1.0) > DRY_BAND:
-        fail(f"phase 17 (b): peak {peak} outside {DRY_BAND} of the "
-             f"trace's {fake_peak}")
-    print(f"phase 17 {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return [counts]
+    return loss, real_flops, peak, len(calls), counts
 
 
 def main():

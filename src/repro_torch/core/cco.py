@@ -93,10 +93,14 @@ def per_client_stats(zf, zg, clients: int) -> Stats:
 
 def weighted_average_stats(stats: Stats, weights) -> Stats:
     """Aggregate stacked per-client stats (leading axis K) with weights
-    N_k/N. Implements paper Eq. 3 exactly."""
+    N_k/N. Implements paper Eq. 3 exactly. On DTensor statistics (the
+    clients' axis sharded) the weights are laid out replicated on their
+    mesh and each weighted sum is reduced over the ranks (its
+    all-reduce)."""
     w = weights.to(F32) / weights.to(F32).sum()
-    return {k: torch.tensordot(w.to(v.dtype), v, dims=1)
-            for k, v in stats.items()}
+    return {k: dtensor.settle(torch.tensordot(
+        dtensor.replicated(w.to(v.dtype), v), v, dims=1))
+        for k, v in stats.items()}
 
 
 def correlation_matrix(stats: Stats, eps: float = 1e-8,

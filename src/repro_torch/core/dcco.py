@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import cco
-from repro_torch.sharding import collectives
+from repro_torch.sharding import collectives, dtensor
 
 F32 = torch.float32
 IMPLS = ("fused", "per_client", "shard_map")
@@ -44,10 +44,17 @@ def dcco_loss_per_client(zf, zg, lam: float, clients: int) -> torch.Tensor:
     w = torch.full((clients,), 1.0 / clients, dtype=F32, device=zf.device)
     agg = cco.weighted_average_stats(st_k, w)
 
-    def client_loss(stats_k):
-        return cco.cco_loss_from_stats(cco.dcco_combine(stats_k, agg), lam)
+    def client_losses(st, agg):
+        return torch.func.vmap(lambda stats_k: cco.cco_loss_from_stats(
+            cco.dcco_combine(stats_k, agg), lam))(st)
 
-    return (w * torch.func.vmap(client_loss)(st_k)).sum()
+    if not dtensor.is_dtensor(st_k["cross"]):
+        return (w * client_losses(st_k, agg)).sum()
+    # DTensor statistics, the clients sharded as the batch's rows: each
+    # rank takes the losses of its clients against its copy of the
+    # aggregate, and the weighted sum is reduced over the ranks
+    losses = dtensor.rows_map(client_losses, st_k, agg)
+    return dtensor.settle((dtensor.replicated(w, losses) * losses).sum())
 
 
 def _rank_share(loss, mesh, data_axes) -> torch.Tensor:
@@ -82,10 +89,34 @@ def make_shard_map_dcco_loss(mesh, lam: float, data_axes=("data",)):
     return loss_fn
 
 
+def dcco_loss_shard_map_dtensor(zf, zg, lam: float,
+                                data_axes=("data",)) -> torch.Tensor:
+    """The shard_map loss of DTensor encodings (N, d), as the reference
+    runs it inside one SPMD program: under ``local_map`` each rank takes
+    its rows over ``data_axes`` (``Shard(0)`` there, replicated over the
+    other axes of their mesh) and runs the body of
+    :func:`make_shard_map_dcco_loss` on them as plain tensors, so the
+    statistics are reduced once, by its all-reduce over the data axes'
+    group; the loss is replicated. The body's 1/S gradient share, summed
+    by DTensor over the ranks that shard the rows, is the fused loss's
+    gradient."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = zf.device_mesh
+    axes = collectives.axis_names(data_axes)
+    loss_fn = make_shard_map_dcco_loss(mesh, lam, axes)
+    rows = [Shard(0) if n in axes else Replicate()
+            for n in mesh.mesh_dim_names]
+    return dtensor.local_map_tree(
+        loss_fn, mesh, [(zf, rows, None), (zg, rows, None)],
+        [[Replicate()] * mesh.ndim])
+
+
 def dcco_loss(zf, zg, lam: float, impl: str = "fused", clients: int = 0,
               mesh=None, data_axes=("data",)) -> torch.Tensor:
     """The D-CCO loss by ``impl``; ``"shard_map"`` takes this rank's rows
-    and the ``mesh`` they are sharded over."""
+    and the ``mesh`` they are sharded over, or DTensor encodings, which
+    carry their mesh."""
     if impl == "fused":
         return dcco_loss_fused(zf, zg, lam)
     if impl == "per_client":
@@ -94,6 +125,8 @@ def dcco_loss(zf, zg, lam: float, impl: str = "fused", clients: int = 0,
                              f"{clients}")
         return dcco_loss_per_client(zf, zg, lam, clients)
     if impl == "shard_map":
+        if dtensor.is_dtensor(zf):
+            return dcco_loss_shard_map_dtensor(zf, zg, lam, data_axes)
         if mesh is None:
             raise ValueError(
                 "impl 'shard_map' needs the mesh the batch is sharded over "

@@ -73,12 +73,14 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch import utils
 from repro_torch.configs.base import (ARCH_IDS, TrainConfig, get_config,
                                       get_dual_encoder_config)
+from repro_torch.core import dcco
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.launch import inputs as inp
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import HardwareSpec, make_production_mesh
 from repro_torch.models import common
 from repro_torch.optim import optimizers as opt_lib
+from repro_torch.sharding import collectives
 from repro_torch.sharding import specs as shard_specs
 
 DRYRUN_ARCHS = tuple(a for a in ARCH_IDS if a != "resnet14-cifar")
@@ -246,7 +248,15 @@ class Trace(TorchDispatchMode):
 
 
 def _c10d_group(args) -> Optional[str]:
+    """The name of the process group among a c10d op's arguments (the op
+    receives it boxed, as a ``ScriptObject``)."""
+    from torch._C._distributed_c10d import ProcessGroup
     for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                a = ProcessGroup.unbox(a)
+            except (RuntimeError, TypeError):
+                continue
         name = getattr(a, "group_name", None)
         if name is not None:
             return name
@@ -255,12 +265,18 @@ def _c10d_group(args) -> Optional[str]:
 
 def collective_stats(trace: Trace, mesh) -> Dict[str, Any]:
     """Per-device collective bytes of a traced step: by op, and split by
-    the mesh axis each call's group spans (``"world"`` for a group over
-    several axes). Ring-model wire estimate: all-reduce ~ 2x its payload,
-    the others ~ 1x. A Python loop is traced in full, so unlike the
-    reference's HLO reading there are no loop trip counts to scale by."""
-    axis_of = {mesh.get_group(i).group_name: name
-               for i, name in enumerate(mesh.mesh_dim_names)}
+    the mesh axis each call's group spans (``"pod+data"`` for the group
+    of several axes that ``sharding.collectives`` made, ``"world"`` for
+    any other group over several axes). Ring-model wire estimate:
+    all-reduce ~ 2x its payload, the others ~ 1x. A Python loop is
+    traced in full, so unlike the reference's HLO reading there are no
+    loop trip counts to scale by."""
+    names = mesh.mesh_dim_names
+    axis_of = {g: "+".join(axes)
+               for g, axes in collectives.group_axes.items()
+               if set(axes) <= set(names)}
+    axis_of.update({mesh.get_group(i).group_name: name
+                    for i, name in enumerate(names)})
     per_op: Dict[str, float] = {}
     count: Dict[str, int] = {}
     axes: Dict[str, Dict[str, float]] = {}
@@ -280,12 +296,15 @@ def collective_stats(trace: Trace, mesh) -> Dict[str, Any]:
 
 
 def _within_host(mesh, dim_name: str) -> bool:
-    """Whether every group along mesh axis ``dim_name`` lies on one host
-    of ``HardwareSpec.HOST_CARDS`` consecutive ranks."""
+    """Whether every group along mesh axis ``dim_name`` (or axes,
+    ``"pod+data"``) lies on one host of ``HardwareSpec.HOST_CARDS``
+    consecutive ranks."""
     from torch._subclasses.fake_tensor import unset_fake_temporarily
-    i = mesh.mesh_dim_names.index(dim_name)
+    dims = [mesh.mesh_dim_names.index(n) for n in dim_name.split("+")]
+    size = math.prod(mesh.size(i) for i in dims)
     with unset_fake_temporarily():     # the mesh's ranks are real
-        groups = mesh.mesh.movedim(i, -1).reshape(-1, mesh.size(i))
+        groups = mesh.mesh.movedim(dims, list(range(-len(dims), 0))) \
+            .reshape(-1, size)
         hosts = groups // HardwareSpec.HOST_CARDS
         return bool((hosts == hosts[:, :1]).all())
 
@@ -346,11 +365,14 @@ def build_case(arch: str, shape_name, mesh, *, dcco_impl: str = "fused",
 
     The reference's overrides: bf16, the blockwise (flash) attention,
     remat on train shapes, the long-context variant. Train: the D-CCO
-    step (micro ``num_microbatches``; 1 in FSDP mode, which spreads the
-    batch over every axis and pins activations so that the products
-    gather weights, not activations), tp or fsdp parameters, ZeRO-1 Adam
-    moments. ``cfg`` replaces the arch's config (the tests' smoke towers:
-    the overrides still apply, but the dtype is kept)."""
+    step with the loss of ``dcco_impl`` (micro ``num_microbatches``; 1 in
+    FSDP mode, which spreads the batch over every axis and pins
+    activations so that the products gather weights, not activations,
+    and 1 for ``"shard_map"``, whose loss runs on each rank's rows over
+    the data axes; the microbatched step takes every impl's gradient as
+    the combine's, as the reference's does), tp or fsdp parameters,
+    ZeRO-1 Adam moments. ``cfg`` replaces the arch's config (the tests'
+    smoke towers: the overrides still apply, but the dtype is kept)."""
     shape = (inp.INPUT_SHAPES[shape_name] if isinstance(shape_name, str)
              else shape_name)
     if remat == "auto":
@@ -370,12 +392,9 @@ def build_case(arch: str, shape_name, mesh, *, dcco_impl: str = "fused",
         return values.get(name, tree)
 
     if shape.kind == "train":
-        if dcco_impl == "shard_map":
-            raise ValueError(
-                "dcco_impl 'shard_map' runs each rank's rows as plain "
-                "tensors with explicit collectives and does not compose "
-                "with DTensor parameters; the dry run traces 'fused' "
-                "(ROADMAP §1 item 6, 'Sharded and streaming cohorts')")
+        if dcco_impl not in dcco.IMPLS:
+            raise ValueError(f"unknown dcco impl {dcco_impl!r}; expected "
+                             f"one of {dcco.IMPLS}")
         tcfg = TrainConfig(global_batch=shape.global_batch,
                            samples_per_client=1, dcco_impl=dcco_impl)
         opt = opt_lib.adam(5e-3)
@@ -383,9 +402,13 @@ def build_case(arch: str, shape_name, mesh, *, dcco_impl: str = "fused",
         if sharding == "fsdp":
             num_microbatches = 1
             cfg = _fsdp_cfg(cfg, mesh, names)
+        if dcco_impl == "shard_map":
+            # the loss on each rank's rows over the data axes, their
+            # statistics reduced by one all-reduce; no microbatching
+            num_microbatches = 1
         step = steps_lib.make_dcco_train_step(
             cfg, de_cfg, tcfg, opt, num_microbatches=num_microbatches,
-            constrain_sharding=True)
+            constrain_sharding=True, data_axes=data_ax)
         params = inp.dual_encoder_shapes(cfg, de_cfg)
         opt_state = inp.opt_state_shapes(opt, params)
         batch = inp.train_input_specs(cfg, shape)
@@ -457,6 +480,7 @@ def fake_world(world: int):
     try:
         yield
     finally:
+        collectives.group_axes.clear()
         dist.destroy_process_group()
 
 
@@ -505,7 +529,11 @@ def run_case(arch: str, shape_name, multi_pod: bool, *, device="cuda",
             step, args = build_case(arch, shape_name, mesh, **kw)
             rec = trace_step(step, args, mesh)
     name = shape_name if isinstance(shape_name, str) else shape_name.name
-    return {"arch": arch, "shape": name, "multi_pod": multi_pod,
+    kind = (inp.INPUT_SHAPES[shape_name] if isinstance(shape_name, str)
+            else shape_name).kind
+    impl = {"dcco_impl": kw.get("dcco_impl", "fused")} \
+        if kind == "train" else {}
+    return {"arch": arch, "shape": name, "multi_pod": multi_pod, **impl,
             "chips": world, "mesh": dict(zip(mesh.mesh_dim_names,
                                              tuple(mesh.shape))),
             "device": dev.type, "trace_s": round(time.time() - t0, 2),

@@ -102,7 +102,10 @@ def make_dcco_train_step(cfg, de_cfg, tcfg, server_opt, mesh=None,
 
     Without a mesh the step also runs as one DTensor program, on DTensor
     parameters, state and batch (``launch/dryrun.py``): the model code
-    places what it makes and DTensor inserts the collectives.
+    places what it makes and DTensor inserts the collectives. There
+    ``dcco_impl`` "shard_map" runs its loss on each rank's rows over
+    ``data_axes`` under ``local_map`` (the encodings' mesh is the mesh),
+    and "per_client" holds each client's statistics where its rows are.
     ``constrain_sharding`` then keeps each microbatch's rows sharded as
     the batch's were (the reference's sharding constraint after its
     microbatch reshape): the batch (N, ...) is reshaped to (M, N / M,

@@ -242,13 +242,16 @@ def gqa_init(gen, cfg, dtype, device="cpu"):
     return p
 
 
-def _split_heads(t, n: int, d: int):
-    """(B, S, n * d) -> (B, S, n, d). A DTensor whose last dim is cut into
-    more blocks than its n heads split into (TinyLlama's 4 kv heads on a
-    "model" axis of 16) is gathered first, the reshard XLA inserts by
-    itself before such a reshape."""
+def _split_heads(t, n: int, d: int, dtype):
+    """(B, S, n * d) -> (B, S, n, d) in ``dtype`` (the projection's input
+    type). A DTensor projection left pending (where DTensor chose to
+    split its contraction) is reduced, then cast, as ``linear`` asks of
+    its callers. A DTensor whose last dim is cut into more blocks than
+    its n heads split into (TinyLlama's 4 kv heads on a "model" axis of
+    16) is gathered first, the reshard XLA inserts by itself before such
+    a reshape."""
     if dtensor.is_dtensor(t):
-        t = dtensor.settle(t)
+        t = dtensor.settle(t, dtype)
         if n % dtensor.shards(t, -1):
             t = dtensor.replicate_dim(t, -1)
     return t.reshape(t.shape[0], t.shape[1], n, d)
@@ -263,9 +266,9 @@ def _merge_heads(out):
 
 def _gqa_qkv(cfg, p, x, positions):
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = _split_heads(linear(p["wq"], x), h, dh)
-    k = _split_heads(linear(p["wk"], x), kvh, dh)
-    v = _split_heads(linear(p["wv"], x), kvh, dh)
+    q = _split_heads(linear(p["wq"], x), h, dh, x.dtype)
+    k = _split_heads(linear(p["wk"], x), kvh, dh, x.dtype)
+    v = _split_heads(linear(p["wv"], x), kvh, dh, x.dtype)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -507,7 +510,7 @@ def _mla_latent(cfg, p, x, positions):
 
 def _mla_q(cfg, p, x, positions):
     h, dn, dr = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q = _split_heads(linear(p["wq"], x), h, dn + dr)
+    q = _split_heads(linear(p["wq"], x), h, dn + dr, x.dtype)
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
 
@@ -515,8 +518,9 @@ def _mla_expand_kv(cfg, p, latent, k_rope):
     """Per-head K (nope + rope) and V, expanded from the latent."""
     b, s, _ = latent.shape
     h, dn, dv = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
-    k_nope = _split_heads(linear(p["w_uk"], latent), h, dn)
-    v = _split_heads(linear(p["w_uv"], latent), h, dv)
+    k_nope = _split_heads(linear(p["w_uk"], latent), h, dn,
+                          latent.dtype)
+    v = _split_heads(linear(p["w_uv"], latent), h, dv, latent.dtype)
     k_rope = k_rope.expand(b, s, h, k_rope.shape[-1])
     if dtensor.is_dtensor(k_rope):
         # the shared rotary key split as the heads are (a local slice)

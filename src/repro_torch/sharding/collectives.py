@@ -84,25 +84,65 @@ def axis_index(mesh, axis) -> int:
     return idx
 
 
+# the process groups that ``axis_group`` made for tuples of axes: group
+# name -> the axes, so that a count can be told by its axes
+group_axes = {}
+_axes_groups = {}
+
+
 def axis_group(mesh, axis):
-    """The process group of ``axis``: a dimension's group, or for a tuple
-    of axes spanning the whole world, the world's. Its group ranks are
-    the linear indices of ``axis_index``, which is what makes a gather in
-    rank order the reference's concatenation of shards."""
+    """The process group of ``axis``: a dimension's group, for a tuple of
+    axes spanning the whole world the world's, and for a tuple of some
+    of the axes the group of this rank's block of ranks that differ
+    only there (the reference's psum over a tuple of axes is one
+    collective). Its group ranks are the linear indices of
+    ``axis_index``, which is what makes a gather in rank order the
+    reference's concatenation of shards."""
     names = axis_names(axis)
     if len(names) == 1:
         return mesh.get_group(names[0])
-    if (axis_size(mesh, names) != dist.get_world_size()
-            or list(names) != [n for n in mesh.mesh_dim_names
-                               if n in names]):
+    if list(names) != [n for n in mesh.mesh_dim_names if n in names]:
         raise ValueError(
-            f"a tuple of axes {names} must name, in the mesh's order "
-            f"{mesh.mesh_dim_names}, dimensions that span the whole world "
-            f"of {dist.get_world_size()} ranks")
+            f"a tuple of axes {names} must name dimensions in the mesh's "
+            f"order {mesh.mesh_dim_names}")
+    if axis_size(mesh, names) != dist.get_world_size():
+        return _axes_group(mesh, names)
     if dist.get_rank() != axis_index(mesh, names):
         raise ValueError("the mesh must enumerate the world's ranks in "
                          "row-major order (init_device_mesh does)")
     return dist.group.WORLD
+
+
+def _axes_group(mesh, names):
+    """The process group of this rank's block of ranks that differ only
+    over the mesh dimensions ``names`` (every rank makes every block's
+    group, in one order), made once a world. It is a group of its own,
+    not a flattened dimension of the mesh, so DTensor's own reductions
+    over those dimensions go on as they were."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    dims = [mesh.mesh_dim_names.index(n) for n in names]
+    # the mesh's rank table is a real tensor, whatever mode traces the
+    # caller (the dry run's fake tensors and counters)
+    with _disable_current_modes():
+        blocks = mesh.mesh.movedim(dims, list(range(-len(dims), 0))) \
+            .reshape(-1, axis_size(mesh, names)).tolist()
+    key = (tuple(map(tuple, blocks)), tuple(names))
+    group = _axes_groups.get(key)
+    if group is not None:
+        try:
+            dist.get_group_rank(group, dist.get_rank())
+        except (ValueError, RuntimeError):
+            group = None                # an earlier world's
+    if group is None:
+        group, _ = dist.new_subgroups_by_enumeration(blocks)
+        if dist.get_group_rank(group, dist.get_rank()) != \
+                axis_index(mesh, names):
+            raise ValueError("the mesh must enumerate its ranks in "
+                             "row-major order (init_device_mesh does)")
+        _axes_groups[key] = group
+    group_axes[group.group_name] = tuple(names)
+    return group
 
 
 def _by_dtype(leaves):

@@ -189,13 +189,15 @@ def replicated_call(fn, *args):
 
 def rows_map(fn, x, params, state=None):
     """``fn(x, params[, state])`` on this rank's rows of the activation
-    ``x`` (B, ...) and replicated ``params``, under ``local_map``: the
-    output and the new state (the recurrent blocks' ``(y, state)``, or
-    ``y``) have ``x``'s row placements. A weight's gradient is a partial
-    sum over the mesh dimensions that shard the rows; parameters stored
-    sharded (tensor parallel or FSDP) are gathered for the call."""
-    mesh = x.device_mesh
-    rows = row_placements(x)
+    ``x`` (B, ...), or of each leaf of a tree of such (laid out as its
+    first leaf's rows), and replicated ``params``, under ``local_map``:
+    the output and the new state (the recurrent blocks' ``(y, state)``,
+    or ``y``) have ``x``'s row placements. A weight's gradient is a
+    partial sum over the mesh dimensions that shard the rows; parameters
+    stored sharded (tensor parallel or FSDP) are gathered for the call."""
+    lead = pytree.tree_leaves(x)[0]
+    mesh = lead.device_mesh
+    rows = row_placements(lead)
     rep = [Replicate()] * mesh.ndim
     wgrad = [Partial() if isinstance(p, Shard) else Replicate()
              for p in rows]

@@ -356,10 +356,12 @@ def task_dryrun(inp):
     ``full_tensor``):
 
     * ``train``: the D-CCO train step of the smoke TinyLlama tower, tp-
-      and fsdp-placed, and of the smoke DeepSeek-MoE tower (expert
-      parallel, its balance and router-z losses in the loss), tp-placed:
-      loss, gradients, updated parameters; and the MoE tower's encoding
-      with its aux values;
+      and fsdp-placed, with the fused loss, the shard_map loss (tp and
+      fsdp) and the per-client loss (tp), and of the smoke DeepSeek-MoE
+      tower (expert parallel, its balance and router-z losses in the
+      loss), tp-placed: loss, gradients, updated parameters, the counts
+      of ``sharding.collectives`` over the gradient's call; and the MoE
+      tower's encoding with its aux values;
     * ``knobs``: the TinyLlama tower's forward on the tp-placed parameters
       with and without ``act_shard_axes`` and ``fsdp_model_size``."""
     from repro_torch.configs.base import TrainConfig, get_config, \
@@ -368,14 +370,19 @@ def task_dryrun(inp):
     from repro_torch.launch import mesh as mesh_lib, steps
     from repro_torch.models import dual_encoder, transformer
     from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.sharding import collectives
 
     mesh = mesh_lib.make_production_mesh(ranks_per_host=2)
     out = {"train": {}}
     shape = inp_lib.InputShape("train_s", 16, 8, "train")
     opt = opt_lib.adam(5e-3)
-    for arch, mode, micro in (("tinyllama-1.1b", "tp", 2),
-                              ("tinyllama-1.1b", "fsdp", 1),
-                              ("deepseek-moe-16b", "tp", 1)):
+    for arch, mode, micro, impl in (
+            ("tinyllama-1.1b", "tp", 2, "fused"),
+            ("tinyllama-1.1b", "fsdp", 1, "fused"),
+            ("deepseek-moe-16b", "tp", 1, "fused"),
+            ("tinyllama-1.1b", "tp", 1, "shard_map"),
+            ("tinyllama-1.1b", "fsdp", 1, "shard_map"),
+            ("tinyllama-1.1b", "tp", 1, "per_client")):
         cfg = get_config(arch, smoke=True)
         de_cfg = get_dual_encoder_config(arch)
         params, batch = inp["train"][arch]["params"], inp["train"][arch][
@@ -384,8 +391,10 @@ def task_dryrun(inp):
                   "batch": batch}
         step, args = dryrun.build_case(
             arch, shape, mesh, cfg=cfg, sharding=mode, values=values,
-            num_microbatches=micro)
+            num_microbatches=micro, dcco_impl=impl)
+        collectives.reset_counts()
         grads, _ = step.grads(args[0], args[2])
+        counts = {k: dict(v) for k, v in collectives.counts.items()}
         p, _, m = step(*args)
         plain = steps.make_dcco_train_step(
             cfg.replace(remat="full"), de_cfg,
@@ -394,7 +403,8 @@ def task_dryrun(inp):
         p0, _, m0 = plain(params, opt.init(params), batch)
         rec = {"params": _whole(p), "grads": _whole(grads),
                "loss": m["loss"].full_tensor(), "plain_params": p0,
-               "plain_grads": g0, "plain_loss": m0["loss"]}
+               "plain_grads": g0, "plain_loss": m0["loss"],
+               "counts": counts}
         if cfg.moe is not None:
             _, aux = dual_encoder.encode(cfg, de_cfg, args[0],
                                          args[2]["view1"])
@@ -402,7 +412,8 @@ def task_dryrun(inp):
                                           batch["view1"])
             rec["aux"] = {k: v.full_tensor() for k, v in aux.items()}
             rec["plain_aux"] = aux0
-        out["train"][f"{arch}/{mode}"] = rec
+        out["train"][f"{arch}/{mode}" + (
+            "" if impl == "fused" else f"/{impl}")] = rec
 
     arch = "tinyllama-1.1b"
     cfg = get_config(arch, smoke=True)

@@ -2,7 +2,8 @@
 vs reference, on the CPU: the drift helpers, the reference's own laws
 restated on the port, one ``stats_round`` and one ``fedavg_round`` with
 each correction on the toy encoder and the smoke ResNet, SCAFFOLD on the
-smoke ResNet followed round by round until it diverges, the same over an
+smoke ResNet followed round by round until it diverges, the first client
+lr at which two local steps stay finite at two widths, the same over an
 int8 uplink and an 8-edge tree, three engine rounds, three buffered
 ticks, and a FedProx round of the smoke tinyllama tower.
 
@@ -42,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_lr_width as lrw
 import _torch_toy as toy
 from repro import hierarchy as j_hier
 from repro.comm import channel as j_channel
@@ -606,6 +608,29 @@ def test_resnet_scaffold_diverges_where_the_reference_does(resnet, lr,
                                rtol=1e-2)
 
 
+# (width, first finite rate's exponent): SCAFFOLD's first rates in
+# tests/_torch_lr_width.py's sweep, the same in both packages (PERF.md)
+SCAFFOLD_FIRST_FINITE = [("smoke", -12), ("x4", -13)]
+
+
+@pytest.mark.parametrize("width,first", SCAFFOLD_FIRST_FINITE)
+def test_first_finite_client_lr_matches_the_reference_across_width(
+        width, first):
+    """Two plain-GD local steps of D-CCO with SCAFFOLD, three rounds from
+    one converted start on one reference-drawn cohort
+    (tests/_torch_lr_width.py), at the smoke ResNet's width and at 4x it,
+    where the first finite rate moves: halving from 2^(first + 1), both
+    packages stay finite for the same number of rounds at each rate, and
+    first stay finite at 2^first. (FedProx stays finite at the start,
+    1.0, at both widths, in both packages.)"""
+    s = lrw.setup(width)
+    got = {name: lrw.first_finite(make(s, "scaffold"), 2.0 ** (first + 1))
+           for name, make in (("reference", lrw.reference_runner),
+                              ("port", lrw.port_runner))}
+    assert got["port"] == got["reference"]
+    assert got["port"][0] == 2.0 ** first
+
+
 # ------------------------------------------------- over int8, the tree --
 
 def _ref_uniforms(key, tree_k):
@@ -797,9 +822,9 @@ def test_three_buffered_scaffold_ticks_match_reference_given_its_delays():
 def test_one_tinyllama_drift_round_matches_reference():
     """D-CCO with FedProx, SCAFFOLD and two local steps on the tinyllama
     smoke tower (at full width SCAFFOLD's f32 variates do not fit beside
-    the token round, ROADMAP §1 item 3): a reference-drawn cohort of 4
-    clients x 2 sequences, every attention forward of both steps on the
-    flash kernel's plain version."""
+    the token round, ROADMAP §1, "Left out by design"): a reference-drawn
+    cohort of 4 clients x 2 sequences, every attention forward of both
+    steps on the flash kernel's plain version."""
     seq = 16
     jcfg = j_get_config("tinyllama-1.1b", smoke=True)
     tcfg = get_config("tinyllama-1.1b", smoke=True)

@@ -4,9 +4,11 @@ drives, on the CPU, on the smoke towers and small fake worlds.
 * Per-device argument and output bytes equal the reference's
   ``memory_analysis()`` of the same case (its ``build_case`` compiled on 8
   XLA host devices in a subprocess, ``tests/_torch_dryrun_ref.py``; XLA
-  adds 8 bytes a leaf for its output tuple).
+  adds 8 bytes a leaf for its output tuple), the train step under each
+  of the reference's D-CCO losses (fused, shard_map, per_client).
 * The tp- and fsdp-placed train steps with real values on a gloo world of
-  4 (``tests/_torch_dist.py``) against the port's unsharded fused step:
+  4 (``tests/_torch_dist.py``), with the fused, the shard_map and the
+  per-client loss, against the port's unsharded fused step:
   the loss to 1e-5 relative; the gradients to 1e-5 of the largest
   gradient (f32 sums regrouped across ranks; a leaf whose gradient is
   zero analytically, the last bias under the CCO loss's centring, holds
@@ -19,8 +21,9 @@ drives, on the CPU, on the smoke towers and small fake worlds.
   (f32, the tolerances of ``tests/test_torch_serve.py``); ``remat="full"``
   bit for bit equal to ``"none"``; ``act_shard_axes`` and
   ``fsdp_model_size`` changing no value on the gloo world.
-* A collective law counted by hand, the FLOPs a device, the flash
-  formula, the 4-kv-head reshape and the CLI.
+* A collective law counted by hand, the statistics' reductions of each
+  D-CCO loss, the group of a tuple of data axes, the FLOPs a device, the
+  flash formula, the 4-kv-head reshape and the CLI.
 
 Every fake world is torn down by ``dryrun.fake_world``; the gloo world
 and the reference run in subprocesses.
@@ -46,20 +49,29 @@ import _torch_dryrun_ref as dref
 
 TOL = 1e-5
 LOGIT_TOL = 1e-5
-# key: (arch, shape name, seq_len, global batch, kind, microbatches)
+# key: (arch, shape name, seq_len, global batch, kind, microbatches[,
+# dcco_impl, sharding])
 REF_CASES = {
     "tinyllama train": ("tinyllama-1.1b", "train_4k", 16, 8, "train", 2),
     "tinyllama decode": ("tinyllama-1.1b", "decode_32k", 32, 8, "decode", 1),
     "deepseek-moe prefill": ("deepseek-moe-16b", "prefill_32k", 32, 8,
                              "prefill", 1),
+    "tinyllama train shard_map": ("tinyllama-1.1b", "train_4k", 16, 8,
+                                  "train", 1, "shard_map", "tp"),
+    "tinyllama train per_client": ("tinyllama-1.1b", "train_4k", 16, 8,
+                                   "train", 1, "per_client", "tp"),
+    "tinyllama train fsdp shard_map": ("tinyllama-1.1b", "train_4k", 16, 8,
+                                       "train", 1, "shard_map", "fsdp"),
 }
 
 
-def _smoke_case(arch, name, seq, batch, kind, micro, dtype="bfloat16"):
+def _smoke_case(arch, name, seq, batch, kind, micro, impl="fused",
+                sharding="tp", dtype="bfloat16"):
     """The port's record of a case on the (2, 4) fake world."""
     return dryrun.run_case(
         arch, inp.InputShape(name, seq, batch, kind), False, device="cpu",
-        world=8, ranks_per_host=4, num_microbatches=micro,
+        world=8, ranks_per_host=4, num_microbatches=micro, dcco_impl=impl,
+        sharding=sharding,
         cfg=get_config(arch, smoke=True).replace(dtype=dtype))
 
 
@@ -76,6 +88,60 @@ def test_argument_and_output_bytes_equal_the_references(ref_memory, case):
     assert mem["output_size_in_bytes"] + 8 * mem["output_leaves"] == \
         want["output_size_in_bytes"]
     assert mem["temp_size_in_bytes"] > 0 and rec["flops_per_device"] > 0
+
+
+def test_each_impl_reduces_the_statistics_as_its_loss_does():
+    """The three D-CCO losses traced on the (2, 4) fake world at micro 1.
+    The fused loss reduces each of the five statistics where it is made
+    (five all-reduces over "data"); the shard_map loss packs the same
+    bytes into one all-reduce of (4d + d^2) f32 values, counted once
+    under "data" (its body sees plain tensors, so nothing settles twice);
+    the per-client loss reduces the five weighted sums over the clients,
+    which are sharded over "data", and then its scalar loss. Each data
+    rank holds the d x d cross moments of its K/2 clients."""
+    d = get_dual_encoder_config("tinyllama-1.1b").proj_dims[-1]
+    recs = {impl: _smoke_case("tinyllama-1.1b", "train_4k", 16, 8, "train",
+                              1, impl=impl)
+            for impl in ("fused", "shard_map", "per_client")}
+    data = {k: r["collectives"]["by_axis"]["data"] for k, r in recs.items()}
+    assert data["shard_map"]["bytes"] == data["fused"]["bytes"]
+    assert data["shard_map"]["calls"] == data["fused"]["calls"] - 4
+    assert data["per_client"]["bytes"] == data["fused"]["bytes"] + 4
+    assert data["per_client"]["calls"] == data["fused"]["calls"] + 1
+    for impl, rec in recs.items():
+        assert rec["dcco_impl"] == impl
+        assert rec["flops_per_device"] > 0
+    temp = {k: r["memory"]["temp_size_in_bytes"] for k, r in recs.items()}
+    assert temp["per_client"] >= temp["fused"] + 4 * d * d * 4
+
+
+def test_a_tuple_of_data_axes_reduces_over_one_group():
+    """On a (2, 2, 2) world a mean over ("pod", "data") is one all-reduce
+    over the 4 ranks that share this rank's "model" coordinate (a group
+    made once, not a flattened mesh dimension), counted under
+    "pod+data"; its wire is timed at NVLink's rate (the 4 ranks lie on
+    one 8-card host)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.mesh import HardwareSpec
+    from repro_torch.sharding import collectives
+
+    with dryrun.fake_world(8):
+        mesh = make_production_mesh(multi_pod=True, ranks_per_host=2,
+                                    device_type="cpu")
+        group = collectives.axis_group(mesh, ("pod", "data"))
+        assert torch.distributed.get_process_group_ranks(group) == [0, 2,
+                                                                    4, 6]
+        assert collectives.axis_group(mesh, ("pod", "data")) is group
+        with FakeTensorMode():
+            tree = {"a": torch.ones(3), "b": torch.ones(2, 2)}
+            with dryrun.Trace() as tr:
+                collectives.pmean_tree(tree, mesh, ("pod", "data"))
+        coll = dryrun.collective_stats(tr, mesh)
+        roof = dryrun.roofline(0.0, 0.0, coll, mesh)
+    assert coll["by_axis"] == {"pod+data": {"bytes": 28.0,
+                                            "wire_bytes": 56.0, "calls": 1}}
+    assert roof["collective_s"] == 56.0 / HardwareSpec.NVLINK_BW
+    assert not collectives.group_axes
 
 
 # --------------------------------------------------- values on gloo --
@@ -124,12 +190,17 @@ def serve_world(tmp_path_factory):
     return outs[0]["dryrun_serve"]
 
 
-@pytest.mark.parametrize("case", ["tinyllama-1.1b/tp", "tinyllama-1.1b/fsdp",
-                                  "deepseek-moe-16b/tp"])
+@pytest.mark.parametrize("case", [
+    "tinyllama-1.1b/tp", "tinyllama-1.1b/fsdp", "deepseek-moe-16b/tp",
+    "tinyllama-1.1b/tp/shard_map", "tinyllama-1.1b/fsdp/shard_map",
+    "tinyllama-1.1b/tp/per_client"])
 def test_sharded_train_step_equals_the_unsharded_step(world, case):
     """The MoE tower's loss holds its balance and router-z terms and its
     gradients their backward (expert parallel, the routing of each
-    rank's groups)."""
+    rank's groups). The shard_map and per-client losses (each rank's
+    rows of the encodings under ``local_map``; the per-client statistics
+    sharded by client) give the unsharded fused step's loss, gradients
+    and parameters."""
     out, train = world
     o = out["train"][case]
     p_init = train[case.split("/")[0]]["params"]
@@ -151,6 +222,22 @@ def test_sharded_train_step_equals_the_unsharded_step(world, case):
         for k in o["aux"]:
             torch.testing.assert_close(o["aux"][k], o["plain_aux"][k],
                                        rtol=TOL, atol=0)
+
+
+@pytest.mark.parametrize("case", ["tinyllama-1.1b/tp/shard_map",
+                                  "tinyllama-1.1b/fsdp/shard_map",
+                                  "tinyllama-1.1b/tp/per_client"])
+def test_shard_map_step_reduces_the_statistics_once(world, case):
+    """The shard_map step's gradient reduces the five statistics by one
+    all-reduce of (4d + d^2) f32 values over the data axis (a rank's
+    buffer, counted by ``sharding.collectives``); the per-client step
+    reduces through DTensor alone."""
+    d = get_dual_encoder_config("tinyllama-1.1b").proj_dims[-1]
+    counts = world[0]["train"][case]["counts"]
+    want = {"calls": 1, "bytes": (4 * d + d * d) * 4} \
+        if case.endswith("shard_map") else {"calls": 0, "bytes": 0}
+    assert counts["all_reduce"] == want
+    assert counts["all_gather"] == {"calls": 0, "bytes": 0}
 
 
 @pytest.mark.parametrize("case", list(SERVE_CASES))
@@ -422,10 +509,19 @@ def test_cli_writes_records_and_refuses(tmp_path, monkeypatch, capsys):
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "resnet14-cifar", "--device", "cpu"])
     assert e.value.code == 2
+    dryrun.main(["--arch", "tinyllama-1.1b", "--shape", "train_4k",
+                 "--dcco-impl", "shard_map", "--device", "cpu",
+                 "--tag", "sm", "--out", str(out)])
+    rec = dryrun.load_results(str(out))["sm/tinyllama-1.1b/train_4k/single"]
+    assert rec["dcco_impl"] == "shard_map"
+    d = get_dual_encoder_config("tinyllama-1.1b").proj_dims[-1]
+    assert rec["collectives"]["by_axis"]["data"]["bytes"] >= \
+        (4 * d + d * d) * 4
+    capsys.readouterr()
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "tinyllama-1.1b", "--shape", "train_4k",
-                     "--dcco-impl", "shard_map", "--device", "cpu",
+                     "--dcco-impl", "bogus", "--device", "cpu",
                      "--out", str(tmp_path / "f.json")])
     assert e.value.code == 1
-    assert "ROADMAP §1 item 6" in capsys.readouterr().out
+    assert "unknown dcco impl 'bogus'" in capsys.readouterr().out
     assert not torch.distributed.is_initialized()
