@@ -61,16 +61,23 @@ Phases (each prints its lines; any failure exits non-zero):
      at B = 1 over 4096 positions and (B, S, H, Dh) views read in place
      (bit-equal to their contiguous copies), each timed beside its plain
      version and ``scaled_dot_product_attention`` (a yardstick the port
-     never calls); the gradient of its autograd Function against
-     autograd of the plain version at the path's shape in f32; then, after
-     the serving phase's memory is released, D-CCO training of the
-     full-width TinyLlama-1.1B token dual encoder (3 rounds, TOK_K clients
-     x 2 sequences of 128 tokens, bf16 weights from seed 0): losses
-     finite, peak device memory printed, launches exactly 88 flash
-     attention forwards a round (2 views x 22 layers in the no-grad phase
-     1, the same again in phase 2, where vmap folds the K clients into
-     one launch; the backward recomputes in plain torch) and one "cross"
-     statistics kernel;
+     never calls); at each of those shapes, and wherever a later phase
+     holds the forward, the backward kernel
+     (``csrc/flash_attention_bwd.cu``) against its plain version, the
+     blockwise recompute (dq, dk and dv to FLASH_BWD_TOL of the largest
+     gradient, a second run bit-equal), timed beside it and SDPA's
+     backward at the path's shape and over 4096 positions, where its peak
+     memory above its inputs is gated (FLASH_BWD_SLACK); the gradient of
+     the autograd Function against autograd of the plain version at the
+     path's shape in f32; then, after the serving phase's memory is
+     released, D-CCO training of the full-width TinyLlama-1.1B token dual
+     encoder (TOK_ROUNDS rounds, TOK_K clients x 2 sequences of 128
+     tokens, bf16 weights from seed 0): losses finite, peak device memory
+     printed, launches exactly 88 flash attention forwards a round (2
+     views x 22 layers in the no-grad phase 1, the same again in phase 2,
+     where vmap folds the K clients into one launch), 44 backward calls a
+     round (phase 2's, one for all clients) and one "cross" statistics
+     kernel;
   8. the paper's FedAvg baselines and the server strategies (the ResNet
      paths right after those of phase 4, the token path at the end of
      phase 7), each through ``train.run`` (the CLI's run with the engine's
@@ -86,8 +93,9 @@ Phases (each prints its lines; any failure exits non-zero):
      same rounds for one Table-1-style line of probes (not gated: the
      random-init probe is high on these synthetic images); after the
      token D-CCO path, FedAvg+NT-Xent on the full-width TinyLlama-1.1B
-     tower (flash attention 2 views x 22 layers a round, all in the
-     vmapped phase 2), with its peak memory beside D-CCO's;
+     tower, TOK_ROUNDS rounds (flash attention forward and backward 2
+     views x 22 layers a round, all in the vmapped phase 2), with its peak
+     memory beside D-CCO's;
   9. client-drift correction and bf16 compute (the ResNet paths after
      those of phase 8, the token path at the end), each through
      ``train.run`` at full width, PATH_ROUNDS rounds from seed 0, launches
@@ -105,9 +113,10 @@ Phases (each prints its lines; any failure exits non-zero):
      ``--compute-dtype bfloat16`` ("cross" once a round; the bf16 tower's
      encodings reach ``cco_stats`` as f32, checked beside it); the
      SCAFFOLD paths print the variate deltas' share of the uplink; then
-     D-CCO with FedProx on the full-width TinyLlama-1.1B tower (two local
-     steps: flash 44 + 2 x 44 a round, "cross" once), with its peak memory
-     beside D-CCO's.
+     D-CCO with FedProx on the full-width TinyLlama-1.1B tower, TOK_ROUNDS
+     rounds (two local steps: flash 44 + 2 x 44 forwards and 2 x 44
+     backwards a round, "cross" once), with its peak memory beside
+     D-CCO's.
   10. serving and checkpoints: the full-width TinyLlama-1.1B tower (bf16
      weights from seed 0) serving through ``repro_torch.launch.serve``:
      prefill of SRV_B x SRV_PROMPT tokens and SRV_DECODE greedy decode
@@ -147,10 +156,11 @@ Phases (each prints its lines; any failure exits non-zero):
      parameters within STREAM_TOL of the update (the distance printed);
      (f) ``--mode fused`` and ``--mode protocol`` on the ResNet, no kernel;
      (d) D-CCO on the full-width TinyLlama-1.1B streamed at K =
-     TOK_STREAM_KS in chunks of TOK_CHUNK (flash attention 88 a chunk),
-     both peaks printed; (e) ``--mode fused --micro FUSED_MICRO`` on
-     TinyLlama-1.1B over FUSED_K clients x 2 sequences (flash 132 a
-     microbatch: phase 1, the checkpointed forward and its recompute),
+     TOK_STREAM_KS in chunks of TOK_CHUNK (flash attention 88 forwards
+     and 44 backwards a chunk), both peaks printed; (e) ``--mode fused
+     --micro FUSED_MICRO`` on TinyLlama-1.1B over FUSED_K clients x 2
+     sequences (flash 132 forwards a microbatch: phase 1, the
+     checkpointed forward and its recompute; 44 backwards),
      then the micro FUSED_MICRO step's gradient against the micro 1
      step's on GRAD_B sequences, within GRAD_TOL.
   12. the DeepSeek family at full config, weights from seed 0 drawn on the
@@ -203,8 +213,8 @@ Phases (each prints its lines; any failure exits non-zero):
      holds every step within SRV_TOL x max(1, max |logits|), printing the
      distance block by block if a step departs; (d) D-CCO through ``train
      --stats-kernel fused`` (materialized, ``cco_stats`` once a round) on
-     xlstm-350m cut to 8 layers and zamba2-2.7b cut to one superblock
-     (``--num-layers 8`` and ``6``), REC_K clients x 2 sequences of 128,
+     xlstm-350m cut to 4 layers and zamba2-2.7b cut to one superblock
+     (``--num-layers 4`` and ``6``), REC_K clients x 2 sequences of 128,
      bf16,
      REC_ROUNDS rounds: losses finite, ms a round, peak GiB, the
      ``cco_stats`` and flash launches a round. Each tower is freed before
@@ -232,11 +242,13 @@ Phases (each prints its lines; any failure exits non-zero):
      sequences of 128, MM_ROUNDS rounds (internvl2-2b on its text views,
      as the reference trains it: the patch projector stays as
      initialised, checked): losses finite, ms a round, peak GiB, flash 4
-     a layer and round, ``cco_stats`` once a round (at d = 2048 for
+     forwards and 2 backwards a layer and round, ``cco_stats`` once a
+     round (at d = 2048 for
      internvl2-2b); (e) one ``steps.make_dcco_train_step`` step on the
      internvl2-2b cut over the paper's cross-modal pair (Fig. 1c), the
      batch laid out by ``launch.inputs.train_input_specs``: a finite
-     loss, a nonzero gradient of the patch projector, flash 2 a layer.
+     loss, a nonzero gradient of the patch projector, flash 2 forwards
+     and 2 backwards a layer.
   15. the cohort sharded over devices, on a world of one NCCL rank (see
      its comment block).
   16. the nine examples of ``repro_torch.examples`` through their
@@ -255,9 +267,10 @@ Phases (each prints its lines; any failure exits non-zero):
      bytes by mesh axis; (b) on a fake world of one, the fake trace of
      TinyLlama-1.1B's fused step (DRY_B sequences of DRY_S, full depth,
      micro 1), then the same step run for real on the card in a launch
-     window (flash as many times as the trace recorded, held against its
-     plain version at the step's shape): the FLOPs (``FlopCounterMode``
-     plus the flash formula) equal to the trace's, and
+     window (flash forward and backward as many times as the trace
+     recorded, both held against their plain versions at the step's
+     shape): the FLOPs (``FlopCounterMode`` plus the flash formulas)
+     equal to the trace's, and
      ``max_memory_allocated`` within DRY_BAND of the trace's peak; then
      the same for the shard_map step, its real run on a world of one
      NCCL rank with the explicit mesh (phase 15's world, joined anew).
@@ -297,6 +310,7 @@ from repro_torch.data import partition, pipeline, synthetic  # noqa: E402
 from repro_torch.hierarchy import (  # noqa: E402
     contiguous_edge_ids, fold_to_edges)
 from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels.cco_stats import cco_stats  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention, flash_attention)
@@ -319,7 +333,8 @@ from repro_torch.launch.mesh import (  # noqa: E402
 from repro_torch.sharding import (  # noqa: E402
     collectives, make_corpus_mesh, maybe_initialize_distributed, specs)
 from tools.time_cco_stats import eager_ms, time_ms  # noqa: E402
-from tools.time_flash import flash_bound_ms  # noqa: E402
+from tools.time_flash import (  # noqa: E402
+    flash_bound_ms, flash_bwd_bound_ms, sdpa_backward_ms)
 
 ROUNDS = 5            # the DCCO path
 PATH_ROUNDS = 3       # every other path
@@ -345,11 +360,25 @@ IVF_C, IVF_NPROBE = 128, 8
 # the token path: TinyLlama-1.1B at full width (22 layers, H 32, KVH 4,
 # Dh 64, bf16), TOK_K clients x TOK_N sequences of TOK_S tokens
 TOK_ARCH, TOK_LAYERS, TOK_K, TOK_N, TOK_S = "tinyllama-1.1b", 22, 4, 2, 128
+# the token paths' rounds: two keep the script near half its time limit
+TOK_ROUNDS = 2
+TOK_PATH = "TinyLlama path (phase 1 = phase 2 folded)"   # check_flash label
 PEAK_TF32 = HardwareSpec.PEAK_TF32   # H100 SXM dense TF32 tensor-core FLOP/s
 # flash attention vs plain: both compute in f32 from the same inputs, in
 # other orders; a bf16 output is rounded once on each side (1 bf16 ulp of
 # an output below 4 is under 3e-2), as tests/test_kernels.py holds it
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# the attention backward kernel vs its plain version (the blockwise
+# recompute): both compute in f32 from the same inputs, output and row
+# log-sum-exp, in other orders, and a bf16 gradient is rounded once on
+# each side (1 bf16 ulp is 2^-8 of a value); each of dq, dk and dv is held
+# to FLASH_BWD_TOL x the largest magnitude of the three (where a mask
+# leaves a row a single key, dq and dk vanish and both sides hold only
+# rounding). Its peak memory above its inputs: dq, dk, dv, the (B, H, Sq)
+# f32 delta and FLASH_BWD_SLACK bytes.
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+FLASH_BWD_SLACK = 64 << 20
+FLASH_BWD_FIGURES = {}   # check_flash's label -> the backward's figures
 # serving the token tower: SRV_B prompts of SRV_PROMPT tokens, then
 # SRV_DECODE greedy decode steps. A step's logits against the last position
 # of a full forward over the same tokens: both bf16 towers, the same
@@ -804,13 +833,17 @@ def appendix_a(device, objective="dcco"):
 
 
 def check_flash(b, h, kvh, sq, skv, dh, dtype, label, *, causal=True,
-                window=0, seed=0, dv=None, view=False):
+                window=0, seed=0, dv=None, view=False, time_bwd=False,
+                mem_gate=False):
     """Kernel vs plain version at one shape (v ``dv`` wide, by default
     ``dh``): the output to FLASH_TOL of its type and the row log-sum-exp
-    to 2e-5 (1 + |lse|); returns (max_abs_err, ms, plain_ms, library_ms,
-    bound). With ``view`` the operands are (B, S, H, Dh) tensors seen as
-    (B, H, S, Dh), as the model hands them, read in place: the output and
-    lse must equal those of their contiguous copies bit for bit. The bound
+    to 2e-5 (1 + |lse|); then the backward kernel
+    (``check_flash_backward``, timed with ``time_bwd``, its memory gated
+    with ``mem_gate``); returns (max_abs_err, ms, plain_ms, library_ms,
+    bound) of the forward. With ``view`` the operands are (B, S, H, Dh)
+    tensors seen as (B, H, S, Dh), as the model hands them, read in place:
+    the output and lse must equal those of their contiguous copies bit for
+    bit. The bound
     takes the f32 route's operations at the TF32 peak (its products run on
     the tensor cores); the f32 CUDA-core figure is printed beside it. The
     kernel and the plain version are timed in CUDA graphs;
@@ -849,7 +882,10 @@ def check_flash(b, h, kvh, sq, skv, dh, dtype, label, *, causal=True,
     err = float((out.float() - plain.float()).abs().max())
     lse_err = float(((lse - plain_lse).abs() / (1 + plain_lse.abs())).max())
     same = torch.equal(out, again)
-    del again, plain, plain_lse, lse
+    del again, plain, plain_lse
+    check_flash_backward(q, k, v, out, lse, causal, window, kw["scale"],
+                         label, seed, time_it=time_bwd, mem_gate=mem_gate)
+    del lse
     valid = ref.flash_attention_mask(sq, skv, causal, window, dev)
     bnd = flash_bound_ms(q, k, v, valid)
     cores = ("" if dtype != torch.float32 else
@@ -890,11 +926,77 @@ def check_flash(b, h, kvh, sq, skv, dh, dtype, label, *, causal=True,
     return err, ms, plain_ms, lib_ms, bnd
 
 
+def check_flash_backward(q, k, v, out, lse, causal, window, scale, label,
+                         seed, *, time_it=False, mem_gate=False):
+    """The backward kernel (``flash_attention._backward``: three launches)
+    against its plain version (``attention_backward``) on the same q, k, v,
+    output, row log-sum-exp and a random output gradient: dq, dk and dv to
+    FLASH_BWD_TOL of the largest gradient, a second run bit-equal. With
+    ``mem_gate`` its peak device memory above the inputs must be at most
+    dq, dk, dv, delta and FLASH_BWD_SLACK; with ``time_it`` the kernel, the
+    plain version and SDPA's backward (its forward outside the timed
+    region) are timed. Records (max_abs_err, ms, plain_ms, library_ms,
+    bound) under ``label`` in FLASH_BWD_FIGURES."""
+    dev = q.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 1000)
+    do = torch.randn(out.shape, generator=gen, device=dev).to(q.dtype)
+    args = (q, k, v, out, lse, do, causal, window, scale)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = flash_mod._backward(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    need = (sum(x.numel() * x.element_size() for x in grads)
+            + 4 * lse.numel())
+    again = flash_mod._backward(*args)
+    plain = flash_mod.attention_backward(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    top = max(float(p.float().abs().max()) for p in plain)
+    errs = [float((a.float() - p.float()).abs().max())
+            for a, p in zip(grads, plain)]
+    del again, plain
+    tol = FLASH_BWD_TOL[q.dtype]
+    bnd = flash_bwd_bound_ms(q, k, v, causal, window)
+    ms = plain_ms = lib_ms = None
+    if time_it:
+        big = q.shape[2] >= 4096
+        calls, replays = (3, 3) if big else (20, 10)
+        ms = time_ms(lambda: flash_mod._backward(*args), calls, replays)
+        plain_ms = time_ms(lambda: flash_mod.attention_backward(*args),
+                           2 if big else 5, 3 if big else 4)
+        mask = ({"is_causal": True}
+                if causal and window == 0 and q.shape[2] == k.shape[2]
+                else {"attn_mask": ref.flash_attention_mask(
+                    q.shape[2], k.shape[2], causal, window, dev)})
+        lib_ms = sdpa_backward_ms(q, k, v, mask, calls, replays)
+    fmt = (lambda x: "not timed" if x is None else f"{x:.5f}")
+    print(f"flash_attention backward {label}: max |kernel - plain| dq, dk, "
+          f"dv {', '.join(f'{e:.3e}' for e in errs)} of max |grad| "
+          f"{top:.3e} (tol {tol:g} of it), run-to-run equal {same}; peak "
+          f"memory above the inputs {peak / 2 ** 20:.2f} MiB (dq, dk, dv and "
+          f"delta {need / 2 ** 20:.2f} MiB"
+          + (f", gate + {FLASH_BWD_SLACK >> 20} MiB" if mem_gate else "")
+          + f"); device ms: kernel {fmt(ms)} plain {fmt(plain_ms)} sdpa "
+          f"backward {fmt(lib_ms)} bound {bnd[0]:.5f} ({bnd[1]})",
+          flush=True)
+    if not (max(errs) <= tol * top and same):
+        fail(f"flash_attention backward {label} disagrees with its plain "
+             f"version or with itself")
+    if mem_gate and peak > need + FLASH_BWD_SLACK:
+        fail(f"flash_attention backward {label}: peak {peak} bytes above "
+             f"the inputs, past dq, dk, dv and delta ({need}) + "
+             f"{FLASH_BWD_SLACK}")
+    FLASH_BWD_FIGURES[label] = (max(errs), ms, plain_ms, lib_ms, bnd)
+    del grads, do
+
+
 def check_flash_shapes():
     """Every shape of phase 7; returns the path shape's figures."""
     b = TOK_K * TOK_N
     figures = check_flash(b, 32, 4, TOK_S, TOK_S, 64, torch.bfloat16,
-                          "TinyLlama path (phase 1 = phase 2 folded)")
+                          TOK_PATH, time_bwd=True)
     if b != 16:
         check_flash(16, 32, 4, TOK_S, TOK_S, 64, torch.bfloat16,
                     "TinyLlama, 8 clients x 2", seed=1)
@@ -914,17 +1016,19 @@ def check_flash_shapes():
     check_flash(3, 8, 2, 100, 300, 32, torch.float32,
                 "ragged Sq 100 of Skv 300, window 70", window=70, seed=9)
     check_flash(1, 32, 4, 4096, 4096, 64, torch.bfloat16,
-                "TinyLlama heads over 4096 positions", seed=10)
+                "TinyLlama heads over 4096 positions", seed=10,
+                time_bwd=True, mem_gate=True)
     check_flash(b, 16, 8, 257, 257, 128, torch.bfloat16,
                 "(B, S, H, Dh) views, groups of 2", seed=11, view=True)
     return figures
 
 
 def check_flash_gradient():
-    """The autograd Function's backward (plain torch from the kernel's row
-    log-sum-exp) against autograd of the plain version, at the path's
-    shape in f32, through a weighted sum of the output; held to 1e-4 of
-    each gradient's largest magnitude (the two sum in other orders)."""
+    """The autograd Function's backward (the backward kernel from the
+    forward kernel's row log-sum-exp) against autograd of the plain
+    version, at the path's shape in f32, through a weighted sum of the
+    output; held to 1e-4 of each gradient's largest magnitude (the two sum
+    in other orders)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20)
     b, h, kvh, s, dh = TOK_K * TOK_N, 32, 4, TOK_S, 64
@@ -962,7 +1066,8 @@ def _read_counts():
             "fold": segment_sum.launches["fold"],
             "search": mips_topk.launches["search"],
             "offset": mips_topk.launches["offset"],
-            "flash": flash_attention.launches["forward"]}
+            "flash": flash_attention.launches["forward"],
+            "flash_bwd": flash_attention.launches["backward"]}
 
 
 def train_path(name, flags, rounds, expected, algorithm="dcco",
@@ -1731,9 +1836,11 @@ GRAD_TOL = 5e-2
 # a streamed chunk runs phase 1 (44) and phase 2 with the chunk's clients
 # folded into one launch a layer and view (44); a fused single step 44; a
 # microbatch of the microbatched step 44 in phase 1, then 44 in phase 2's
-# checkpointed forward and 44 again in its recompute for the backward
+# checkpointed forward and 44 again in its recompute for the backward.
+# Backward calls: 44 a chunk's phase 2, a single step, a microbatch.
 FLASH_CHUNK = 2 * 2 * TOK_LAYERS
 FLASH_MICRO = 3 * 2 * TOK_LAYERS
+FLASH_BWD = 2 * TOK_LAYERS
 
 
 def streamed_equivalence(device):
@@ -1831,7 +1938,7 @@ def fused_gradient_check(device):
             f"fused step gradient, micro {micro}",
             lambda: step.grads(params, batch),
             {"flash": (FLASH_MICRO * micro if micro > 1
-                       else 2 * TOK_LAYERS)})
+                       else 2 * TOK_LAYERS), "flash_bwd": FLASH_BWD * micro})
         counts.append(c)
         grads[micro] = (g, float(m["loss"]))
     g1, gm = grads[1][0], grads[FUSED_MICRO][0]
@@ -1908,7 +2015,8 @@ def streaming_and_modes(device, dcco_ref):
             f"tinyllama dcco streamed K={k}",
             [*tok, "--clients-per-round", str(k), "--cohort-chunk",
              str(TOK_CHUNK)], TOK_STREAM_ROUNDS,
-            {"flash": FLASH_CHUNK * (k // TOK_CHUNK) * TOK_STREAM_ROUNDS})
+            {"flash": FLASH_CHUNK * (k // TOK_CHUNK) * TOK_STREAM_ROUNDS,
+             "flash_bwd": FLASH_BWD * (k // TOK_CHUNK) * TOK_STREAM_ROUNDS})
         counts.append(c)
         peaks[k] = res["peak_gib"]
         release(res)
@@ -1918,7 +2026,8 @@ def streaming_and_modes(device, dcco_ref):
         f"tinyllama fused micro {FUSED_MICRO}",
         [*tok, "--clients-per-round", str(FUSED_K), "--mode", "fused",
          "--micro", str(FUSED_MICRO)], rounds,
-        {"flash": FLASH_MICRO * FUSED_MICRO * rounds})
+        {"flash": FLASH_MICRO * FUSED_MICRO * rounds,
+         "flash_bwd": FLASH_BWD * FUSED_MICRO * rounds})
     counts.append(c)
     peaks["fused"] = res["peak_gib"]
     release(res)
@@ -2170,7 +2279,8 @@ def deepseek_phase(device):
              str(TOK_S), "--samples-per-client", str(TOK_N),
              "--clients-per-round", str(DS_K), "--cohort-chunk",
              str(DS_CHUNK)], DS_ROUNDS,
-            {"flash": 2 * 2 * layers * (DS_K // DS_CHUNK) * DS_ROUNDS})
+            {"flash": 2 * 2 * layers * (DS_K // DS_CHUNK) * DS_ROUNDS,
+             "flash_bwd": 2 * layers * (DS_K // DS_CHUNK) * DS_ROUNDS})
         counts.append(c)
         if cfg.use_mla:
             mla_flash += c["flash"]
@@ -2199,12 +2309,12 @@ def deepseek_phase(device):
 # superblock (ZAMBA_CUT = 6 layers, widths kept): the whole 2.8B tower
 # at K = 4 would hold K f32 deltas and the server's state beside it,
 # where TinyLlama's 1.1B already peaks at ~58 GiB of the 80; xlstm-350m
-# cut to 4 of its 12 superblocks (XLSTM_CUT = 8 layers), as the whole
+# cut to 2 of its 12 superblocks (XLSTM_CUT = 4 layers), as the whole
 # tower's round (~11 s, its first ~31 s, the sLSTM loop) held the
 # script's time past half its limit.
 REC_ARCHS = ("zamba2-2.7b", "xlstm-350m")
 REC_B, REC_PROMPT, REC_DECODE = 4, 128, 16
-REC_K, REC_ROUNDS, ZAMBA_CUT, XLSTM_CUT = 4, 2, 6, 8
+REC_K, REC_ROUNDS, ZAMBA_CUT, XLSTM_CUT = 4, 2, 6, 4
 REC_CUTS = {"zamba2-2.7b": ZAMBA_CUT, "xlstm-350m": XLSTM_CUT}
 
 
@@ -2411,7 +2521,8 @@ def recurrent_phase(device):
         t0 = time.perf_counter()
         c, res = train_path(
             f"{arch} dcco, {cfg.num_layers} layers", flags, REC_ROUNDS,
-            {"flash": 2 * 2 * n_attn * REC_ROUNDS, "cross": REC_ROUNDS})
+            {"flash": 2 * 2 * n_attn * REC_ROUNDS,
+             "flash_bwd": 2 * n_attn * REC_ROUNDS, "cross": REC_ROUNDS})
         counts.append(c)
         dh80 += c["flash"]
         n = sum(x.numel() for x in utils.tree_leaves(res["params"]))
@@ -2574,8 +2685,8 @@ def fig1c_step(device):
     of internvl2-2b cut to MM_CUTS layers on the paper's cross-modal pair
     (Fig. 1c), the batch laid out by ``launch.inputs.train_input_specs``
     (view 1 text tokens, view 2 one token and the patch embeddings), in a
-    window of its own (flash once a layer and view; the backward
-    recomputes in plain torch), server Adam. Gates: a finite loss, and a
+    window of its own (flash forward and backward once a layer and view),
+    server Adam. Gates: a finite loss, and a
     nonzero, finite gradient of ``vis_proj`` (read from Adam's first
     moment, (1 - b1) g), which moved. Returns the window's counts."""
     cut = MM_CUTS["internvl2-2b"]
@@ -2605,7 +2716,8 @@ def fig1c_step(device):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     (new, state, metrics), counts = _window(
-        "fig1c step", lambda: step(params, state, batch), {"flash": 2 * cut})
+        "fig1c step", lambda: step(params, state, batch),
+        {"flash": 2 * cut, "flash_bwd": 2 * cut})
     ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     m = utils.tree_leaves(state["m"]["tower"]["vis_proj"])
@@ -2662,6 +2774,7 @@ def multimodal_phase(device):
              str(TOK_S), "--samples-per-client", str(TOK_N),
              "--clients-per-round", str(MM_K), "--stats-kernel", "fused"],
             MM_ROUNDS, {"flash": 2 * 2 * cut * MM_ROUNDS,
+                        "flash_bwd": 2 * cut * MM_ROUNDS,
                         "cross": MM_ROUNDS}, d_out=de.proj_dims[-1])
         counts.append(c)
         n = sum(x.numel() for x in utils.tree_leaves(res["params"]))
@@ -2849,7 +2962,8 @@ def sharded_step(device, mesh):
     """(b) of phase 15: one fused D-CCO step's gradient of the full-width
     TinyLlama-1.1B dual encoder over TOK_K clients x TOK_N sequences of
     TOK_S tokens, ``dcco_impl="shard_map"`` on the mesh against
-    ``"fused"`` without one, each in a window of its own (flash 2 a layer).
+    ``"fused"`` without one, each in a window of its own (flash forward and
+    backward 2 a layer).
     Returns the windows' counts."""
     cfg = get_config(TOK_ARCH)
     de_cfg = DualEncoderConfig(
@@ -2870,7 +2984,8 @@ def sharded_step(device, mesh):
         t0 = time.perf_counter()
         (g, metrics), c = _window(f"{impl} step gradient",
                                   lambda: step.grads(params, batch),
-                                  {"flash": 2 * TOK_LAYERS})
+                                  {"flash": 2 * TOK_LAYERS,
+                                   "flash_bwd": 2 * TOK_LAYERS})
         ms = (time.perf_counter() - t0) * 1e3
         counts.append(c)
         grads[impl] = (g, float(metrics["loss"]), ms, _collective_counts())
@@ -2986,12 +3101,13 @@ def sharded_phase(device):
 # no statistics function) launch nothing. The smoke token towers (2
 # layers, f32, Dh 32) take flash 2 a forward: dual_encoder_text's fused
 # step over 2 microbatches makes 12 a microbatch (phase 1, the
-# checkpointed forward and its recompute, 2 views), its two probes 2
-# each; serve_retrieval's index build 2 a chunk of 64, the queries 2, the
+# checkpointed forward and its recompute, 2 views) and 4 backwards a
+# microbatch, its two probes 2 forwards each; serve_retrieval's index build 2 a chunk of 64, the queries 2, the
 # drift probes 2 and 2 a refreshed block, the prefill 2, decode none.
 QS_ROUNDS, TEXT_ROUNDS, SMOKE_ROUNDS = 30, 40, 3
 SMOKE = ["--rounds", str(SMOKE_ROUNDS), "--dataset-size", "120"]
 TEXT_FLASH = 2 * 12 * TEXT_ROUNDS + 2 * 2
+TEXT_FLASH_BWD = 2 * 4 * TEXT_ROUNDS
 EXAMPLES = [
     ("quickstart", [], {"cross": QS_ROUNDS}),
     # dcco on each of the 3 splits
@@ -3014,7 +3130,8 @@ EXAMPLES = [
     # buffered run at K = cohort (which runs the sync body)
     ("federated_async", SMOKE, {"cross": SMOKE_ROUNDS + 2 * 3,
                                 "fold": 2 * 2 * SMOKE_ROUNDS}),
-    ("dual_encoder_text", [], {"flash": TEXT_FLASH}),
+    ("dual_encoder_text", [], {"flash": TEXT_FLASH,
+                               "flash_bwd": TEXT_FLASH_BWD}),
     # 256 docs in chunks of 64; warm-up and one batch of queries; 4 shards;
     # k-means of 8 iterations (sums and counts)
     ("serve_retrieval", [], lambda out: {
@@ -3245,7 +3362,8 @@ def _dry_line(rec):
             f"trace {rec['trace_s']} s, peak {m['peak_bytes'] / 2 ** 30:.3f} "
             f"GiB a device (arguments {m['argument_size_in_bytes']}, temp "
             f"{m['temp_size_in_bytes']}), {rec['flops_per_device']:.4e} "
-            f"FLOP (flash {rec['flash_calls']} calls), "
+            f"FLOP (flash {rec['flash_calls']} forward and "
+            f"{rec['flash_backward_calls']} backward calls), "
             f"{rec['bytes_per_device']:.4e} B, wire by axis {axes}; "
             f"compute {r['compute_s']:.4e} s, memory {r['memory_s']:.4e} "
             f"s, collectives {r['collective_s']:.4e} s: {r['dominant']}")
@@ -3382,10 +3500,11 @@ def _dry_real(device, cfg, de_cfg, opt, real_step, fake_rec, label):
         return out, calls, fc.get_total_flops()
 
     (out, calls, flops), counts = _window(
-        label, run, {"flash": fake_rec["flash_calls"]})
+        label, run, {"flash": fake_rec["flash_calls"],
+                     "flash_bwd": fake_rec["flash_backward_calls"]})
     peak = torch.cuda.max_memory_allocated() - base
     loss = float(out[2]["loss"])
-    real_flops = flops + sum(flash_mod.forward_flops(*c) for c in calls)
+    real_flops = flops + sum(flash_mod.call_flops(c) for c in calls)
     del out, params, state, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -3524,10 +3643,12 @@ def main():
     tok_flags = ["--arch", TOK_ARCH, "--seq-len", str(TOK_S),
                  "--clients-per-round", str(TOK_K),
                  "--samples-per-client", str(TOK_N)]
+    # phase 2's vmapped clients: one backward a layer and view
     counts, tok_dcco = train_path(
         "tinyllama dcco", [*tok_flags, "--stats-kernel", "fused"],
-        PATH_ROUNDS, {"flash": 2 * 2 * TOK_LAYERS * PATH_ROUNDS,
-                      "cross": PATH_ROUNDS})
+        TOK_ROUNDS, {"flash": 2 * 2 * TOK_LAYERS * TOK_ROUNDS,
+                     "flash_bwd": 2 * TOK_LAYERS * TOK_ROUNDS,
+                     "cross": TOK_ROUNDS})
     runs.append(counts)
     release(tok_dcco)
     gc.collect()
@@ -3535,21 +3656,23 @@ def main():
     # no phase 1: the two views' forwards of phase 2 alone, the K clients
     # folded into one launch a layer and view by the Function's vmap rule
     counts, tok_fedavg = train_path(
-        "tinyllama fedavg_contrastive", tok_flags, PATH_ROUNDS,
-        {"flash": 2 * TOK_LAYERS * PATH_ROUNDS}, "fedavg_contrastive")
+        "tinyllama fedavg_contrastive", tok_flags, TOK_ROUNDS,
+        {"flash": 2 * TOK_LAYERS * TOK_ROUNDS,
+         "flash_bwd": 2 * TOK_LAYERS * TOK_ROUNDS}, "fedavg_contrastive")
     runs.append(counts)
     release(tok_fedavg)
     gc.collect()
     torch.cuda.empty_cache()
-    # FedProx's two local steps: phase 1's 44 forwards, then 44 in each
-    # step of phase 2
+    # FedProx's two local steps: phase 1's 44 forwards, then 44 forwards
+    # and 44 backwards in each step of phase 2
     prox = ["--fedprox-mu", MU, "--local-steps", "2", "--client-lr",
             TOK_PROX_LR, "--stats-kernel", "fused"]
-    tok_expected = {"flash": 3 * 2 * TOK_LAYERS * PATH_ROUNDS,
-                    "cross": PATH_ROUNDS}
+    tok_expected = {"flash": 3 * 2 * TOK_LAYERS * TOK_ROUNDS,
+                    "flash_bwd": 2 * 2 * TOK_LAYERS * TOK_ROUNDS,
+                    "cross": TOK_ROUNDS}
     try:
         counts, tok_prox = train_path("tinyllama dcco fedprox",
-                                      [*tok_flags, *prox], PATH_ROUNDS,
+                                      [*tok_flags, *prox], TOK_ROUNDS,
                                       tok_expected)
     except torch.cuda.OutOfMemoryError:
         print(f"tinyllama dcco fedprox: out of memory at K={TOK_K}, last "
@@ -3560,7 +3683,7 @@ def main():
         torch.cuda.empty_cache()
         counts, tok_prox = train_path(
             "tinyllama dcco fedprox (K=2)",
-            [*tok_flags, *prox, "--clients-per-round", "2"], PATH_ROUNDS,
+            [*tok_flags, *prox, "--clients-per-round", "2"], TOK_ROUNDS,
             tok_expected)
     runs.append(counts)
     release(tok_prox)
@@ -3603,29 +3726,35 @@ def main():
     figures["fold"] = seg_figures["hierarchy deltas"]
     figures["search"] = mips_figures["training eval"]
     figures["offset"] = mips_figures["shard"]
+    figures["flash_bwd"] = FLASH_BWD_FIGURES[TOK_PATH]
     launches = {name: sum(c[name] for c in runs) for name in figures}
 
     rows = []
     for name, source, replaces in (
-            ("cross", "cco_stats.cu", "cco_stats.py:37"),
-            ("full", "cco_stats.cu", "cco_stats.py:74"),
-            ("per_row", "quantize.cu", "quantize.py:29"),
-            ("column", "quantize.cu", "quantize.py:36"),
-            ("fold", "segment_sum.cu", "segment_sum.py:35"),
-            ("search", "mips_topk.cu", "mips_topk.py:66"),
-            ("offset", "mips_topk.cu", "mips_topk.py:97"),
-            ("flash", "flash_attention.cu", "flash_attention.py:29")):
+            ("cross", "cco_stats.cu", "kernels/cco_stats.py:37"),
+            ("full", "cco_stats.cu", "kernels/cco_stats.py:74"),
+            ("per_row", "quantize.cu", "kernels/quantize.py:29"),
+            ("column", "quantize.cu", "kernels/quantize.py:36"),
+            ("fold", "segment_sum.cu", "kernels/segment_sum.py:35"),
+            ("search", "mips_topk.cu", "kernels/mips_topk.py:66"),
+            ("offset", "mips_topk.cu", "kernels/mips_topk.py:97"),
+            ("flash", "flash_attention.cu", "kernels/flash_attention.py:29"),
+            # no Pallas counterpart: the gradient of the reference's
+            # checkpointed online-softmax scan
+            ("flash_bwd", "flash_attention_bwd.cu",
+             "models/attention.py:56")):
         err, ms, plain_ms, lib_ms, (b_ms, b_by) = figures[name]
         kernel = {"cco_stats.cu": "cco_stats_" + name,
                   "quantize.cu": "quant_dequant_" + name,
                   "segment_sum.cu": "segment_sum",
                   "mips_topk.cu": {"search": "mips_topk",
                                    "offset": "mips_topk_offset"}.get(name),
-                  "flash_attention.cu": "flash_attention"}[source]
+                  "flash_attention.cu": "flash_attention",
+                  "flash_attention_bwd.cu": "flash_attention_bwd"}[source]
         rows.append({
             "name": kernel, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
-            "replaces": f"src/repro/kernels/{replaces}",
+            "replaces": f"src/repro/{replaces}",
             "launches": launches[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms})

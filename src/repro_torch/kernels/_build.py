@@ -25,7 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # every kernel source of the port, csrc/<name>.cu
 KERNELS = ("cco_stats", "quantize", "segment_sum", "mips_topk",
-           "flash_attention")
+           "flash_attention", "flash_attention_bwd")
 
 _libs: dict = {}          # name -> ctypes.CDLL, loaded once per process
 build_logs: dict = {}     # name -> nvcc's output (ptxas register/smem use)

@@ -28,10 +28,11 @@ watches the local ops each rank runs:
     counterpart (nothing is compiled).
   * ``flops_per_device``: the local ops' FLOPs by ``torch.utils.
     flop_counter``'s formulas (``FlopCounterMode``'s), plus the flash
-    kernel's forward (:func:`repro_torch.kernels.flash_attention.
-    forward_flops` over the shapes the wrapper records: a dispatch mode
-    cannot see inside the kernel). The ops counted are each rank's local
-    ones, not DTensor's global ones.
+    kernels' forward and backward (:func:`repro_torch.kernels.
+    flash_attention.forward_flops` and ``backward_flops`` over the calls
+    the wrapper records: a dispatch mode cannot see inside a kernel; a
+    traced backward only makes its outputs). The ops counted are each
+    rank's local ones, not DTensor's global ones.
   * ``bytes_per_device``: the sum of each local op's input and output
     bytes (views and allocations excluded). Nothing is fused, so it lies
     above XLA's "bytes accessed".
@@ -495,7 +496,7 @@ def trace_step(step, args, mesh) -> Dict[str, Any]:
         out = step(*args)
         out_bytes = local_bytes(out)
         n_out = len(_tensors(out))
-    flash = sum(flash_mod.forward_flops(*c) for c in calls)
+    flash = sum(flash_mod.call_flops(c) for c in calls)
     flops = tr.flops + flash
     coll = collective_stats(tr, mesh)
     return {
@@ -505,7 +506,9 @@ def trace_step(step, args, mesh) -> Dict[str, Any]:
                    "peak_bytes": arg_bytes + tr.peak,
                    "output_leaves": n_out},
         "flops_per_device": float(flops), "flash_flops": float(flash),
-        "flash_calls": len(calls), "bytes_per_device": float(tr.bytes),
+        "flash_calls": sum(c[0] == "forward" for c in calls),
+        "flash_backward_calls": sum(c[0] == "backward" for c in calls),
+        "bytes_per_device": float(tr.bytes),
         "collectives": coll,
         "roofline": roofline(flops, tr.bytes, coll, mesh),
     }

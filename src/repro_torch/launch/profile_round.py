@@ -56,6 +56,7 @@ from repro_torch.utils import resolve_device
 LAYERS = (
     ("cco_stats", "phase-1 statistics kernel (cco_stats)"),
     ("flash_fwd", "flash-attention kernel (flash_attention)"),
+    ("flash_bwd", "flash-attention backward kernel (flash_attention_bwd)"),
     # Hopper cuBLAS (nvjet), a gemm through xmma, and gemv are products;
     # cuDNN's implicit-gemm convolutions are named xmma_fprop/dgrad/wgrad
     ("nvjet", "matrix products (cuBLAS)"),

@@ -10,16 +10,19 @@ Tolerances. Forward: the reference's own, 2e-5 in f32 and 3e-2 in bf16
 other orders, and in bf16 the two round the output once each. Gradients
 and the GQA block: 1e-4 of the largest magnitude (atol and rtol), f32 on
 both sides; the port's backward takes the probabilities from the saved
-log-sum-exp in one pass, the reference differentiates its online-softmax
+log-sum-exp blockwise, the reference differentiates its online-softmax
 scan, so sums over 64-256 keys differ in order (a few ulps of O(1)
-values). A per-client loop against ``vmap`` in the port: 1e-5, the same
-arithmetic batched or not.
+values). The blockwise backward against the dense recompute it replaced,
+in f64: 1e-10 (the same products summed over other blocks). A
+per-client loop against ``vmap`` in the port: 1e-5, the same arithmetic
+batched or not.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.func import grad, grad_and_value, vmap
 
 from repro.configs.base import get_config as j_get_config
@@ -31,6 +34,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.launch.dryrun import Trace
 from repro_torch.models import attention
 
 # tier-1 runs 6 pytest workers on the machine's cores: one torch thread
@@ -163,8 +167,12 @@ def test_vmap_rule_folds_clients_into_one_call(monkeypatch):
 
     monkeypatch.setattr(ref, "flash_attention_ref", spy)
     before = dict(flash_attention.launches)
-    g, val = vmap(grad_and_value(loss), in_dims=(None, 0))(params, x)
+    with flash_mod.record_calls() as recorded:
+        g, val = vmap(grad_and_value(loss), in_dims=(None, 0))(params, x)
     assert calls == [(kk * n, h, s, dh)]
+    # one backward for all clients too, at the folded shape
+    assert recorded == [(kind, kk * n, h, s, s, dh, dh, True, 6)
+                        for kind in ("forward", "backward")]
     assert flash_attention.launches == before      # the CPU launches nothing
     for i in range(kk):
         gi = grad(loss)(params, x[i])
@@ -173,6 +181,193 @@ def test_vmap_rule_folds_clients_into_one_call(monkeypatch):
                                        atol=1e-6)
         torch.testing.assert_close(val[i], loss(params, x[i]), rtol=1e-5,
                                    atol=1e-7)
+
+
+# ------------------------------------------------------------ backward --
+
+# (sq, skv, causal, window): the queries are the last sq of skv positions
+BWD_MASKS = [(48, 48, True, 0), (48, 48, True, 20), (40, 96, True, 0),
+             (40, 96, False, 0)]
+
+
+def _j_scan(q, k, v, sq, skv, causal, window, scale):
+    """The reference's blockwise scan (kv blocks of 32) on (B, H, S, D)
+    operands; non-causal as positions that see every key."""
+    b = q.shape[0]
+    q_pos = (jnp.arange(skv - sq, skv) if causal
+             else jnp.full((sq,), skv - 1))
+    out = j_attn.blockwise_attention(
+        q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
+        v.transpose(0, 2, 1, 3), jnp.broadcast_to(q_pos[None], (b, sq)),
+        jnp.broadcast_to(jnp.arange(skv)[None], (b, skv)), window,
+        kv_block=32, scale=scale)
+    return out.transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("dqk,dv", flash_mod.HEAD_DIMS)
+@pytest.mark.parametrize("sq,skv,causal,window", BWD_MASKS)
+def test_plain_backward_matches_jax_grad_of_the_reference_scan(
+        dqk, dv, sq, skv, causal, window):
+    """The backward's plain version, through the Function (one kv block)
+    and called at kv blocks of 32, against ``jax.grad`` of the reference's
+    checkpointed scan, at every (Dqk, Dv) instance, in groups of 2, f32,
+    through a weighted sum of the output: 1e-4 of each gradient's largest
+    magnitude."""
+    b, h, kvh = 1, 4, 2
+    rng = np.random.RandomState(dqk + sq + window + causal)
+    q = rng.randn(b, h, sq, dqk).astype(np.float32)
+    k = rng.randn(b, kvh, skv, dqk).astype(np.float32)
+    v = rng.randn(b, kvh, skv, dv).astype(np.float32)
+    w = rng.randn(b, h, sq, dv).astype(np.float32)
+    scale = dqk ** -0.5
+
+    def j_loss(q, k, v):
+        return jnp.sum(_j_scan(q, k, v, sq, skv, causal, window, scale) * w)
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(*(jnp.asarray(x)
+                                                 for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (flash_attention(tq, tk, tv, causal=causal, window=window)
+     * torch.from_numpy(w)).sum().backward()
+    o, lse = ref.flash_attention_ref(tq.detach(), tk.detach(), tv.detach(),
+                                     causal=causal, window=window,
+                                     scale=scale, return_lse=True)
+    blocks = flash_mod.attention_backward(
+        tq.detach(), tk.detach(), tv.detach(), o, lse, torch.from_numpy(w),
+        causal, window, scale, kv_block=32)
+    for port in ((tq.grad, tk.grad, tv.grad), blocks):
+        for got, j in zip(port, want):
+            j = np.asarray(j)
+            np.testing.assert_allclose(got.numpy(), j, rtol=1e-4,
+                                       atol=1e-4 * float(np.abs(j).max()))
+
+
+def _dense_backward(q, k, v, o, lse, do, causal, window, scale):
+    """The dense recompute the blockwise backward replaced: every (Sq,
+    Skv) score, probability and gradient at once."""
+    b, h, sq, dh = q.shape
+    kvh, skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, sq, dh)
+    dog = do.reshape(b, kvh, g, sq, dv)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k) * scale
+    valid = ref.flash_attention_mask(sq, skv, causal, window, q.device)
+    s = torch.where(valid, s, torch.full_like(s, ref.NEG_INF))
+    p = torch.exp(s - lse.reshape(b, kvh, g, sq, 1))
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dog, v) - (
+        dog * o.reshape(b, kvh, g, sq, dv)).sum(-1, keepdim=True)) * scale
+    return (torch.einsum("bkgqs,bksd->bkgqd", ds, k).reshape(q.shape),
+            torch.einsum("bkgqs,bkgqd->bksd", ds, qg),
+            torch.einsum("bkgqs,bkgqd->bksd", p, dog))
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,skv,dqk,dv,causal,window", [
+    (2, 4, 2, 40, 100, 32, 32, True, 0),       # Sq < Skv, ragged blocks
+    (1, 4, 1, 70, 70, 64, 64, True, 17),       # a window, groups of 4
+    (1, 2, 2, 30, 90, 192, 128, False, 0),     # MLA's dims, non-causal
+    (1, 4, 2, 30, 90, 80, 80, False, 25),      # non-causal window
+])
+def test_blockwise_backward_equals_the_dense_recompute_in_f64(
+        b, h, kvh, sq, skv, dqk, dv, causal, window):
+    gen = torch.Generator().manual_seed(sq + skv)
+    q = torch.randn(b, h, sq, dqk, generator=gen, dtype=torch.float64)
+    k = torch.randn(b, kvh, skv, dqk, generator=gen, dtype=torch.float64)
+    v = torch.randn(b, kvh, skv, dv, generator=gen, dtype=torch.float64)
+    scale = dqk ** -0.5
+    o, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     scale=scale, return_lse=True)
+    do = torch.randn(o.shape, generator=gen, dtype=torch.float64)
+    args = (q, k, v, o, lse, do, causal, window, scale)
+    want = _dense_backward(*args)
+    for kv_block in (16, flash_mod.KV_BLOCK):
+        got = flash_mod.attention_backward(*args, kv_block=kv_block)
+        for a, w in zip(got, want):
+            assert a.dtype == torch.float64 and a.shape == w.shape
+            torch.testing.assert_close(a, w, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("b,h,kvh,s,dh", [(1, 8, 2, 2048, 64),
+                                           (1, 32, 4, 4096, 64)])
+def test_traced_backward_holds_no_score_block(b, h, kvh, s, dh):
+    """The gradient's memory shape: the dry run's trace of
+    ``torch.autograd.grad`` through the flash Function on fake tensors in
+    f32 peaks below one (B, H, Sq, Skv) f32 score block (128 MiB at (1, 8,
+    2, 2048, 64), where the dense recompute peaked at ~650 MiB; 2 GiB at
+    TinyLlama's heads over 4096 positions, ~10 GiB dense), and at or below
+    XLA:CPU's temp of ``jit(grad(...))`` of the reference's checkpointed
+    scan at that shape (kv blocks of 1024). Run with ``-s`` to print both."""
+    with FakeTensorMode():
+        q = torch.empty(b, h, s, dh, requires_grad=True)
+        k = torch.empty(b, kvh, s, dh, requires_grad=True)
+        v = torch.empty(b, kvh, s, dh, requires_grad=True)
+        w = torch.empty(b, h, s, dh)
+        with Trace(existing=[q, k, v, w]) as tr, \
+                flash_mod.record_calls() as calls:
+            out = flash_attention(q, k, v)
+            grads = torch.autograd.grad((out * w).sum(), (q, k, v))
+        assert [tuple(g.shape) for g in grads] == [
+            tuple(x.shape) for x in (q, k, v)]
+    assert [c[0] for c in calls] == ["forward", "backward"]
+
+    def j_loss(q, k, v, w):
+        pos = jnp.broadcast_to(jnp.arange(s)[None], (b, s))
+        return jnp.sum(j_attn.blockwise_attention(q, k, v, pos, pos) * w)
+
+    spec = [jax.ShapeDtypeStruct(shape, jnp.float32) for shape in (
+        (b, s, h, dh), (b, s, kvh, dh), (b, s, kvh, dh), (b, s, h, dh))]
+    ref_temp = jax.jit(jax.grad(j_loss, argnums=(0, 1, 2))).lower(
+        *spec).compile().memory_analysis().temp_size_in_bytes
+    print(f"({b}, {h}, {kvh}, {s}, {dh}) f32: traced backward peak "
+          f"{tr.peak} bytes; the reference's temp {ref_temp} bytes")
+    assert tr.peak < b * h * s * s * 4
+    assert tr.peak <= ref_temp
+
+
+def test_backward_flops_count_the_five_products_of_the_forward_tiles():
+    """``backward_flops`` visits the forward's (64, 64) tile pairs and
+    counts the gradient's five products on each: S and dP, dV and dK,
+    dQ; ``call_flops`` reads a recorded call of either kind."""
+    for shape in ((2, 3, 128, 128, 64, 64, False, 0),
+                  (1, 1, 256, 256, 64, 64, True, 0),
+                  (1, 1, 256, 256, 64, 64, True, 64),
+                  (2, 4, 100, 300, 192, 128, True, 70)):
+        b, h, sq, skv, dqk, dv, causal, window = shape
+        fwd = flash_mod.forward_flops(*shape)
+        bwd = flash_mod.backward_flops(*shape)
+        assert bwd * (dqk + dv) == fwd * (3 * dqk + 2 * dv)
+        assert flash_mod.call_flops(("forward", *shape)) == fwd
+        assert flash_mod.call_flops(("backward", *shape)) == bwd
+    # causal over 4 x 4 tiles of 64: 1 + 2 + 3 + 4 of the 16 visited
+    assert flash_mod.backward_flops(1, 1, 256, 256, 64, 64, True, 0) == \
+        10 * 2 * 64 * 64 * (3 * 64 + 2 * 64)
+
+
+def test_backward_on_a_shape_trace_only_makes_its_outputs():
+    """On meta tensors the backward reads no pointer and launches nothing:
+    dq, dk and dv of the inputs' shapes and type, laid out as (B, S,
+    heads, D) buffers seen as (B, heads, S, D)."""
+    b, h, kvh, sq, skv, dqk, dv = 2, 8, 2, 48, 80, 192, 128
+    q = torch.empty(b, h, sq, dqk, device="meta", dtype=torch.bfloat16)
+    k = torch.empty(b, kvh, skv, dqk, device="meta", dtype=torch.bfloat16)
+    v = torch.empty(b, kvh, skv, dv, device="meta", dtype=torch.bfloat16)
+    o = torch.empty(b, h, sq, dv, device="meta", dtype=torch.bfloat16)
+    lse = torch.empty(b, h, sq, device="meta")
+    before = dict(flash_attention.launches)
+    dq, dk, dvv = flash_mod.FlashAttentionBackward.apply(
+        q, k, v, o, lse, o, True, 0, dqk ** -0.5)
+    assert flash_attention.launches == before
+    for g, x in ((dq, q), (dk, k), (dvv, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert g.is_meta and g.transpose(1, 2).is_contiguous()
+
+
+def test_second_derivative_is_refused():
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv(1, 4, 2, 16, 16, 32, 4))
+    out = flash_attention(q, k, v)
+    gq, = torch.autograd.grad(out.square().sum(), q, create_graph=True)
+    with pytest.raises(RuntimeError, match="no second derivative"):
+        torch.autograd.grad(gq.sum(), q)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -213,11 +408,49 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch, tmp_path):
     assert flash_attention.launches == before
 
 
+def test_cuda_backward_never_reaches_the_plain_version(monkeypatch,
+                                                      tmp_path):
+    """The backward of a tensor the wrapper sees as a CUDA tensor goes to
+    the backward kernel; when the library cannot be built (no nvcc here)
+    it raises, and neither falls back to the plain version nor counts a
+    call."""
+    def no_plain(*a, **k):
+        raise AssertionError("plain backward called for a CUDA tensor")
+
+    monkeypatch.setattr(flash_mod, "attention_backward", no_plain)
+    monkeypatch.setattr(flash_mod, "_device_type", lambda t: "cuda")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build, "NVCC_FALLBACK", str(tmp_path / "nvcc"))
+    before = dict(flash_attention.launches)
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 4, 2, 8, 8, 32, 2))
+    lse = torch.zeros(1, 4, 8)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        flash_mod.FlashAttentionBackward.apply(q, k, v, q, lse, q, True, 0,
+                                               0.25)
+    with pytest.raises(ValueError, match="head dim 24"):
+        flash_mod._backward(q[..., :24], k[..., :24], v[..., :24],
+                            q[..., :24], lse, q[..., :24], True, 0, 0.25)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        flash_mod._backward(*(x.double() for x in (q, k, v, q)), lse,
+                            q.double(), True, 0, 0.25)
+    assert flash_attention.launches == before
+
+
 def test_library_name_tracks_the_source():
     assert "flash_attention" in _build.KERNELS
     path = _build.library_path("flash_attention")
     assert path.name.startswith("libflash_attention-") and path.suffix == ".so"
     assert (_build.CSRC / "flash_attention.cu").exists()
+
+
+def test_backward_library_is_built_beside_the_forward():
+    assert "flash_attention_bwd" in _build.KERNELS
+    path = _build.library_path("flash_attention_bwd")
+    assert path.name.startswith("libflash_attention_bwd-")
+    assert path.parent == _build.library_path("flash_attention").parent
+    assert (_build.CSRC / "flash_attention_bwd.cu").exists()
 
 
 # ------------------------------------------------------------- GQA block --

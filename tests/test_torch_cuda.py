@@ -21,12 +21,19 @@ equals unsharded and one run equals the next, bit for bit. The flash
 attention kernel computes in f32 from the same inputs as its plain
 version, in other orders: f32 outputs to 2e-5, bf16 outputs (rounded once
 on each side) to 3e-2, the row log-sum-exp to 2e-5 (1 + |lse|); its
-gradient (plain torch from the kernel's log-sum-exp) to 1e-4 of each
-gradient's magnitude against autograd of the plain version."""
+gradient (the backward kernel from the kernel's log-sum-exp) to 1e-4 of
+each gradient's magnitude against autograd of the plain version. The
+backward kernel against its plain version (the blockwise recompute) on
+the same inputs, output and log-sum-exp: both compute in f32 in other
+orders, so dq, dk and dv to 1e-4 (f32) or 2^-7 (bf16, rounded once on
+each side: 1 bf16 ulp is 2^-8) of the largest of the three gradients'
+magnitudes (where a mask leaves a row one key, dq and dk vanish and
+both hold rounding only), and bit-equal on a second run."""
 import pytest
 import torch
 
 from repro_torch.core.round_engine import make_kernel_agg_stats
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels.cco_stats import cco_stats
 from repro_torch.kernels.flash_attention import (FlashAttention,
@@ -353,7 +360,8 @@ def test_flash_kernel_refuses_an_unbuilt_head_dim(cuda_device):
                                            (False, 0)])
 def test_flash_gradient_on_card(cuda_device, causal, window):
     """The Function's backward against autograd of the plain version, and
-    under ``vmap(grad)`` one launch for all clients."""
+    under ``vmap(grad)`` one forward and one backward call for all
+    clients."""
     q, k, v = _qkv(cuda_device, 4, 8, 2, 96, 96, 64, torch.float32, 3)
     w = torch.randn(q.shape, device=cuda_device)
     grads = []
@@ -368,11 +376,13 @@ def test_flash_gradient_on_card(cuda_device, causal, window):
         return (flash_attention(qc, kc, vc, causal=causal, window=window)
                 ** 2).sum()
 
-    before = flash_attention.launches["forward"]
+    before = dict(flash_attention.launches)
     g = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(
         q.reshape(2, 2, 8, 96, 64), k.reshape(2, 2, 2, 96, 64),
         v.reshape(2, 2, 2, 96, 64))
-    assert flash_attention.launches["forward"] == before + 1
+    # one forward and one backward call for both clients
+    assert flash_attention.launches == {"forward": before["forward"] + 1,
+                                        "backward": before["backward"] + 1}
     for i in range(2):
         gi = torch.func.grad(loss, argnums=(0, 1, 2))(
             q[2 * i:2 * i + 2], k[2 * i:2 * i + 2], v[2 * i:2 * i + 2])
@@ -492,7 +502,8 @@ def test_flash_kernel_head_dim_80(cuda_device, b, h, kvh, sq, skv, dtype,
 @pytest.mark.cuda
 def test_flash_mla_gradient_and_vmap_on_card(cuda_device):
     """At (192, 128) in f32: the Function's backward against autograd of
-    the plain version, and ``vmap(grad)`` over 2 clients in one launch."""
+    the plain version, and ``vmap(grad)`` over 2 clients in one forward
+    and one backward call."""
     gen = torch.Generator(device=cuda_device).manual_seed(11)
     q = torch.randn(4, 4, 64, 192, generator=gen, device=cuda_device)
     k = torch.randn(4, 4, 64, 192, generator=gen, device=cuda_device)
@@ -509,10 +520,11 @@ def test_flash_mla_gradient_and_vmap_on_card(cuda_device):
     def loss(qc, kc, vc):
         return (flash_attention(qc, kc, vc) ** 2).sum()
 
-    before = flash_attention.launches["forward"]
+    before = dict(flash_attention.launches)
     g = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(
         *(x.reshape(2, 2, *x.shape[1:]) for x in (q, k, v)))
-    assert flash_attention.launches["forward"] == before + 1
+    assert flash_attention.launches == {"forward": before["forward"] + 1,
+                                        "backward": before["backward"] + 1}
     assert g[2].shape == (2, 2, 4, 64, 128)
 
 
@@ -710,3 +722,113 @@ def test_mips_score_is_position_independent(cuda_device, dtype):
         assert bool((got_v == got_v[0]).all())
         seen.add(float(got_v[0]))
     assert len(seen) == 1
+
+
+# ------------------------------------------------ the backward kernel --
+
+def _bwd_check(q, k, v, causal, window, seed):
+    """The backward kernel against its plain version on the kernel's own
+    output and log-sum-exp and a random output gradient (the tolerances of
+    the module docstring), bit-equal on a second run, one call each."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = FlashAttention.apply(q, k, v, causal, window, scale)
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    do = torch.randn(out.shape, generator=gen, device=q.device).to(q.dtype)
+    args = (q, k, v, out, lse, do, causal, window, scale)
+    before = flash_attention.launches["backward"]
+    got = flash_mod._backward(*args)
+    again = flash_mod._backward(*args)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["backward"] == before + 2
+    plain = flash_mod.attention_backward(*args)
+    top = max(float(p.float().abs().max()) for p in plain)
+    tol = 1e-4 if q.dtype == torch.float32 else 2.0 ** -7
+    for g, a, p, x in zip(got, again, plain, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype and g.is_cuda
+        assert float((g.float() - p.float()).abs().max()) <= tol * top
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", [(32, 32), (64, 64), (80, 80),
+                                    (128, 128), (192, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (100, 100, True, 0),       # causal, a ragged S
+    (65, 200, False, 0),       # non-causal, Sq < Skv
+    (129, 129, True, 40),      # a window
+    (37, 101, False, 20),      # non-causal window, ragged tiles
+])
+def test_flash_backward_kernel_every_instance_and_mask(
+        cuda_device, dqk, dv, dtype, sq, skv, causal, window):
+    gen = torch.Generator(device=cuda_device).manual_seed(dqk + sq)
+    b, h, kvh = 2, 8, 2
+    q = torch.randn(b, h, sq, dqk, generator=gen, device=cuda_device)
+    k = torch.randn(b, kvh, skv, dqk, generator=gen, device=cuda_device)
+    v = torch.randn(b, kvh, skv, dv, generator=gen, device=cuda_device)
+    _bwd_check(*(x.to(dtype) for x in (q, k, v)), causal, window, sq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,dh,h,kvh,causal,window", [
+    (1, 1, 64, 8, 8, True, 0),          # S 1: dq and dk vanish
+    (15, 15, 32, 8, 4, True, 0),
+    (63, 63, 128, 16, 2, True, 0),      # groups of 8
+    (65, 65, 64, 8, 1, True, 0),        # one row past a tile, groups of 8
+    (129, 129, 128, 8, 4, True, 1),     # window 1: the diagonal alone
+    (200, 200, 64, 8, 8, True, 256),    # window >= S
+    (15, 129, 64, 8, 2, True, 0),       # Sq < Skv
+    (1, 200, 32, 8, 1, True, 0),        # one query over 200 kv rows
+    (128, 128, 64, 32, 4, True, 0),     # TinyLlama's heads
+])
+def test_flash_backward_kernel_tile_edges(cuda_device, sq, skv, dh, h, kvh,
+                                          causal, window):
+    q, k, v = _qkv(cuda_device, 2, h, kvh, sq, skv, dh, torch.bfloat16,
+                   sq * 3 + skv)
+    _bwd_check(q, k, v, causal, window, skv)
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernel_reads_strided_operands(cuda_device):
+    """(B, S, H, Dh) views as the model hands them, an output gradient
+    broadcast over (b, h, s) (strides 0, read in place), one broadcast
+    from a scalar (copied) and one of another type: the same gradients as
+    from contiguous copies, bit for bit; dq, dk and dv come as (B, S,
+    heads, D) buffers seen as (B, heads, S, D)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    b, s, h, kvh, dh = 2, 70, 8, 2, 64
+    q, k, v = (torch.randn(b, s, n, dh, generator=gen, device=cuda_device)
+               .to(torch.bfloat16).transpose(1, 2) for n in (h, kvh, kvh))
+    out, lse = FlashAttention.apply(q, k, v, True, 0, dh ** -0.5)
+    row = torch.randn(dh, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    one = torch.ones((), device=cuda_device).to(torch.bfloat16)
+    for do in (row.expand(out.shape), one.expand(out.shape),
+               row.expand(out.shape).float()):
+        got = flash_mod._backward(q, k, v, out, lse, do, True, 0,
+                                  dh ** -0.5)
+        want = flash_mod._backward(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            out.contiguous(), lse, do.to(torch.bfloat16).contiguous(),
+            True, 0, dh ** -0.5)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w) and g.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.cuda
+def test_flash_backward_memory_is_its_outputs(cuda_device):
+    """TinyLlama's heads over 4096 positions in bf16: the backward's peak
+    above its inputs is dq, dk, dv and the (B, H, Sq) f32 delta, and 64
+    MiB at most beside them (the dense recompute held ~10 GB)."""
+    q, k, v = _qkv(cuda_device, 1, 32, 4, 4096, 4096, 64, torch.bfloat16, 4)
+    out, lse = FlashAttention.apply(q, k, v, True, 0, 0.125)
+    do = torch.randn_like(out)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = flash_mod._backward(q, k, v, out, lse, do, True, 0, 0.125)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    need = sum(g.numel() * g.element_size() for g in grads) + 4 * lse.numel()
+    assert peak <= need + (64 << 20)

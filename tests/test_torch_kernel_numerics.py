@@ -19,13 +19,22 @@ tolerances before the card runs them: MIPS scores within MIPS_TOL = 1e-5
 of the f32 plain version, P . V within the f32 tolerance 2e-5 of an f32
 P . V, the statistics within STATS_TOL x (1 + max|plain|). Each test also
 shows the cheaper form the kernel does not take failing the same bound.
+
+The attention backward kernel runs on the CUDA cores in f32; what it
+decides is which (64-row query tile, 64-row kv tile) pairs each of its
+two passes visits. Its index arithmetic is mirrored here: both passes
+visit the same pairs, every valid score lies in one, and ``_tiles``
+(which ``backward_flops`` counts) counts them; its f32 tile sums are
+emulated against an f64 gradient to fix its card tolerance (1e-4 of the
+largest gradient).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, _aligned,
-                                                 _in_place)
+                                                 _in_place, _tiles)
 from repro_torch.kernels.mips_topk import (FULL_TILE_K, MAX_SPLITS,
                                            ROWS_PER_TILE, plan)
 
@@ -374,3 +383,119 @@ def test_flash_wrapper_reads_model_views_in_place(dh, dtype):
     y, st = _in_place(off)
     assert off.data_ptr() % 16 and y.data_ptr() % 16 == 0
     assert torch.equal(y, off) and st == y.stride()[:3] == off.stride()[:3]
+
+
+# ------------------------------------------ the backward kernel's tiles --
+
+BWD_TILE = 64            # csrc/flash_attention_bwd.cu: BM = BN = 64
+FLASH_BWD_F32_TOL = 1e-4  # chip_smoke.py: of the largest f32 gradient
+
+
+def _bwd_pairs(sq, skv, causal, window):
+    """The (query tile, kv tile) pairs of each pass of the backward
+    kernel, by its index arithmetic: the kv-tile pass (flash_bwd_dkdv)
+    from the query tile of the first causal row to the last row whose
+    window reaches the kv tile; the query-tile pass (flash_bwd_dq) from
+    the kv tile of the first row's window start to the last row's causal
+    end."""
+    t, q_offset = BWD_TILE, skv - sq
+    kv_pass, q_pass = [], []
+    for kt in range(-(-skv // t)):
+        j0 = kt * t
+        nj = min(t, skv - j0)
+        i_lo = (max(0, j0 - q_offset) if causal else 0) // t * t
+        i_hi = (min(sq, j0 + nj - 1 + window - q_offset) if window > 0
+                else sq)
+        kv_pass += [(i0 // t, kt) for i0 in range(i_lo, i_hi, t)]
+    for qt in range(-(-sq // t)):
+        i0 = qt * t
+        ni = min(t, sq - i0)
+        kv_lo = (max(0, q_offset + i0 - window + 1) if window > 0
+                 else 0) // t * t
+        kv_hi = q_offset + i0 + ni if causal else skv
+        q_pass += [(qt, j0 // t) for j0 in range(kv_lo, kv_hi, t)]
+    return kv_pass, q_pass
+
+
+@pytest.mark.parametrize("sq,skv", [(1, 1), (64, 64), (65, 65), (100, 100),
+                                    (128, 128), (15, 129), (37, 101),
+                                    (65, 200), (200, 200), (100, 300),
+                                    (257, 257)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 1),
+                                           (True, 40), (True, 256),
+                                           (False, 0), (False, 20)])
+def test_backward_passes_visit_every_valid_tile_once(sq, skv, causal,
+                                                    window):
+    kv_pass, q_pass = _bwd_pairs(sq, skv, causal, window)
+    assert len(set(kv_pass)) == len(kv_pass)
+    assert sorted(kv_pass) == sorted(q_pass)
+    valid = ref.flash_attention_mask(sq, skv, causal, window, "cpu")
+    t = BWD_TILE
+    needed = {(i // t, j // t) for i, j in valid.nonzero().tolist()}
+    assert needed <= set(kv_pass)
+    assert len(kv_pass) == _tiles(sq, skv, causal, window)
+
+
+def _bwd_f32_emulated(q, k, v, o, lse, do, causal, window, scale):
+    """(dq, dk, dv) as the kernel sums them, in f32: each visited tile
+    pair's P, dP and dS from f32 products, dK and dV summed over the
+    group's heads and then the query tiles of each head, dQ over the kv
+    tiles. One (batch) element; q (H, Sq, Dqk), k (KVH, Skv, Dqk)."""
+    h, sq, _ = q.shape
+    kvh, skv, _ = k.shape
+    g, t = h // kvh, BWD_TILE
+    valid = ref.flash_attention_mask(sq, skv, causal, window, "cpu")
+    delta = (do * o).sum(-1)
+    kv_pass, q_pass = _bwd_pairs(sq, skv, causal, window)
+
+    def tile(hh, qt, kt):
+        i, j = slice(qt * t, qt * t + t), slice(kt * t, kt * t + t)
+        kh = hh // g
+        s = q[hh, i] @ k[kh, j].T
+        p = torch.where(valid[i, j], torch.exp(s * scale - lse[hh, i, None]),
+                        torch.zeros(()))
+        ds = p * (do[hh, i] @ v[kh, j].T - delta[hh, i, None]) * scale
+        return i, j, kh, p, ds
+
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    by_kv = sorted(kv_pass, key=lambda pair: pair[1])
+    for kh in range(kvh):
+        for hh in range(kh * g, kh * g + g):
+            for qt, kt in by_kv:
+                i, j, _, p, ds = tile(hh, qt, kt)
+                dv[kh, j] += p.T @ do[hh, i]
+                dk[kh, j] += ds.T @ q[hh, i]
+    for hh in range(h):
+        for qt, kt in q_pass:
+            i, j, kh, _, ds = tile(hh, qt, kt)
+            dq[hh, i] += ds @ k[kh, j]
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("dqk,dv", HEAD_DIMS)
+@pytest.mark.parametrize("sq,skv,causal,window", [(100, 100, True, 0),
+                                                  (65, 200, False, 0),
+                                                  (129, 129, True, 40)])
+def test_backward_f32_tiles_within_a_tenth_of_the_tolerance(
+        dqk, dv, sq, skv, causal, window):
+    """The kernel's f32 sums against the f64 gradient, on unit-normal
+    operands in groups of 2 (as the card's checks draw them): within a
+    tenth of FLASH_BWD_F32_TOL of the largest gradient, so the card's
+    tolerance leaves room for the kernel's own summation order."""
+    gen = torch.Generator().manual_seed(dqk + sq)
+    h, kvh = 4, 2
+    q = torch.randn(h, sq, dqk, generator=gen, dtype=torch.float64)
+    k = torch.randn(kvh, skv, dqk, generator=gen, dtype=torch.float64)
+    v = torch.randn(kvh, skv, dv, generator=gen, dtype=torch.float64)
+    scale = dqk ** -0.5
+    o, lse = ref.flash_attention_ref(q[None], k[None], v[None],
+                                     causal=causal, window=window,
+                                     scale=scale, return_lse=True)
+    o, lse = o[0], lse[0]
+    do = torch.randn(o.shape, generator=gen, dtype=torch.float64)
+    want = _bwd_f32_emulated(q, k, v, o, lse, do, causal, window, scale)
+    got = _bwd_f32_emulated(*(x.float() for x in (q, k, v, o, lse, do)),
+                            causal, window, scale)
+    top = max(float(w.abs().max()) for w in want)
+    err = max(float((a.double() - w).abs().max()) for a, w in zip(got, want))
+    assert err <= FLASH_BWD_F32_TOL / 10 * top

@@ -2,6 +2,7 @@
 """Time the flash-attention kernel (``flash_attention``) on one GPU.
 
   python3 tools/time_flash.py [--src DIR] [--only LABEL,...] [--host]
+                              [--backward] [--trace]
 
 For each shape (every flash shape ``PERF.md`` tracks, then TinyLlama's
 heads at B = 1 over 4096 and 32768 positions) it prints the kernel's error
@@ -19,7 +20,16 @@ to compare the two. ``--host`` times instead the host's cost of one call
 at the TinyLlama path's shape: microseconds a call of the wrapper's
 forward (on contiguous operands and on (B, S, H, Dh) views) and of the
 differentiable call, on the host clock over back-to-back calls that the
-card finishes faster than the host issues them. Needs a CUDA device.
+card finishes faster than the host issues them. ``--backward`` times
+instead, at each shape, the backward of ``flash_attention`` (whatever
+the checkout's autograd Function runs: the backward kernel, or a parent's
+plain-torch recompute) beside the backward of one SDPA call, each with
+its forward outside the timed region (``backward_ms``), and the
+backward's bound. Needs a CUDA device, but for ``--trace``: the peak
+bytes of ``launch/dryrun.Trace`` over one forward and
+``torch.autograd.grad`` through ``flash_attention`` on fake tensors
+(TRACE_SHAPES; counted from shapes on the CPU, no device time), the
+memory shape of the checkout's gradient.
 """
 import argparse
 import json
@@ -50,6 +60,10 @@ SHAPES = [
     ("tinyllama 32k", 1, 32, 4, 32768, 32768, 64, 64, BF16),
 ]
 PLAIN_BYTES = 8 << 30      # the plain version's scores above this: not run
+# (B, H, KVH, S, Dh, type) of --trace: a (B, H, S, S) f32 block is 128 MiB
+# at the first, TinyLlama's heads over 4096 positions after it
+TRACE_SHAPES = [(1, 8, 2, 2048, 64, F32), (1, 32, 4, 4096, 64, F32),
+                (1, 32, 4, 4096, 64, BF16)]
 
 
 def flash_bound_ms(q, k, v, valid, peak=None):
@@ -69,6 +83,72 @@ def flash_bound_ms(q, k, v, valid, peak=None):
     t_bytes, t_ops = moved / hw.PEAK_BYTES, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def flash_bwd_bound_ms(q, k, v, causal=True, window=0, peak=None):
+    """(ms, "bytes" or "operations") of the backward: q, k, v, the output,
+    its gradient and the f32 row log-sum-exp read once, dq, dk and dv
+    written once, against the five products of the gradient over the
+    valid (64, 64) tile pairs (``flash_attention.backward_flops``), at
+    ``peak`` (by default the tensor-core peak of the inputs' type: bf16,
+    or TF32 for f32)."""
+    from repro_torch.kernels.flash_attention import backward_flops
+    from repro_torch.launch.mesh import HardwareSpec as hw
+    if peak is None:
+        peak = hw.PEAK_BF16 if q.dtype == BF16 else hw.PEAK_TF32
+    b, h, sq, dh = q.shape
+    skv, dv = k.shape[2], v.shape[3]
+    moved = (2 * (q.numel() + k.numel() + v.numel() + b * h * sq * dv)
+             * q.element_size() + 4 * b * h * sq)
+    ops = backward_flops(b, h, sq, skv, dh, dv, causal, window)
+    t_bytes, t_ops = moved / hw.PEAK_BYTES, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def sdpa_backward_ms(q, k, v, mask, calls, replays):
+    """Device ms of the backward of one ``scaled_dot_product_attention(q,
+    k, v, enable_gqa=True, **mask)`` (``backward_ms``); None where no SDPA
+    backend takes the shapes or its backward cannot be captured."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return backward_ms(lambda *x: sdpa(*x, enable_gqa=True, **mask), q, k, v,
+                       calls, replays, "sdpa backward")
+
+
+def backward_ms(fn, q, k, v, calls, replays, label="backward"):
+    """Device ms of the backward of ``fn(q, k, v)``, its forward outside
+    the timed region: the forward runs once on a side stream, then
+    ``calls`` calls of ``torch.autograd.grad`` through it are captured in
+    a CUDA graph on that stream (the backward's ops run on their
+    forward's stream) and replayed ``replays`` times between CUDA events.
+    None (printed) where the call or its capture raises."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    try:
+        with torch.cuda.stream(side):
+            out = fn(*leaves)
+            grad = torch.randn_like(out)
+            for _ in range(3):
+                torch.autograd.grad(out, leaves, grad, retain_graph=True)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(calls):
+                torch.autograd.grad(out, leaves, grad, retain_graph=True)
+    except RuntimeError as e:
+        print(f"{label}: {str(e).splitlines()[0][:160]}", flush=True)
+        torch.cuda.current_stream().wait_stream(side)
+        return None
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def nvidia_smi():
@@ -141,6 +221,64 @@ def time_shape(label, b, h, kvh, sq, skv, dqk, dv, dtype):
     return row
 
 
+def time_backward(label, b, h, kvh, sq, skv, dqk, dv, dtype):
+    """The backward at one shape: the checkout's flash backward and SDPA's,
+    causal, no window; the bound where the checkout counts the backward's
+    FLOPs. The parent's dense recompute is not run where its (B, H, Sq,
+    Skv) f32 scores pass PLAIN_BYTES."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(sq * 7 + dqk)
+    q, k, v = (torch.randn(b, n, s, d, generator=gen, device=dev).to(dtype)
+               for n, s, d in ((h, sq, dqk), (kvh, skv, dqk), (kvh, skv, dv)))
+    big = sq >= 4096
+    calls, replays = (1, 2) if sq >= 32768 else (2, 3) if big else (20, 10)
+    dense = not hasattr(fa, "backward_flops")
+    ms = None
+    if not dense or b * h * sq * skv * 4 <= PLAIN_BYTES:
+        ms = backward_ms(lambda *x: fa.flash_attention(*x), q, k, v, calls,
+                         replays, f"flash backward at {label}")
+    mask = ({"is_causal": True} if sq == skv else {"attn_mask":
+            torch.ones(sq, skv, dtype=torch.bool, device=dev).tril(
+                skv - sq)})
+    lib_ms = sdpa_backward_ms(q, k, v, mask, calls, replays)
+    bound = by = None
+    if not dense:
+        bound, by = flash_bwd_bound_ms(q, k, v)
+    row = {"label": label, "b": b, "h": h, "kvh": kvh, "sq": sq, "skv": skv,
+           "dqk": dqk, "dv": dv, "dtype": str(dtype).replace("torch.", ""),
+           "route": "plain-torch recompute" if dense else "backward kernel",
+           "backward_ms": ms, "sdpa_backward_ms": lib_ms, "bound_ms": bound,
+           "bound_by": by}
+    fmt = (lambda x: "none" if x is None else f"{x:.5f}")
+    print(f"flash backward {label} B={b} H={h} KVH={kvh} Sq={sq} Skv={skv} "
+          f"D=({dqk}, {dv}) {row['dtype']} ({row['route']}): {fmt(ms)} ms, "
+          f"sdpa backward {fmt(lib_ms)}, bound {fmt(bound)} ({by}); "
+          f"backward / sdpa "
+          f"{fmt(None if ms is None or lib_ms is None else ms / lib_ms)}",
+          flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def trace_peak(b, h, kvh, s, dh, dtype):
+    """Peak bytes that ``dryrun.Trace`` counts above the operands and the
+    output's weights over ``flash_attention(q, k, v)`` and
+    ``torch.autograd.grad`` of its weighted sum, on fake CPU tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.dryrun import Trace
+    with FakeTensorMode():
+        q, k, v = (torch.empty(b, n, s, dh, dtype=dtype, requires_grad=True)
+                   for n in (h, kvh, kvh))
+        w = torch.empty(b, h, s, dh, dtype=dtype)
+        with Trace(existing=[q, k, v, w]) as tr:
+            out = flash_attention(q, k, v)
+            torch.autograd.grad((out * w).sum(), (q, k, v))
+    return tr.peak
+
+
 def host_us(fn, calls=2000, runs=5):
     """(median, min) over ``runs`` of the host's microseconds a call of
     ``fn``, ``calls`` calls back to back, the card synchronised between
@@ -191,27 +329,46 @@ def main():
                     help="comma-separated labels; default: every shape")
     ap.add_argument("--host", action="store_true",
                     help="time the host's cost of a call, not the shapes")
+    ap.add_argument("--backward", action="store_true",
+                    help="time the backward at each shape beside SDPA's")
+    ap.add_argument("--trace", action="store_true",
+                    help="the traced gradient's peak bytes (no device)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
+    if args.trace:
+        rows = []
+        for shape in TRACE_SHAPES:
+            peak = trace_peak(*shape)
+            rows.append({"shape": list(shape[:5]), "dtype": str(
+                shape[5]).replace("torch.", ""), "peak_bytes": peak})
+            print(f"traced forward + backward {shape[:5]} "
+                  f"{rows[-1]['dtype']}: peak {peak} bytes "
+                  f"({peak / 2 ** 20:.2f} MiB)", flush=True)
+        print(json.dumps({"trace": rows, "src": args.src}), flush=True)
+        return
     from repro_torch.kernels import _build
     if not torch.cuda.is_available():
         sys.exit("time_flash: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"{nvidia_smi()}; kernel from {args.src}", flush=True)
-    _build.build(["flash_attention"])
-    print(f"nvcc {_build.build_seconds.get('flash_attention', 0.0):.1f} s "
-          f"(0 if built before)", flush=True)
-    for line in _build.build_logs.get("flash_attention", "").splitlines():
-        if any(w in line for w in ("Compiling entry", "registers", "spill")):
-            print(f"ptxas: {line.strip()}", flush=True)
+    names = [n for n in ("flash_attention", "flash_attention_bwd")
+             if n in _build.KERNELS]
+    _build.build(names)
+    print(f"nvcc {_build.build_seconds} s (none if built before)",
+          flush=True)
+    for name in names:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill")):
+                print(f"ptxas {name}: {line.strip()}", flush=True)
     if args.host:
         print(json.dumps({"host_us": time_host(), "src": args.src,
                           "device": torch.cuda.get_device_name(0)}),
               flush=True)
         return
     only = {x.strip() for x in args.only.split(",") if x.strip()}
-    rows = [time_shape(*shape) for shape in SHAPES
-            if not only or shape[0] in only]
+    rows = [(time_backward if args.backward else time_shape)(*shape)
+            for shape in SHAPES if not only or shape[0] in only]
     print(json.dumps({"flash": rows, "src": args.src,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
 
