@@ -66,8 +66,9 @@ Phases (each prints its lines; any failure exits non-zero):
      (``csrc/flash_attention_bwd.cu``) against its plain version, the
      blockwise recompute (dq, dk and dv to FLASH_BWD_TOL of the largest
      gradient, a second run bit-equal), timed beside it and SDPA's
-     backward at the path's shape and over 4096 positions, where its peak
-     memory above its inputs is gated (FLASH_BWD_SLACK); the gradient of
+     backward at the path's shape, over 4096 positions, where its peak
+     memory above its inputs is gated (FLASH_BWD_SLACK), and (phase 12)
+     at MLA's (192, 128) prefill shape in bf16; the gradient of
      the autograd Function against autograd of the plain version at the
      path's shape in f32; then, after the serving phase's memory is
      released, D-CCO training of the full-width TinyLlama-1.1B token dual
@@ -928,7 +929,7 @@ def check_flash(b, h, kvh, sq, skv, dh, dtype, label, *, causal=True,
 
 def check_flash_backward(q, k, v, out, lse, causal, window, scale, label,
                          seed, *, time_it=False, mem_gate=False):
-    """The backward kernel (``flash_attention._backward``: three launches)
+    """The backward kernel (``flash_attention._backward``: 2-4 launches)
     against its plain version (``attention_backward``) on the same q, k, v,
     output, row log-sum-exp and a random output gradient: dq, dk and dv to
     FLASH_BWD_TOL of the largest gradient, a second run bit-equal. With
@@ -2257,10 +2258,10 @@ def deepseek_phase(device):
     torch.cuda.empty_cache()
     mla = get_config("deepseek-v2-lite-16b")
     dqk = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    mla_label = "MLA prefill (deepseek-v2-lite-16b)"
     figures = check_flash(DS_B, mla.num_heads, mla.num_heads, DS_PROMPT,
-                          DS_PROMPT, dqk, torch.bfloat16,
-                          "MLA prefill (deepseek-v2-lite-16b)", seed=40,
-                          dv=mla.v_head_dim)
+                          DS_PROMPT, dqk, torch.bfloat16, mla_label,
+                          seed=40, dv=mla.v_head_dim, time_bwd=True)
     check_flash(2, 8, 8, 100, 100, dqk, torch.float32, "MLA dims, f32",
                 seed=41, dv=mla.v_head_dim)
     counts, mla_flash = [], 0
@@ -2293,11 +2294,15 @@ def deepseek_phase(device):
         f"{a} {n / 1e9:.3f}B parameters, peak {g:.2f} GiB"
         for a, (g, n) in peaks.items()), flush=True)
     err, ms, plain_ms, lib_ms, (b_ms, b_by) = figures
+    _, bwd_ms, bwd_plain_ms, bwd_lib_ms, (bb_ms, bb_by) = \
+        FLASH_BWD_FIGURES[mla_label]
+    fmt = (lambda x: "none" if x is None else f"{x:.5f} ms")
     print(f"flash (Dqk {dqk}, Dv {mla.v_head_dim}) at MLA's prefill shape: "
           f"kernel {ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}), sdpa "
-          f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms'}, plain "
-          f"{plain_ms:.5f} ms; launches on the MLA paths {mla_flash}",
-          flush=True)
+          f"{fmt(lib_ms)}, plain {plain_ms:.5f} ms; its bf16 backward "
+          f"{fmt(bwd_ms)}, bound {bb_ms:.5f} ms ({bb_by}), sdpa backward "
+          f"{fmt(bwd_lib_ms)}, plain {fmt(bwd_plain_ms)}; launches on the "
+          f"MLA paths {mla_flash}", flush=True)
     return figures, counts, mla_flash
 
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with ``ctypes``. Builds happen at first
 use, into ``build/repro_torch/`` at the root of the checkout; a library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and never confused with a stale build. ``build`` starts one
+file name carries a hash of its source, the headers of ``csrc/`` that it
+includes (``#include "x.cuh"``) and the flags, so an edited source or
+header is rebuilt and never confused with a stale build. ``build`` starts one
 ``nvcc`` per source, all at once. A failed build raises.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ import ctypes
 import hashlib
 import os
 from pathlib import Path
+import re
 import shutil
 import subprocess
 import time
@@ -41,9 +43,25 @@ def _nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the local headers it includes, directly or
+    through another header, each once, in the order first included."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / m.decode()
+                 for m in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources(name))
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -37,13 +37,15 @@ more than one (Sq, kv_block) block of them. Here the differentiable entry
 is a ``torch.autograd.Function``: the forward saves q, k, v, the output
 and the row log-sum-exp; the backward is a second Function,
 :class:`FlashAttentionBackward`, that recomputes the probabilities tile
-by tile from the log-sum-exp in ``csrc/flash_attention_bwd.cu`` (three
-kernel launches a call: the row pass ``delta = rowsum(do o)``, then the
-kv-tile pass for dk and dv, then the query-tile pass for dq; no tensor
-of (Sq, Skv) is ever made), or on CPU tensors in
+by tile from the log-sum-exp in ``csrc/flash_attention_bwd.cu`` (the row
+pass ``delta = rowsum(do o)``, then the kv-tile pass for dk and dv and
+the query-tile pass for dq: in bf16 on wgmma, both passes in one grid
+and, where :func:`bwd_splits` splits a GQA group over blocks, a fold of
+their f32 partials; in f32 on the CUDA cores, one launch a pass; no
+tensor of (Sq, Skv) is ever made), or on CPU tensors in
 :func:`attention_backward`, its plain version, blockwise over kv blocks
 of the reference's 1024. ``flash_attention.launches["backward"]`` counts
-backward calls on the card (each call its three launches). Both
+backward calls on the card (each call its two to four launches). Both
 Functions have a ``vmap`` rule that folds a vmapped dimension into B, so
 ``torch.func.vmap(torch.func.grad(...))`` over K clients (phase 2 of a
 round) makes ONE forward and ONE backward call for all of them. The
@@ -53,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 
 import torch
@@ -66,6 +69,20 @@ HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (128, 128), (192, 128))
 
 BQ = BKV = 64                  # the query and kv tile rows the FLOPs count
 KV_BLOCK = 1024                # the plain backward's kv block, the reference's
+
+
+def bwd_splits(b: int, kvh: int, skv: int, group: int, sms: int) -> int:
+    """The bf16 backward kernel's split of each GQA group's heads over its
+    kv-tile blocks (one a batch, kv head and BKV kv rows): a power of two
+    dividing ``group``, doubled while those blocks number fewer than
+    ``sms``. The splits' f32 partials take ``nsplit * b * kvh * skv * (Dqk
+    + Dv)`` floats of scratch, which the doubling keeps under ``2 * sms *
+    64`` rows (20.6 MiB at (192, 128) on 132 SMs)."""
+    blocks = b * kvh * -(-skv // BKV)
+    n = 1
+    while group % (2 * n) == 0 and blocks * n < sms:
+        n *= 2
+    return n
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -293,9 +310,15 @@ def _bwd_kernel():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
     if fn.argtypes is None:             # the library's one function object
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
-                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int])  # ..., strides, scratch, nsplit
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float):
@@ -303,7 +326,10 @@ def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float):
     on CPU tensors; on a shape trace only the outputs and the kernel's
     (B, H, Sq) f32 ``delta`` scratch are made. The gradients are allocated
     as (B, S, heads, D) buffers seen as (B, heads, S, D), the layout of
-    the model's activations."""
+    the model's activations. The operands go to the kernel as
+    :func:`_in_place` leaves them (the bf16 route reads q, k, v and do
+    through TMA tensor maps); in bf16 a group split over blocks
+    (:func:`bwd_splits`) takes an f32 scratch for its partials."""
     kind = _device_type(q)
     _record("backward", q, k, v, causal, window)
     if kind == "cpu":
@@ -332,20 +358,23 @@ def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float):
     dq, dk, dvv = out(h, sq, dh), out(kvh, skv, dh), out(kvh, skv, dv)
     if kind == "meta":
         return dq, dk, dvv
-    # the kernel reads any (b, h, s) strides, zero included, but a
-    # unit-stride head dim
-    ins = [x if x.stride(-1) == 1 else x.contiguous()
-           for x in (q, k, v, o, do.to(q.dtype))]
+    ins, sts = zip(*(_in_place(x) for x in (q, k, v, o, do.to(q.dtype))))
     lse = lse.contiguous()
     strides = (ctypes.c_longlong * 24)(*(
-        st for x in (*ins, dq, dk, dvv) for st in x.stride()[:3]))
+        st for x in (*sts, dq.stride()[:3], dk.stride()[:3],
+                     dvv.stride()[:3]) for st in x))
+    is_bf16 = q.dtype == torch.bfloat16
+    nsplit = (bwd_splits(b, kvh, skv, h // kvh, _sm_count(q.device.index))
+              if is_bf16 else 1)
+    scratch = (torch.empty(b * kvh * nsplit * skv * (dh + dv), dtype=F32,
+                           device=q.device) if nsplit > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*(x.data_ptr() for x in ins), lse.data_ptr(),
                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dvv.data_ptr(), int(q.dtype == torch.bfloat16), b, h, kvh,
-                 sq, skv, dh, dv, int(causal), int(window), scale, stream,
-                 strides)
+                 dvv.data_ptr(), int(is_bf16), b, h, kvh, sq, skv, dh, dv,
+                 int(causal), int(window), scale, stream, strides,
+                 None if scratch is None else scratch.data_ptr(), nsplit)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed: "
                            f"CUDA error {err}")

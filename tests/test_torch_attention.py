@@ -453,6 +453,26 @@ def test_backward_library_is_built_beside_the_forward():
     assert (_build.CSRC / "flash_attention_bwd.cu").exists()
 
 
+def test_library_name_tracks_the_headers_a_source_includes(monkeypatch,
+                                                           tmp_path):
+    """A library's name hashes the local headers its source includes
+    (through another header too), so an edited header is rebuilt: two
+    contents of one header give two library paths. Both flash sources
+    include the shared Hopper header."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint f() { return g(); }\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  # include "b.cuh"\n')
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    paths = []
+    for body in ("int g() { return 1; }\n", "int g() { return 2; }\n"):
+        (tmp_path / "b.cuh").write_text(body)
+        paths.append(_build.library_path("k"))
+    assert paths[0] != paths[1]
+    assert [p.name for p in _build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    monkeypatch.undo()
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert "hopper.cuh" in [p.name for p in _build.sources(name)]
+
+
 # ------------------------------------------------------------- GQA block --
 
 def _gqa_setup(arch, seed=0, **replace):

@@ -28,7 +28,11 @@ the same inputs, output and log-sum-exp: both compute in f32 in other
 orders, so dq, dk and dv to 1e-4 (f32) or 2^-7 (bf16, rounded once on
 each side: 1 bf16 ulp is 2^-8) of the largest of the three gradients'
 magnitudes (where a mask leaves a row one key, dq and dk vanish and
-both hold rounding only), and bit-equal on a second run."""
+both hold rounding only), and bit-equal on a second run. Its bf16 route
+(wgmma, P and dS as bf16 operands as the reference's scan casts P) stays
+within half of that on the CPU (tests/test_torch_kernel_numerics.py);
+its cases here follow the route's tiles: kv tiles of 64 rows, query
+stages of 64 or 32 rows, a GQA group split over blocks and folded."""
 import pytest
 import torch
 
@@ -791,10 +795,10 @@ def test_flash_backward_kernel_tile_edges(cuda_device, sq, skv, dh, h, kvh,
 @pytest.mark.cuda
 def test_flash_backward_kernel_reads_strided_operands(cuda_device):
     """(B, S, H, Dh) views as the model hands them, an output gradient
-    broadcast over (b, h, s) (strides 0, read in place), one broadcast
-    from a scalar (copied) and one of another type: the same gradients as
-    from contiguous copies, bit for bit; dq, dk and dv come as (B, S,
-    heads, D) buffers seen as (B, heads, S, D)."""
+    broadcast over (b, h, s) and one from a scalar (strides 0: copied, a
+    tensor map takes no zero stride) and one of another type: the same
+    gradients as from contiguous copies, bit for bit; dq, dk and dv come
+    as (B, S, heads, D) buffers seen as (B, heads, S, D)."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     b, s, h, kvh, dh = 2, 70, 8, 2, 64
     q, k, v = (torch.randn(b, s, n, dh, generator=gen, device=cuda_device)
@@ -814,6 +818,59 @@ def test_flash_backward_kernel_reads_strided_operands(cuda_device):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g, w) and g.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq,skv,dqk,dv,h,kvh,causal,window", [
+    (130, 130, 64, 64, 8, 2, True, 0),      # Skv ragged past a kv tile
+    (33, 193, 192, 128, 4, 4, True, 0),     # Sq < Skv, 32-row stages
+    (40, 200, 80, 80, 8, 1, True, 50),      # Sq < Skv with a window
+    (70, 150, 64, 64, 8, 8, False, 30),     # a group of 1
+    (100, 100, 128, 128, 16, 2, True, 0),   # a group of 8
+    (257, 257, 32, 32, 8, 1, True, 0),      # a group of 8 over 5 kv tiles
+    (1, 64, 192, 128, 8, 1, True, 0),       # one query, the group split
+])
+def test_flash_backward_kernel_new_tiling_edges(cuda_device, dtype, sq, skv,
+                                                dqk, dv, h, kvh, causal,
+                                                window):
+    """What the bf16 route's tiling can break: a kv tile ragged at Skv,
+    fewer queries than kv rows with and without a window, groups of 1 and
+    8 (a group of 8 is split over blocks and folded where the kv tiles
+    are few), 32-row query stages; each against the plain version and
+    bit-equal on a second run."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + skv + dqk)
+    q = torch.randn(2, h, sq, dqk, generator=gen, device=cuda_device)
+    k = torch.randn(2, kvh, skv, dqk, generator=gen, device=cuda_device)
+    v = torch.randn(2, kvh, skv, dv, generator=gen, device=cuda_device)
+    _bwd_check(*(x.to(dtype) for x in (q, k, v)), causal, window, skv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", flash_mod.HEAD_DIMS)
+def test_flash_backward_kernel_loads_views_of_every_instance(cuda_device,
+                                                             dqk, dv):
+    """(B, S, H, Dh) views of q, k, v and the output gradient, as the
+    model hands them, loaded by the bf16 route's tensor maps with their
+    strides, at every (Dqk, Dv): against the plain version, and bit-equal
+    to the gradients of contiguous copies and to a second run."""
+    gen = torch.Generator(device=cuda_device).manual_seed(dqk)
+    b, s, h, kvh = 2, 100, 8, 4
+    q, k, v = (torch.randn(b, s, n, d, generator=gen, device=cuda_device)
+               .to(torch.bfloat16).transpose(1, 2)
+               for n, d in ((h, dqk), (kvh, dqk), (kvh, dv)))
+    _bwd_check(q, k, v, True, 0, dqk)
+    scale = dqk ** -0.5
+    out, lse = FlashAttention.apply(q, k, v, True, 0, scale)
+    do = torch.randn(b, s, h, dv, generator=gen, device=cuda_device).to(
+        torch.bfloat16).transpose(1, 2)
+    got = flash_mod._backward(q, k, v, out, lse, do, True, 0, scale)
+    want = flash_mod._backward(q.contiguous(), k.contiguous(),
+                               v.contiguous(), out.contiguous(), lse,
+                               do.contiguous(), True, 0, scale)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -20,21 +20,28 @@ of the f32 plain version, P . V within the f32 tolerance 2e-5 of an f32
 P . V, the statistics within STATS_TOL x (1 + max|plain|). Each test also
 shows the cheaper form the kernel does not take failing the same bound.
 
-The attention backward kernel runs on the CUDA cores in f32; what it
-decides is which (64-row query tile, 64-row kv tile) pairs each of its
-two passes visits. Its index arithmetic is mirrored here: both passes
-visit the same pairs, every valid score lies in one, and ``_tiles``
-(which ``backward_flops`` counts) counts them; its f32 tile sums are
-emulated against an f64 gradient to fix its card tolerance (1e-4 of the
-largest gradient).
+The attention backward kernel decides which (query tile, 64-row kv tile)
+pairs each of its two passes visits: 64-row query tiles in the f32
+route (CUDA cores) and in the bf16 route's query pass, and in the bf16
+route's kv pass stages of ``bwd_stage_rows(Dqk)`` query rows (32 at Dqk
+80 and 192). Its index arithmetic is mirrored here: each pass visits
+every valid score once, and ``_tiles`` (which ``backward_flops`` counts)
+counts the 64-row pairs; its f32 tile sums are emulated against an f64
+gradient to fix its card tolerance (1e-4 of the largest gradient). The
+bf16 route (wgmma) takes P, P^T, dS and dS^T rounded to bf16 as MMA
+operands, sums in f32 in the kernel's order (a kv tile's pairs head by
+head, each split of a GQA group summed apart and folded in split order;
+a query tile's kv tiles ascending), and is held here to half of its card
+tolerance (2^-8 of the largest gradient) against the f32 plain version
+on the same bf16 inputs.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, _aligned,
-                                                 _in_place, _tiles)
+from repro_torch.kernels.flash_attention import (
+    HEAD_DIMS, _aligned, _in_place, _tiles, attention_backward, bwd_splits)
 from repro_torch.kernels.mips_topk import (FULL_TILE_K, MAX_SPLITS,
                                            ROWS_PER_TILE, plan)
 
@@ -387,36 +394,44 @@ def test_flash_wrapper_reads_model_views_in_place(dh, dtype):
 
 # ------------------------------------------ the backward kernel's tiles --
 
-BWD_TILE = 64            # csrc/flash_attention_bwd.cu: BM = BN = 64
+BWD_TILE = 64             # csrc/flash_attention_bwd.cu: BM = BN = KR = 64
 FLASH_BWD_F32_TOL = 1e-4  # chip_smoke.py: of the largest f32 gradient
+FLASH_BWD_BF16_TOL = 2.0 ** -7   # chip_smoke.py: of the largest bf16 one
 
 
-def _bwd_pairs(sq, skv, causal, window):
-    """The (query tile, kv tile) pairs of each pass of the backward
-    kernel, by its index arithmetic: the kv-tile pass (flash_bwd_dkdv)
-    from the query tile of the first causal row to the last row whose
-    window reaches the kv tile; the query-tile pass (flash_bwd_dq) from
-    the kv tile of the first row's window start to the last row's causal
-    end."""
+def bwd_stage_rows(dqk):
+    """Query rows a kv-pass stage of the bf16 route (``Wg::BQ``): 32 at
+    Dqk 80 and 192, where 64 would pass the registers a thread has, else
+    64."""
+    return 32 if dqk in (80, 192) else 64
+
+
+def _bwd_pairs(sq, skv, causal, window, bq=BWD_TILE):
+    """The (first query row, first kv row) of each tile pair of each pass
+    of the backward kernel, by its index arithmetic, in the order a block
+    visits them: the kv-tile pass (``flash_bwd_dkdv``, or the kv-tile
+    blocks of ``flash_bwd_wg`` with stages of ``bq`` query rows) from the
+    query tile of the first causal row to the last row whose window
+    reaches the kv tile; the query-tile pass (64 query rows) from the kv
+    tile of the first row's window start to the last row's causal end."""
     t, q_offset = BWD_TILE, skv - sq
     kv_pass, q_pass = [], []
-    for kt in range(-(-skv // t)):
-        j0 = kt * t
+    for j0 in range(0, skv, t):
         nj = min(t, skv - j0)
-        i_lo = (max(0, j0 - q_offset) if causal else 0) // t * t
+        i_lo = (max(0, j0 - q_offset) if causal else 0) // bq * bq
         i_hi = (min(sq, j0 + nj - 1 + window - q_offset) if window > 0
                 else sq)
-        kv_pass += [(i0 // t, kt) for i0 in range(i_lo, i_hi, t)]
-    for qt in range(-(-sq // t)):
-        i0 = qt * t
+        kv_pass += [(i0, j0) for i0 in range(i_lo, i_hi, bq)]
+    for i0 in range(0, sq, t):
         ni = min(t, sq - i0)
         kv_lo = (max(0, q_offset + i0 - window + 1) if window > 0
                  else 0) // t * t
         kv_hi = q_offset + i0 + ni if causal else skv
-        q_pass += [(qt, j0 // t) for j0 in range(kv_lo, kv_hi, t)]
+        q_pass += [(i0, j0) for j0 in range(kv_lo, kv_hi, t)]
     return kv_pass, q_pass
 
 
+@pytest.mark.parametrize("bq", [BWD_TILE, 32])
 @pytest.mark.parametrize("sq,skv", [(1, 1), (64, 64), (65, 65), (100, 100),
                                     (128, 128), (15, 129), (37, 101),
                                     (65, 200), (200, 200), (100, 300),
@@ -425,15 +440,26 @@ def _bwd_pairs(sq, skv, causal, window):
                                            (True, 40), (True, 256),
                                            (False, 0), (False, 20)])
 def test_backward_passes_visit_every_valid_tile_once(sq, skv, causal,
-                                                    window):
-    kv_pass, q_pass = _bwd_pairs(sq, skv, causal, window)
+                                                    window, bq):
+    """Each pass visits no pair twice and covers every valid score; with
+    64-row query tiles both passes visit the same pairs, which ``_tiles``
+    counts; the kv pass's 32-row stages (Dqk 80 and 192) split each 64-row
+    pair it needs into the stages that hold a valid score."""
+    kv_pass, q_pass = _bwd_pairs(sq, skv, causal, window, bq)
     assert len(set(kv_pass)) == len(kv_pass)
-    assert sorted(kv_pass) == sorted(q_pass)
+    assert len(set(q_pass)) == len(q_pass)
     valid = ref.flash_attention_mask(sq, skv, causal, window, "cpu")
     t = BWD_TILE
-    needed = {(i // t, j // t) for i, j in valid.nonzero().tolist()}
-    assert needed <= set(kv_pass)
-    assert len(kv_pass) == _tiles(sq, skv, causal, window)
+    for pairs, rows in ((kv_pass, bq), (q_pass, t)):
+        needed = {(i // rows * rows, j // t * t)
+                  for i, j in valid.nonzero().tolist()}
+        assert needed <= set(pairs)
+    if bq == t:
+        assert sorted(kv_pass) == sorted(q_pass)
+        assert len(kv_pass) == _tiles(sq, skv, causal, window)
+    else:
+        halves = {(i0 // t * t, j0) for i0, j0 in kv_pass}
+        assert halves == set(q_pass)
 
 
 def _bwd_f32_emulated(q, k, v, o, lse, do, causal, window, scale):
@@ -461,13 +487,13 @@ def _bwd_f32_emulated(q, k, v, o, lse, do, causal, window, scale):
     by_kv = sorted(kv_pass, key=lambda pair: pair[1])
     for kh in range(kvh):
         for hh in range(kh * g, kh * g + g):
-            for qt, kt in by_kv:
-                i, j, _, p, ds = tile(hh, qt, kt)
+            for i0, j0 in by_kv:
+                i, j, _, p, ds = tile(hh, i0 // t, j0 // t)
                 dv[kh, j] += p.T @ do[hh, i]
                 dk[kh, j] += ds.T @ q[hh, i]
     for hh in range(h):
-        for qt, kt in q_pass:
-            i, j, kh, _, ds = tile(hh, qt, kt)
+        for i0, j0 in q_pass:
+            i, j, kh, _, ds = tile(hh, i0 // t, j0 // t)
             dq[hh, i] += ds @ k[kh, j]
     return dq, dk, dv
 
@@ -499,3 +525,100 @@ def test_backward_f32_tiles_within_a_tenth_of_the_tolerance(
     top = max(float(w.abs().max()) for w in want)
     err = max(float((a.double() - w).abs().max()) for a, w in zip(got, want))
     assert err <= FLASH_BWD_F32_TOL / 10 * top
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _bwd_bf16_emulated(q, k, v, o, lse, do, causal, window, scale, nsplit):
+    """(dq, dk, dv) as the bf16 route (``flash_bwd_wg``) sums them, in f32
+    before the outputs' own bf16 rounding: S and dP from the bf16 operands
+    with f32 sums, P and dS in f32 (exp2 of the scores against lse times
+    log2 e), rounded to bf16 as the A operands of dV += P^T dO, dK += dS^T
+    Q and dQ += dS K. A kv tile's pairs run head by head and query stage
+    by stage; with ``nsplit`` > 1 each split's heads are summed apart and
+    the partials added in split order (``flash_bwd_fold``). One (batch)
+    element of bf16 values held in f32: q (H, Sq, Dqk), k (KVH, Skv,
+    Dqk)."""
+    h, sq, dqk = q.shape
+    kvh, skv, _ = k.shape
+    g, t, bq = h // kvh, BWD_TILE, bwd_stage_rows(dqk)
+    valid = ref.flash_attention_mask(sq, skv, causal, window, "cpu")
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    lse2, sl2 = lse * log2e, torch.tensor(scale, dtype=torch.float32) * log2e
+    delta = (do * o).sum(-1)
+    kv_pass, q_pass = _bwd_pairs(sq, skv, causal, window, bq)
+
+    def probs(hh, i, j):
+        kh = hh // g
+        p = torch.where(valid[i, j], torch.exp2(
+            q[hh, i] @ k[kh, j].T * sl2 - lse2[hh, i, None]), 0.0)
+        ds = p * (do[hh, i] @ v[kh, j].T - delta[hh, i, None]) * scale
+        return _bf16(p), _bf16(ds)
+
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for j0 in range(0, skv, t):
+        j = slice(j0, j0 + t)
+        stages = [i0 for i0, jj in kv_pass if jj == j0]
+        for kh in range(kvh):
+            heads = range(kh * g, kh * g + g)
+            for sp in range(nsplit):
+                pk, pv = torch.zeros_like(dk[kh, j]), torch.zeros_like(dv[kh, j])
+                for hh in heads[sp * g // nsplit:(sp + 1) * g // nsplit]:
+                    for i0 in stages:
+                        i = slice(i0, i0 + bq)
+                        p, ds = probs(hh, i, j)
+                        pv += p.T @ do[hh, i]
+                        pk += ds.T @ q[hh, i]
+                dk[kh, j] += pk
+                dv[kh, j] += pv
+    for hh in range(h):
+        for i0, j0 in q_pass:
+            i, j = slice(i0, i0 + t), slice(j0, j0 + t)
+            dq[hh, i] += probs(hh, i, j)[1] @ k[hh // g, j]
+    return dq, dk, dv
+
+
+# (B, H, KVH, Sq, Skv, Dqk, Dv, causal, window) of chip_smoke.py's bf16
+# backward checks, and the heads this test emulates of them (fewer batches
+# or heads; the group split is the card's, from its B and 132 SMs)
+BF16_BWD_CASES = {
+    "path": ((8, 32, 4, 128, 128, 64, 64, True, 0), (32, 4)),
+    "views, groups of 2": ((8, 16, 8, 257, 257, 128, 128, True, 0), (4, 2)),
+    "window 32": ((8, 32, 4, 256, 256, 64, 64, True, 32), (8, 1)),
+    "window 96": ((8, 32, 4, 256, 256, 64, 64, True, 96), (8, 1)),
+    "MLA prefill": ((4, 16, 16, 128, 128, 192, 128, True, 0), (2, 2)),
+    "zamba2 dims": ((2, 8, 2, 129, 129, 80, 80, True, 40), (4, 1)),
+    "4096 positions": ((1, 32, 4, 4096, 4096, 64, 64, True, 0), (1, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_BWD_CASES))
+def test_backward_bf16_route_within_half_its_tolerance(case):
+    """The bf16 route's arithmetic against the f32 plain version
+    (``attention_backward``) on the same bf16 q, k, v, output and
+    gradient: within half of FLASH_BWD_BF16_TOL of the largest gradient,
+    before the outputs' bf16 rounding that both card routes share (the
+    card's tolerance holds one such rounding on each side)."""
+    (b, h, kvh, sq, skv, dqk, dv, causal, window), (eh, ekvh) = \
+        BF16_BWD_CASES[case]
+    nsplit = bwd_splits(b, kvh, skv, h // kvh, 132)
+    nsplit = min(nsplit, eh // ekvh)      # the emulated group's share
+    gen = torch.Generator().manual_seed(sq + dqk + window)
+    q = _bf16(torch.randn(eh, sq, dqk, generator=gen))
+    k = _bf16(torch.randn(ekvh, skv, dqk, generator=gen))
+    v = _bf16(torch.randn(ekvh, skv, dv, generator=gen))
+    scale = dqk ** -0.5
+    o, lse = ref.flash_attention_ref(q[None], k[None], v[None],
+                                     causal=causal, window=window,
+                                     scale=scale, return_lse=True)
+    o, lse = _bf16(o[0]), lse[0]
+    do = _bf16(torch.randn(o.shape, generator=gen))
+    want = attention_backward(q[None], k[None], v[None], o[None], lse[None],
+                              do[None], causal, window, scale)
+    got = _bwd_bf16_emulated(q, k, v, o, lse, do, causal, window, scale,
+                             nsplit)
+    top = max(float(w.abs().max()) for w in want)
+    errs = [float((a - w[0]).abs().max()) for a, w in zip(got, want)]
+    assert max(errs) <= FLASH_BWD_BF16_TOL / 2 * top, (errs, top)
