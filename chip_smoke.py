@@ -68,9 +68,14 @@ Phases (each prints its lines; any failure exits non-zero):
      gradient, a second run bit-equal), timed beside it and SDPA's
      backward at the path's shape, over 4096 positions, where its peak
      memory above its inputs is gated (FLASH_BWD_SLACK), and (phase 12)
-     at MLA's (192, 128) prefill shape in bf16; the gradient of
-     the autograd Function against autograd of the plain version at the
-     path's shape in f32; then, after the serving phase's memory is
+     at MLA's (192, 128) prefill shape in bf16; its f32 route at every
+     (Dqk, Dv): Dh 32, the text example's shape (8, 8, 2, 32, 32, Dh
+     32; timed), the path's shape (timed), Dh 128, MLA's and zamba2's f32
+     shapes (phases 12 and 13, timed) and, backward only, where its
+     accumulators flush: TinyLlama's heads over 4096 positions (timed),
+     over 1024 (the group split and folded) and Sq 64 of Skv 1100; the
+     gradient of the autograd Function against autograd of the plain
+     version at the path's shape in f32; then, after the serving phase's memory is
      released, D-CCO training of the full-width TinyLlama-1.1B token dual
      encoder (TOK_ROUNDS rounds, TOK_K clients x 2 sequences of 128
      tokens, bf16 weights from seed 0): losses finite, peak device memory
@@ -400,6 +405,18 @@ RET_IVF, RET_NPROBE = 64, 8
 def fail(msg):
     print(f"chip_smoke FAILED: {msg}", flush=True)
     sys.exit(1)
+
+
+_LAP = [time.perf_counter()]
+
+
+def lap(name):
+    """Prints the host seconds since the previous lap (the script's start
+    for the first) under ``name``, and the seconds since the start."""
+    now = time.perf_counter()
+    print(f"lap {name}: {now - _LAP[-1]:.1f} s ({now - _LAP[0]:.1f} s in "
+          f"all)", flush=True)
+    _LAP.append(now)
 
 
 def bound_ms(bytes_moved, ops, peak=PEAK_F32):
@@ -929,7 +946,7 @@ def check_flash(b, h, kvh, sq, skv, dh, dtype, label, *, causal=True,
 
 def check_flash_backward(q, k, v, out, lse, causal, window, scale, label,
                          seed, *, time_it=False, mem_gate=False):
-    """The backward kernel (``flash_attention._backward``: 2-4 launches)
+    """The backward kernel (``flash_attention._backward``: 2-3 launches)
     against its plain version (``attention_backward``) on the same q, k, v,
     output, row log-sum-exp and a random output gradient: dq, dk and dv to
     FLASH_BWD_TOL of the largest gradient, a second run bit-equal. With
@@ -1005,6 +1022,18 @@ def check_flash_shapes():
                 "qwen3-1.7b heads (Dh 128, groups of 2)", seed=2)
     check_flash(b, 8, 2, TOK_S, TOK_S, 32, torch.float32,
                 "smoke heads (Dh 32, f32)", seed=3)
+    # the f32 route's one user: the smoke TinyLlama of dual_encoder_text
+    # (phase 16), a 32-row query stage against a half-filled kv tile
+    check_flash(8, 8, 2, 32, 32, 32, torch.float32,
+                "text example (smoke TinyLlama), f32", seed=15,
+                time_bwd=True)
+    # the f32 route at Dh 64 and 128 (Dh 80 and MLA's dims: phases 13 and
+    # 12); its backward where its accumulators flush
+    check_flash(b, 32, 4, TOK_S, TOK_S, 64, torch.float32,
+                "TinyLlama heads, f32", seed=12, time_bwd=True)
+    check_flash(b, 16, 8, TOK_S, TOK_S, 128, torch.float32,
+                "qwen3-1.7b heads (Dh 128, groups of 2), f32", seed=13)
+    check_f32_flush_backward()
     for i, window in enumerate((32, 96)):
         check_flash(b, 32, 4, 256, 256, 64, torch.bfloat16,
                     f"window {window}", window=window, seed=4 + i)
@@ -1022,6 +1051,34 @@ def check_flash_shapes():
     check_flash(b, 16, 8, 257, 257, 128, torch.bfloat16,
                 "(B, S, H, Dh) views, groups of 2", seed=11, view=True)
     return figures
+
+
+def check_f32_flush_backward():
+    """The f32 backward where its accumulators flush into the rows' sums
+    every 512 rows (csrc/flash_attention_bwd.cu), against its plain
+    version on the kernel's own forward, causal: TinyLlama's heads over
+    4096 positions (8 heads x 4096 query rows into each kv tile; timed
+    beside SDPA's f32 backward); over 1024, where the group splits over
+    blocks and each split flushes into its f32 partials before the fold;
+    and Sq 64 of Skv 1100, where the query pass flushes. (The forward is
+    not held here: its f32 tolerance is set for the short shapes of
+    phase 7.)"""
+    dev = torch.device("cuda")
+    for b, kvh, sq, skv, seed, label in (
+            (1, 4, 4096, 4096, 14, "TinyLlama heads over 4096 positions, "
+             "f32"),
+            (1, 4, 1024, 1024, 16, "TinyLlama heads over 1024 positions, "
+             "the group split, f32"),
+            (2, 2, 64, 1100, 17, "Sq 64 of Skv 1100, f32")):
+        h = 8 * kvh
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v = (torch.randn(b, n, s, 64, generator=gen, device=dev)
+                   for n, s in ((h, sq), (kvh, skv), (kvh, skv)))
+        out, lse = FlashAttention.apply(q, k, v, True, 0, 0.125)
+        check_flash_backward(q, k, v, out, lse, True, 0, 0.125, label, seed,
+                             time_it=sq == 4096)
+        del q, k, v, out, lse
+    torch.cuda.empty_cache()
 
 
 def check_flash_gradient():
@@ -1812,7 +1869,9 @@ def checkpoint_resume(device):
 # the 8-edge tree a chunk); the equivalence round at the main paths' K in
 # chunks of EQ_CHUNK; the token tower at TOK_STREAM_KS clients in chunks of
 # TOK_CHUNK; the fused token step over FUSED_K clients in FUSED_MICRO
-# microbatches, and its gradient check on GRAD_B sequences.
+# microbatches, and its gradient check on GRAD_B sequences. The token
+# tower's paths and the streamed D-CCO path without a kernel run
+# TOK_STREAM_ROUNDS rounds, the rest PATH_ROUNDS.
 STREAM_K, STREAM_CHUNK, EQ_CHUNK = 512, 64, 16
 TOK_STREAM_KS, TOK_CHUNK, TOK_STREAM_ROUNDS = (8, 16), 4, 2
 FUSED_K, FUSED_MICRO, GRAD_B = 16, 4, 8
@@ -1973,7 +2032,7 @@ def streaming_and_modes(device, dcco_ref):
     rounds = PATH_ROUNDS
     stream = ["--clients-per-round", str(STREAM_K), "--cohort-chunk",
               str(STREAM_CHUNK)]
-    c, res = train_path("streamed dcco", stream, rounds, {})
+    c, res = train_path("streamed dcco", stream, TOK_STREAM_ROUNDS, {})
     counts.append(c)
     release(res)
     # the begin-round edge mass, then each chunk's statistics and deltas
@@ -2026,9 +2085,9 @@ def streaming_and_modes(device, dcco_ref):
     c, res = train_path(
         f"tinyllama fused micro {FUSED_MICRO}",
         [*tok, "--clients-per-round", str(FUSED_K), "--mode", "fused",
-         "--micro", str(FUSED_MICRO)], rounds,
-        {"flash": FLASH_MICRO * FUSED_MICRO * rounds,
-         "flash_bwd": FLASH_BWD * FUSED_MICRO * rounds})
+         "--micro", str(FUSED_MICRO)], TOK_STREAM_ROUNDS,
+        {"flash": FLASH_MICRO * FUSED_MICRO * TOK_STREAM_ROUNDS,
+         "flash_bwd": FLASH_BWD * FUSED_MICRO * TOK_STREAM_ROUNDS})
     counts.append(c)
     peaks["fused"] = res["peak_gib"]
     release(res)
@@ -2263,7 +2322,7 @@ def deepseek_phase(device):
                           DS_PROMPT, dqk, torch.bfloat16, mla_label,
                           seed=40, dv=mla.v_head_dim, time_bwd=True)
     check_flash(2, 8, 8, 100, 100, dqk, torch.float32, "MLA dims, f32",
-                seed=41, dv=mla.v_head_dim)
+                seed=41, dv=mla.v_head_dim, time_bwd=True)
     counts, mla_flash = [], 0
     for arch in DS_ARCHS:
         c = serve_deepseek(device, arch)
@@ -2506,7 +2565,8 @@ def recurrent_phase(device):
                           REC_PROMPT, REC_PROMPT, dh, torch.bfloat16,
                           "zamba2 prefill (Dh 80)", seed=50)
     check_flash(2, 8, 4, 100, 150, dh, torch.float32,
-                "Dh 80, f32, ragged Sq 100 of Skv 150", seed=51)
+                "Dh 80, f32, ragged Sq 100 of Skv 150", seed=51,
+                time_bwd=True)
     counts, dh80 = [], 0
     for arch in REC_ARCHS:
         c = serve_recurrent(device, arch)
@@ -3599,6 +3659,7 @@ def main():
     check_segment_sum(STREAM_K, 1, 8, contiguous_edge_ids(STREAM_K, 8), 35,
                       "streamed edge mass", weighted=False)
     check_fold_to_edges(device, STREAM_CHUNK, 1)
+    lap("phases 1-2 (build, kernels)")
 
     appendix_a(device, "dcco")
     appendix_a(device, "dvicreg")
@@ -3634,17 +3695,21 @@ def main():
                    {"cross": PATH_ROUNDS, "search": PATH_ROUNDS})]
     dcco_ref = {"peak_gib": runs[0][1]["peak_gib"],
                 "round_ms": runs[0][1]["round_ms"]}
+    lap("phases 3, 4 and 6 (Appendix A, the ResNet paths)")
     fedavg = fedavg_paths()
     drifted = drift_paths(device)
+    lap("phases 8-9, ResNet (FedAvg, drift)")
     mips_figures = check_mips_laws(device)
     served = serving_phase(device, runs[-1][1]["params"])
     served += serving_rate(device)
+    lap("phases 5 and 10, retrieval serving")
     runs = [counts for counts, _ in runs] + fedavg + drifted + served
     # the token path, with the serving phase's corpora released
     gc.collect()
     torch.cuda.empty_cache()
     figures["flash"] = check_flash_shapes()
     check_flash_gradient()
+    lap("phase 7, flash shapes")
     tok_flags = ["--arch", TOK_ARCH, "--seq-len", str(TOK_S),
                  "--clients-per-round", str(TOK_K),
                  "--samples-per-client", str(TOK_N)]
@@ -3694,19 +3759,23 @@ def main():
     release(tok_prox)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phases 7-9, TinyLlama paths")
     runs += serving_phase_tokens(device)
     gc.collect()
     torch.cuda.empty_cache()
     runs += checkpoint_resume(device)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 10, token serving and checkpoints")
     runs += streaming_and_modes(device, dcco_ref)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 11")
     _, ds_counts, _ = deepseek_phase(device)
     runs += ds_counts
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 12")
     _, rec_counts = recurrent_phase(device)
     runs += rec_counts
     gc.collect()
@@ -3722,6 +3791,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     runs += dryrun_phase(device)
+    lap("phases 13-17")
     print(f"tinyllama peak device memory: fedavg_contrastive "
           f"{tok_fedavg['peak_gib']:.2f} GiB, dcco "
           f"{tok_dcco['peak_gib']:.2f} GiB, dcco fedprox (2 local steps) "

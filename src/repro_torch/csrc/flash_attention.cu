@@ -125,35 +125,6 @@ struct Cfg {
 
 // ------------------------------------------------------ the f32 splits --
 
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
-// An f32 tile of R rows as it landed (layout Rows<D, 4>): h(x) = TF32(x)
-// in place, b(x - h(x)) into `lo` and b(x) into `full` (layout Rows<D, 2>).
-template <int D, int R>
-__device__ __forceinline__ void split_qk(uint8_t* f, uint8_t* lo,
-                                         uint8_t* full) {
-  using F = Rows<D, 4>;
-  using T = Rows<D, 2>;
-  for (int c = threadIdx.x; c < R * D / 4; c += 128) {
-    const int r = c / (D / 4), col = c % (D / 4) * 4;
-    float4* src = reinterpret_cast<float4*>(f + at<F, R>(r, col));
-    const float4 x = *src;
-    const float4 h = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z),
-                                 tf32_rna(x.w));
-    *src = h;
-    const uint32_t o = at<T, R>(r, col);
-    *reinterpret_cast<uint2*>(lo + o) =
-        make_uint2(pack_bf16(x.x - h.x, x.y - h.y),
-                   pack_bf16(x.z - h.z, x.w - h.w));
-    *reinterpret_cast<uint2*>(full + o) =
-        make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
-  }
-}
-
 // An f32 V tile of R rows as three bf16 terms (layout Rows<D, 2>): v1 =
 // b(v), v2 = b(v - v1), v3 = b(v - v1 - v2), their sum v to 2^-27 |v|.
 template <int D, int R>
@@ -179,22 +150,6 @@ __device__ __forceinline__ void split_v(const uint8_t* f, uint8_t* v1,
       e[2] -= __low2float(b);
       e[3] -= __high2float(b);
     }
-  }
-}
-
-// P (the softmax numerators in the S accumulator) as the A fragments of
-// the P V chain: k-step kk takes S columns 16 kk .. 16 kk + 15, P_hi and
-// its bf16 residual P_lo
-template <int BKV>
-__device__ __forceinline__ void split_p(const float (&s)[BKV / 2],
-                                        uint32_t (&ph)[BKV / 4],
-                                        uint32_t (&pl)[BKV / 4]) {
-#pragma unroll
-  for (int i = 0; i < BKV / 4; ++i) {
-    const float x0 = s[2 * i], x1 = s[2 * i + 1];
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    ph[i] = *reinterpret_cast<const uint32_t*>(&h);
-    pl[i] = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
   }
 }
 

@@ -3,7 +3,8 @@
 // (its gradient) include this header, each into its own library. It holds
 // the shared-memory layout of a tile as the TMA swizzles it, the mbarrier
 // and TMA helpers, the wgmma descriptors and instructions (bf16 with A from
-// shared memory or from registers, TF32 from shared memory), and the host's
+// shared memory or from registers, TF32 from shared memory), the split of
+// f32 operands into TF32 and bf16 terms for the f32 routes, and the host's
 // tensor-map encoder (cuTensorMapEncodeTiled from the driver entry point,
 // so no library links libcuda).
 #pragma once
@@ -172,13 +173,39 @@ template <int N, bool TF32>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int acc);
 
-// d += A B, bf16 A from registers (an m16 x k16 fragment a warp), B from
-// shared memory MN-major (transposed)
+// d (+)= A B, bf16 A from registers (an m16 x k16 fragment a warp), B
+// from shared memory MN-major (transposed); acc 0 overwrites d
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a,
-                                         uint64_t b);
+                                         uint64_t b, int acc = 1);
 
 // ------------------------------------- the wgmma instructions, by shape --
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16, false>(float (&d)[8], uint64_t a,
+                                                 uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16, true>(float (&d)[8], uint64_t a,
+                                                 uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(acc));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<32, false>(float (&d)[16], uint64_t a,
@@ -252,7 +279,7 @@ __device__ __forceinline__ void wgmma_ss<64, true>(float (&d)[32], uint64_t a,
 
 template <>
 __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t* a,
-                                            uint64_t b) {
+                                            uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -262,12 +289,12 @@ __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t* a,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t* a,
-                                            uint64_t b) {
+                                            uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -282,12 +309,12 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t* a,
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t* a,
-                                            uint64_t b) {
+                                            uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
@@ -304,12 +331,12 @@ __device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t* a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
         "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t* a,
-                                            uint64_t b) {
+                                            uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -333,12 +360,12 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t* a,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t* a,
-                                            uint64_t b) {
+                                            uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
@@ -371,13 +398,75 @@ __device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t* a,
         "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
 // two floats rounded to bf16 and packed, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// ------------------------------------------ f32 operands as split terms --
+// With h() TF32 rounding (cvt.rna) and b() bf16 rounding, an f32 product
+// a . c runs on the tensor cores as b(a - h(a)) . b(c) + b(a) . b(c - h(c))
+// on bf16 wgmma plus h(a) . h(c) on TF32 wgmma (each chain adding its
+// smaller terms first); an f32 operand read MN-major, which TF32 wgmma
+// does not take, goes in as bf16 terms.
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// An f32 tile of R rows as it landed (layout Rows<D, 4>), split by the 128
+// threads of the consumer warpgroup: h(x) = TF32(x) in place, b(x - h(x))
+// into `lo` and b(x) into `full` (layout Rows<D, 2>) and, with REST,
+// b(x - b(x)) into `rest` (x = b(x) + b(x - b(x)) to 2^-18 |x|).
+template <int D, int R, bool REST = false>
+__device__ __forceinline__ void split_qk(uint8_t* f, uint8_t* lo,
+                                         uint8_t* full,
+                                         uint8_t* rest = nullptr) {
+  using F = Rows<D, 4>;
+  using T = Rows<D, 2>;
+  for (int c = threadIdx.x; c < R * D / 4; c += 128) {
+    const int r = c / (D / 4), col = c % (D / 4) * 4;
+    float4* src = reinterpret_cast<float4*>(f + at<F, R>(r, col));
+    const float4 x = *src;
+    const float4 h = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z),
+                                 tf32_rna(x.w));
+    *src = h;
+    const uint32_t o = at<T, R>(r, col);
+    *reinterpret_cast<uint2*>(lo + o) =
+        make_uint2(pack_bf16(x.x - h.x, x.y - h.y),
+                   pack_bf16(x.z - h.z, x.w - h.w));
+    const __nv_bfloat162 b0 = __floats2bfloat162_rn(x.x, x.y);
+    const __nv_bfloat162 b1 = __floats2bfloat162_rn(x.z, x.w);
+    *reinterpret_cast<uint2*>(full + o) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&b0),
+                   *reinterpret_cast<const uint32_t*>(&b1));
+    if constexpr (REST)
+      *reinterpret_cast<uint2*>(rest + o) =
+          make_uint2(pack_bf16(x.x - __low2float(b0), x.y - __high2float(b0)),
+                     pack_bf16(x.z - __low2float(b1), x.w - __high2float(b1)));
+  }
+}
+
+// f32 accumulator values (columns 16 kk .. 16 kk + 15 of each k-step kk)
+// as the bf16 A fragments of a wgmma chain: x_hi = b(x) and its residual
+// x_lo = b(x - x_hi), x to 2^-18 |x|
+template <int N>
+__device__ __forceinline__ void split_p(const float (&s)[N / 2],
+                                        uint32_t (&ph)[N / 4],
+                                        uint32_t (&pl)[N / 4]) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float x0 = s[2 * i], x1 = s[2 * i + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    ph[i] = *reinterpret_cast<const uint32_t*>(&h);
+    pl[i] = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+  }
 }
 
 // ------------------------------------------------------- tensor maps --

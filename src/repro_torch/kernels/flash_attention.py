@@ -39,13 +39,13 @@ and the row log-sum-exp; the backward is a second Function,
 :class:`FlashAttentionBackward`, that recomputes the probabilities tile
 by tile from the log-sum-exp in ``csrc/flash_attention_bwd.cu`` (the row
 pass ``delta = rowsum(do o)``, then the kv-tile pass for dk and dv and
-the query-tile pass for dq: in bf16 on wgmma, both passes in one grid
-and, where :func:`bwd_splits` splits a GQA group over blocks, a fold of
-their f32 partials; in f32 on the CUDA cores, one launch a pass; no
-tensor of (Sq, Skv) is ever made), or on CPU tensors in
+the query-tile pass for dq on wgmma, both passes in one grid, f32 on
+TF32 and bf16 split terms, and, where :func:`bwd_splits` splits a GQA
+group over blocks, a fold of their f32 partials; no tensor of (Sq, Skv)
+is ever made), or on CPU tensors in
 :func:`attention_backward`, its plain version, blockwise over kv blocks
 of the reference's 1024. ``flash_attention.launches["backward"]`` counts
-backward calls on the card (each call its two to four launches). Both
+backward calls on the card (each call its two or three launches). Both
 Functions have a ``vmap`` rule that folds a vmapped dimension into B, so
 ``torch.func.vmap(torch.func.grad(...))`` over K clients (phase 2 of a
 round) makes ONE forward and ONE backward call for all of them. The
@@ -72,12 +72,12 @@ KV_BLOCK = 1024                # the plain backward's kv block, the reference's
 
 
 def bwd_splits(b: int, kvh: int, skv: int, group: int, sms: int) -> int:
-    """The bf16 backward kernel's split of each GQA group's heads over its
-    kv-tile blocks (one a batch, kv head and BKV kv rows): a power of two
-    dividing ``group``, doubled while those blocks number fewer than
-    ``sms``. The splits' f32 partials take ``nsplit * b * kvh * skv * (Dqk
-    + Dv)`` floats of scratch, which the doubling keeps under ``2 * sms *
-    64`` rows (20.6 MiB at (192, 128) on 132 SMs)."""
+    """The backward kernel's split of each GQA group's heads over its
+    kv-tile blocks (one a batch, kv head and BKV kv rows), in both types: a
+    power of two dividing ``group``, doubled while those blocks number
+    fewer than ``sms``. The splits' f32 partials take ``nsplit * b * kvh *
+    skv * (Dqk + Dv)`` floats of scratch, which the doubling keeps under
+    ``2 * sms * 64`` rows (20.6 MiB at (192, 128) on 132 SMs)."""
     blocks = b * kvh * -(-skv // BKV)
     n = 1
     while group % (2 * n) == 0 and blocks * n < sms:
@@ -327,9 +327,9 @@ def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float):
     (B, H, Sq) f32 ``delta`` scratch are made. The gradients are allocated
     as (B, S, heads, D) buffers seen as (B, heads, S, D), the layout of
     the model's activations. The operands go to the kernel as
-    :func:`_in_place` leaves them (the bf16 route reads q, k, v and do
-    through TMA tensor maps); in bf16 a group split over blocks
-    (:func:`bwd_splits`) takes an f32 scratch for its partials."""
+    :func:`_in_place` leaves them (the kernel reads q, k, v and do through
+    TMA tensor maps); a group split over blocks (:func:`bwd_splits`) takes
+    an f32 scratch for its partials."""
     kind = _device_type(q)
     _record("backward", q, k, v, causal, window)
     if kind == "cpu":
@@ -364,8 +364,7 @@ def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float):
         st for x in (*sts, dq.stride()[:3], dk.stride()[:3],
                      dvv.stride()[:3]) for st in x))
     is_bf16 = q.dtype == torch.bfloat16
-    nsplit = (bwd_splits(b, kvh, skv, h // kvh, _sm_count(q.device.index))
-              if is_bf16 else 1)
+    nsplit = bwd_splits(b, kvh, skv, h // kvh, _sm_count(q.device.index))
     scratch = (torch.empty(b * kvh * nsplit * skv * (dh + dv), dtype=F32,
                            device=q.device) if nsplit > 1 else None)
     with torch.cuda.device(q.device):

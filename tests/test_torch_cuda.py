@@ -830,15 +830,20 @@ def test_flash_backward_kernel_reads_strided_operands(cuda_device):
     (100, 100, 128, 128, 16, 2, True, 0),   # a group of 8
     (257, 257, 32, 32, 8, 1, True, 0),      # a group of 8 over 5 kv tiles
     (1, 64, 192, 128, 8, 1, True, 0),       # one query, the group split
+    # f32 accumulators flush every 512 rows: into a split group's
+    # partials before the fold (the kv-tile pass), and in the query pass
+    (1024, 1024, 64, 64, 32, 4, True, 0),
+    (64, 1100, 64, 64, 16, 2, True, 0),
 ])
 def test_flash_backward_kernel_new_tiling_edges(cuda_device, dtype, sq, skv,
                                                 dqk, dv, h, kvh, causal,
                                                 window):
-    """What the bf16 route's tiling can break: a kv tile ragged at Skv,
-    fewer queries than kv rows with and without a window, groups of 1 and
-    8 (a group of 8 is split over blocks and folded where the kv tiles
-    are few), 32-row query stages; each against the plain version and
-    bit-equal on a second run."""
+    """What the tiling can break: a kv tile ragged at Skv, fewer queries
+    than kv rows with and without a window, groups of 1 and 8 (a group of
+    8 is split over blocks and folded where the kv tiles are few), 32-row
+    query stages, and the f32 route's flushes, in a split group and in
+    the query pass; each against the plain version and bit-equal on a
+    second run."""
     gen = torch.Generator(device=cuda_device).manual_seed(sq + skv + dqk)
     q = torch.randn(2, h, sq, dqk, generator=gen, device=cuda_device)
     k = torch.randn(2, kvh, skv, dqk, generator=gen, device=cuda_device)
@@ -848,22 +853,24 @@ def test_flash_backward_kernel_new_tiling_edges(cuda_device, dtype, sq, skv,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dqk,dv", flash_mod.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_backward_kernel_loads_views_of_every_instance(cuda_device,
-                                                             dqk, dv):
+                                                             dqk, dv, dtype):
     """(B, S, H, Dh) views of q, k, v and the output gradient, as the
-    model hands them, loaded by the bf16 route's tensor maps with their
-    strides, at every (Dqk, Dv): against the plain version, and bit-equal
-    to the gradients of contiguous copies and to a second run."""
+    model hands them, loaded by the kernel's tensor maps with their
+    strides, at every (Dqk, Dv) in both types: against the plain version,
+    and bit-equal to the gradients of contiguous copies and to a second
+    run."""
     gen = torch.Generator(device=cuda_device).manual_seed(dqk)
     b, s, h, kvh = 2, 100, 8, 4
     q, k, v = (torch.randn(b, s, n, d, generator=gen, device=cuda_device)
-               .to(torch.bfloat16).transpose(1, 2)
+               .to(dtype).transpose(1, 2)
                for n, d in ((h, dqk), (kvh, dqk), (kvh, dv)))
     _bwd_check(q, k, v, True, 0, dqk)
     scale = dqk ** -0.5
     out, lse = FlashAttention.apply(q, k, v, True, 0, scale)
     do = torch.randn(b, s, h, dv, generator=gen, device=cuda_device).to(
-        torch.bfloat16).transpose(1, 2)
+        dtype).transpose(1, 2)
     got = flash_mod._backward(q, k, v, out, lse, do, True, 0, scale)
     want = flash_mod._backward(q.contiguous(), k.contiguous(),
                                v.contiguous(), out.contiguous(), lse,

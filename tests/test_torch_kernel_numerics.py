@@ -20,20 +20,24 @@ of the f32 plain version, P . V within the f32 tolerance 2e-5 of an f32
 P . V, the statistics within STATS_TOL x (1 + max|plain|). Each test also
 shows the cheaper form the kernel does not take failing the same bound.
 
-The attention backward kernel decides which (query tile, 64-row kv tile)
-pairs each of its two passes visits: 64-row query tiles in the f32
-route (CUDA cores) and in the bf16 route's query pass, and in the bf16
-route's kv pass stages of ``bwd_stage_rows(Dqk)`` query rows (32 at Dqk
-80 and 192). Its index arithmetic is mirrored here: each pass visits
-every valid score once, and ``_tiles`` (which ``backward_flops`` counts)
-counts the 64-row pairs; its f32 tile sums are emulated against an f64
-gradient to fix its card tolerance (1e-4 of the largest gradient). The
-bf16 route (wgmma) takes P, P^T, dS and dS^T rounded to bf16 as MMA
-operands, sums in f32 in the kernel's order (a kv tile's pairs head by
-head, each split of a GQA group summed apart and folded in split order;
-a query tile's kv tiles ascending), and is held here to half of its card
-tolerance (2^-8 of the largest gradient) against the f32 plain version
-on the same bf16 inputs.
+The attention backward kernel decides which (query rows, kv rows) pairs
+each of its two passes visits: a kv pass of 64-row kv tiles over stages
+of ``bwd_stage_rows(Dqk, f32)`` query rows (bf16: 64, or 32 at Dqk 80 and
+192; f32: 32, or 16 at Dqk 128 and 192), and a query pass of 64-row
+query tiles over stages of kv rows (bf16: 64; f32: the kv pass's stage
+rows). Its index arithmetic is mirrored here: each pass visits every
+valid score once, and ``_tiles`` (which ``backward_flops`` counts) counts
+the 64-row pairs. Both routes sum in f32 in the kernel's order (a kv
+tile's pairs head by head, each split of a GQA group summed apart and
+folded in split order; a query tile's kv stages ascending). The bf16
+route takes P, P^T, dS and dS^T rounded to bf16 as MMA operands and is
+held here to half of its card tolerance (2^-8 of the largest gradient)
+against the f32 plain version on the same bf16 inputs. The f32 route
+takes the forward's split for S and dP (b(q - h(q)) . b(k) + b(q) . b(k
+- h(k)) + h(q) . h(k)) and two bf16 terms of each operand of dV, dK and
+dQ (three chains), and is held to a tenth of its card tolerance (1e-4 of
+the largest gradient) against the f64 gradient; one term fewer of the
+shared operand, or S and dP without their TF32 term, misses that.
 """
 import numpy as np
 import pytest
@@ -267,15 +271,16 @@ def test_flash_wrapper_aligns_only_misaligned_inputs():
 # ------------------------------------------------ the flash f32 route --
 
 def _wgmma(terms, acc=None):
-    """The sum of A B over ``terms`` [(A (M, K), B (K, N), k), ...], one
-    term after the other, k columns of K a step, each step added to the
-    f32 accumulator rounding toward zero; from zero unless ``acc``."""
+    """The sum of A B over ``terms`` [(A (..., M, K), B (..., K, N), k),
+    ...], one term after the other, k columns of K a step, each step added
+    to the f32 accumulator rounding toward zero; from zero unless
+    ``acc``."""
     for a, b, k in terms:
         if acc is None:
-            acc = torch.zeros(a.shape[0], b.shape[1])
-        for k0 in range(0, a.shape[1], k):
-            acc = toward_zero_f32(acc.double() + a[:, k0:k0 + k].double()
-                                  @ b[k0:k0 + k].double())
+            acc = torch.zeros(*a.shape[:-1], b.shape[-1])
+        for k0 in range(0, a.shape[-1], k):
+            acc = toward_zero_f32(acc.double() + a[..., k0:k0 + k].double()
+                                  @ b[..., k0:k0 + k, :].double())
     return acc
 
 
@@ -394,26 +399,31 @@ def test_flash_wrapper_reads_model_views_in_place(dh, dtype):
 
 # ------------------------------------------ the backward kernel's tiles --
 
-BWD_TILE = 64             # csrc/flash_attention_bwd.cu: BM = BN = KR = 64
+BWD_TILE = 64             # csrc/flash_attention_bwd.cu: KR = 64
 FLASH_BWD_F32_TOL = 1e-4  # chip_smoke.py: of the largest f32 gradient
 FLASH_BWD_BF16_TOL = 2.0 ** -7   # chip_smoke.py: of the largest bf16 one
+LOG2E = 1.4426950408889634
 
 
-def bwd_stage_rows(dqk):
-    """Query rows a kv-pass stage of the bf16 route (``Wg::BQ``): 32 at
-    Dqk 80 and 192, where 64 would pass the registers a thread has, else
-    64."""
+def bwd_stage_rows(dqk, f32=False):
+    """Query rows a kv-pass stage of the backward kernel (``Wg::BQ``): in
+    bf16 32 at Dqk 80 and 192, where 64 would pass the registers a thread
+    has, else 64; in f32 16 at Dqk 128 and 192, where the fixed tiles' split
+    terms leave room for no more, else 32. The f32 query pass streams kv
+    stages of the same rows (``Wg::BK``); the bf16 one, 64."""
+    if f32:
+        return 16 if dqk >= 128 else 32
     return 32 if dqk in (80, 192) else 64
 
 
-def _bwd_pairs(sq, skv, causal, window, bq=BWD_TILE):
-    """The (first query row, first kv row) of each tile pair of each pass
-    of the backward kernel, by its index arithmetic, in the order a block
-    visits them: the kv-tile pass (``flash_bwd_dkdv``, or the kv-tile
-    blocks of ``flash_bwd_wg`` with stages of ``bq`` query rows) from the
-    query tile of the first causal row to the last row whose window
-    reaches the kv tile; the query-tile pass (64 query rows) from the kv
-    tile of the first row's window start to the last row's causal end."""
+def _bwd_pairs(sq, skv, causal, window, bq=BWD_TILE, bk=BWD_TILE):
+    """The (first query row, first kv row) of each pair of each pass of
+    the backward kernel, by its index arithmetic, in the order a block
+    visits them: the kv-tile pass (64 kv rows, stages of ``bq`` query
+    rows) from the stage of the first causal row to the last row whose
+    window reaches the kv tile; the query-tile pass (64 query rows, stages
+    of ``bk`` kv rows) from the stage of the first row's window start to
+    the last row's causal end."""
     t, q_offset = BWD_TILE, skv - sq
     kv_pass, q_pass = [], []
     for j0 in range(0, skv, t):
@@ -425,13 +435,19 @@ def _bwd_pairs(sq, skv, causal, window, bq=BWD_TILE):
     for i0 in range(0, sq, t):
         ni = min(t, sq - i0)
         kv_lo = (max(0, q_offset + i0 - window + 1) if window > 0
-                 else 0) // t * t
+                 else 0) // bk * bk
         kv_hi = q_offset + i0 + ni if causal else skv
-        q_pass += [(i0, j0) for j0 in range(kv_lo, kv_hi, t)]
+        q_pass += [(i0, j0) for j0 in range(kv_lo, kv_hi, bk)]
     return kv_pass, q_pass
 
 
-@pytest.mark.parametrize("bq", [BWD_TILE, 32])
+# (bq, bk) of the routes: bf16 (64, 64) and (32, 64); f32 (32, 32) and
+# (16, 16)
+@pytest.mark.parametrize("bq,bk", [
+    pytest.param(BWD_TILE, BWD_TILE, id="64"),
+    pytest.param(32, BWD_TILE, id="32"),
+    pytest.param(32, 32, id="32-32"),
+    pytest.param(16, 16, id="16-16")])
 @pytest.mark.parametrize("sq,skv", [(1, 1), (64, 64), (65, 65), (100, 100),
                                     (128, 128), (15, 129), (37, 101),
                                     (65, 200), (200, 200), (100, 300),
@@ -440,74 +456,132 @@ def _bwd_pairs(sq, skv, causal, window, bq=BWD_TILE):
                                            (True, 40), (True, 256),
                                            (False, 0), (False, 20)])
 def test_backward_passes_visit_every_valid_tile_once(sq, skv, causal,
-                                                    window, bq):
+                                                    window, bq, bk):
     """Each pass visits no pair twice and covers every valid score; with
-    64-row query tiles both passes visit the same pairs, which ``_tiles``
-    counts; the kv pass's 32-row stages (Dqk 80 and 192) split each 64-row
-    pair it needs into the stages that hold a valid score."""
-    kv_pass, q_pass = _bwd_pairs(sq, skv, causal, window, bq)
+    64-row stages both passes visit the same pairs, which ``_tiles``
+    counts; stages of fewer rows split each 64-row pair a pass needs into
+    the stages that hold a valid score."""
+    kv_pass, q_pass = _bwd_pairs(sq, skv, causal, window, bq, bk)
     assert len(set(kv_pass)) == len(kv_pass)
     assert len(set(q_pass)) == len(q_pass)
     valid = ref.flash_attention_mask(sq, skv, causal, window, "cpu")
     t = BWD_TILE
-    for pairs, rows in ((kv_pass, bq), (q_pass, t)):
-        needed = {(i // rows * rows, j // t * t)
+    for pairs, rows, cols in ((kv_pass, bq, t), (q_pass, t, bk)):
+        needed = {(i // rows * rows, j // cols * cols)
                   for i, j in valid.nonzero().tolist()}
         assert needed <= set(pairs)
-    if bq == t:
+    if bq == bk == t:
         assert sorted(kv_pass) == sorted(q_pass)
         assert len(kv_pass) == _tiles(sq, skv, causal, window)
     else:
         halves = {(i0 // t * t, j0) for i0, j0 in kv_pass}
-        assert halves == set(q_pass)
+        assert halves == {(i0, j0 // t * t) for i0, j0 in q_pass}
 
 
-def _bwd_f32_emulated(q, k, v, o, lse, do, causal, window, scale):
-    """(dq, dk, dv) as the kernel sums them, in f32: each visited tile
-    pair's P, dP and dS from f32 products, dK and dV summed over the
-    group's heads and then the query tiles of each head, dQ over the kv
-    tiles. One (batch) element; q (H, Sq, Dqk), k (KVH, Skv, Dqk)."""
-    h, sq, _ = q.shape
+def _split(x):
+    """The f32 route's terms of an operand: h(x), b(x - h(x)), b(x) and
+    b(x - b(x))."""
+    h, hi = tf32(x), bf16(x)
+    return h, bf16(x - h), hi, bf16(x - hi)
+
+
+def _bwd_f32_emulated(q, k, v, o, lse, do, causal, window, scale, nsplit,
+                      form="kernel", flush=True):
+    """(dq, dk, dv) as the f32 route sums them: S = Q K^T and dP = dO V^T
+    as b(a - h(a)) b(c) + b(a) b(c - h(c)) (k16 steps) + h(a) h(c) (k8),
+    the residual of Q (dO) first, each step rounded toward zero, both
+    passes alike; P = exp2(S scale log2 e - lse log2 e) and dS = P (dP -
+    delta) scale in f32; then the kernel's tile plan: a kv tile's pairs
+    head by head of each split and stage by stage, each split summed apart
+    and the partials added in split order; a query tile's kv stages
+    ascending; each accumulating product from two bf16 terms of each
+    operand, x_lo y1 + x_hi y2 + x_hi y1, k16 steps rounded toward zero,
+    each accumulator restarted from zero every 512 rows of its sum and
+    added to the row's sum in f32. ``form`` "one_term" takes the shared
+    operand of dV, dK and dQ as one term (x_lo y1 + x_hi y1), "no_tf32" S
+    and dP without their TF32 term (b(a) b(c) in its place); without
+    ``flush`` an accumulator takes its whole sum. One (batch) element in
+    f32: q (H, Sq, Dqk), k (KVH, Skv, Dqk), v (KVH, Skv, Dv)."""
+    h, sq, dqk = q.shape
     kvh, skv, _ = k.shape
     g, t = h // kvh, BWD_TILE
+    bq = bk = bwd_stage_rows(dqk, f32=True)
     valid = ref.flash_attention_mask(sq, skv, causal, window, "cpu")
     delta = (do * o).sum(-1)
-    kv_pass, q_pass = _bwd_pairs(sq, skv, causal, window)
+    lse2 = lse * torch.tensor(LOG2E, dtype=torch.float32)
+    sl2 = torch.tensor(scale, dtype=torch.float32) * LOG2E
+    kv_pass, q_pass = _bwd_pairs(sq, skv, causal, window, bq, bk)
 
-    def tile(hh, qt, kt):
-        i, j = slice(qt * t, qt * t + t), slice(kt * t, kt * t + t)
-        kh = hh // g
-        s = q[hh, i] @ k[kh, j].T
-        p = torch.where(valid[i, j], torch.exp(s * scale - lse[hh, i, None]),
-                        torch.zeros(()))
-        ds = p * (do[hh, i] @ v[kh, j].T - delta[hh, i, None]) * scale
-        return i, j, kh, p, ds
+    def kmajor(a, c):
+        (ah, al, a1, _), (ch, cl, c1, _) = _split(a), _split(c)
+        last = (a1, c1, 16) if form == "no_tf32" else (ah, ch, 8)
+        return _wgmma([(x, y.transpose(-1, -2), n)
+                       for x, y, n in ((al, c1, 16), (a1, cl, 16), last)])
+
+    rep = torch.arange(h) // g
+    s = kmajor(q, k[rep])
+    p = torch.where(valid, torch.exp2(
+        (s.double() * float(sl2) - lse2[..., None].double()).float()), 0.0)
+    ds = p * (kmajor(do, v[rep]) - delta[..., None]) * scale
+
+    def accumulate(acc, x, y):
+        """acc += x y over x's columns, both as the kernel splits them."""
+        pad = -x.shape[1] % 16              # rows past Sq or Skv: zeros
+        x = torch.nn.functional.pad(x, (0, pad))
+        y = torch.nn.functional.pad(y, (0, 0, 0, pad))
+        xh = bf16(x)
+        xl = bf16(x - xh)
+        _, _, y1, y2 = _split(y)
+        terms = ([(xl, y1), (xh, y1)] if form == "one_term"
+                 else [(xl, y1), (xh, y2), (xh, y1)])
+        return _wgmma([(a, b, 16) for a, b in terms], acc)
+
+    def flushed(steps, like):
+        """The sum of ``steps`` (functions acc -> acc) as the kernel takes
+        it: accumulated from zero, added in f32 to the row's sum every
+        512 // bq steps (the kernel's FLUSH) and at the end."""
+        out, acc = None, torch.zeros_like(like)
+        for n, step in enumerate(steps, 1):
+            acc = step(acc)
+            if flush and n % (512 // bq) == 0 or n == len(steps):
+                out = acc if out is None else out + acc
+                acc = torch.zeros_like(like)
+        return acc if out is None else out
 
     dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    by_kv = sorted(kv_pass, key=lambda pair: pair[1])
-    for kh in range(kvh):
-        for hh in range(kh * g, kh * g + g):
-            for i0, j0 in by_kv:
-                i, j, _, p, ds = tile(hh, i0 // t, j0 // t)
-                dv[kh, j] += p.T @ do[hh, i]
-                dk[kh, j] += ds.T @ q[hh, i]
+    for j0 in range(0, skv, t):
+        j = slice(j0, j0 + t)
+        stages = [i0 for i0, jj in kv_pass if jj == j0]
+        for kh in range(kvh):
+            heads = range(kh * g, kh * g + g)
+            for sp in range(nsplit):
+                pairs = [(hh, slice(i0, i0 + bq)) for hh in
+                         heads[sp * g // nsplit:(sp + 1) * g // nsplit]
+                         for i0 in stages]
+                dv[kh, j] += flushed([
+                    lambda acc, hh=hh, i=i: accumulate(acc, p[hh, i, j].T,
+                                                       do[hh, i])
+                    for hh, i in pairs], dv[kh, j])
+                dk[kh, j] += flushed([
+                    lambda acc, hh=hh, i=i: accumulate(acc, ds[hh, i, j].T,
+                                                       q[hh, i])
+                    for hh, i in pairs], dk[kh, j])
     for hh in range(h):
-        for i0, j0 in q_pass:
-            i, j, kh, _, ds = tile(hh, i0 // t, j0 // t)
-            dq[hh, i] += ds @ k[kh, j]
+        for i0 in range(0, sq, t):
+            i = slice(i0, i0 + t)
+            dq[hh, i] = flushed([
+                lambda acc, jj=slice(j0, j0 + bk): accumulate(
+                    acc, ds[hh, i, jj], k[hh // g, jj])
+                for ii, j0 in q_pass if ii == i0], dq[hh, i])
     return dq, dk, dv
 
 
-@pytest.mark.parametrize("dqk,dv", HEAD_DIMS)
-@pytest.mark.parametrize("sq,skv,causal,window", [(100, 100, True, 0),
-                                                  (65, 200, False, 0),
-                                                  (129, 129, True, 40)])
-def test_backward_f32_tiles_within_a_tenth_of_the_tolerance(
-        dqk, dv, sq, skv, causal, window):
-    """The kernel's f32 sums against the f64 gradient, on unit-normal
-    operands in groups of 2 (as the card's checks draw them): within a
-    tenth of FLASH_BWD_F32_TOL of the largest gradient, so the card's
-    tolerance leaves room for the kernel's own summation order."""
+def _bwd_f32_error(dqk, dv, sq, skv, causal, window, form="kernel",
+                   flush=True):
+    """Max |emulated f32 route - f64 gradient| over dq, dk and dv, on
+    unit-normal operands of 4 heads in groups of 2 (as the card's checks
+    draw them), and the largest f64 gradient; the group split as the
+    card's 132 SMs would take it for one batch element."""
     gen = torch.Generator().manual_seed(dqk + sq)
     h, kvh = 4, 2
     q = torch.randn(h, sq, dqk, generator=gen, dtype=torch.float64)
@@ -517,14 +591,54 @@ def test_backward_f32_tiles_within_a_tenth_of_the_tolerance(
     o, lse = ref.flash_attention_ref(q[None], k[None], v[None],
                                      causal=causal, window=window,
                                      scale=scale, return_lse=True)
-    o, lse = o[0], lse[0]
     do = torch.randn(o.shape, generator=gen, dtype=torch.float64)
-    want = _bwd_f32_emulated(q, k, v, o, lse, do, causal, window, scale)
-    got = _bwd_f32_emulated(*(x.float() for x in (q, k, v, o, lse, do)),
-                            causal, window, scale)
+    want = attention_backward(q[None], k[None], v[None], o, lse, do, causal,
+                              window, scale)
+    got = _bwd_f32_emulated(*(x.float() for x in (q, k, v, o[0], lse[0],
+                                                   do[0])),
+                            causal, window, scale,
+                            bwd_splits(1, kvh, skv, h // kvh, 132), form,
+                            flush)
     top = max(float(w.abs().max()) for w in want)
-    err = max(float((a.double() - w).abs().max()) for a, w in zip(got, want))
-    assert err <= FLASH_BWD_F32_TOL / 10 * top
+    err = max(float((a.double() - w[0]).abs().max())
+              for a, w in zip(got, want))
+    return err, top
+
+
+@pytest.mark.parametrize("dqk,dv", HEAD_DIMS)
+@pytest.mark.parametrize("sq,skv,causal,window", [(100, 100, True, 0),
+                                                  (65, 200, False, 0),
+                                                  (129, 129, True, 40)])
+def test_backward_f32_tiles_within_a_tenth_of_the_tolerance(
+        dqk, dv, sq, skv, causal, window):
+    """The f32 route's arithmetic, emulated, against the f64 gradient:
+    within a tenth of FLASH_BWD_F32_TOL of the largest gradient, so the
+    card's tolerance leaves room for the MMA's own summation."""
+    err, top = _bwd_f32_error(dqk, dv, sq, skv, causal, window)
+    assert err <= FLASH_BWD_F32_TOL / 10 * top, (err, top)
+
+
+def test_backward_f32_flushed_sums_within_a_tenth_of_the_tolerance():
+    """A causal (800, 800) at Dqk 32: the first kv tile's pairs and the
+    last query tile's kv stages pass 512 rows, so both passes flush their
+    accumulators into the rows' sums mid-way, and stay within a tenth of
+    FLASH_BWD_F32_TOL; each accumulator taking its whole sum instead, its
+    truncating MMA steps drift past it."""
+    err, top = _bwd_f32_error(32, 32, 800, 800, True, 0)
+    assert err <= FLASH_BWD_F32_TOL / 10 * top, (err, top)
+    err, top = _bwd_f32_error(32, 32, 800, 800, True, 0, flush=False)
+    assert err > FLASH_BWD_F32_TOL / 10 * top, (err, top)
+
+
+@pytest.mark.parametrize("dqk,dv", [(64, 64), (192, 128)])
+@pytest.mark.parametrize("form", ["one_term", "no_tf32"])
+def test_backward_f32_cheaper_splits_miss(dqk, dv, form):
+    """What the f32 route does not take: the shared operand of dV, dK and
+    dQ as one bf16 term (~2^-9 of a product), or S and dP without their
+    TF32 term, misses the tenth of FLASH_BWD_F32_TOL that the route
+    keeps."""
+    err, top = _bwd_f32_error(dqk, dv, 65, 200, False, 0, form)
+    assert err > FLASH_BWD_F32_TOL / 10 * top, (err, top)
 
 
 def _bf16(x):

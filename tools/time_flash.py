@@ -4,8 +4,9 @@
   python3 tools/time_flash.py [--src DIR] [--only LABEL,...] [--host]
                               [--backward] [--trace]
 
-For each shape (every flash shape ``PERF.md`` tracks, then TinyLlama's
-heads at B = 1 over 4096 and 32768 positions) it prints the kernel's error
+For each shape (every flash shape ``PERF.md`` tracks, in bf16 and in
+f32, then TinyLlama's heads at B = 1 over 4096 and 32768 positions) it
+prints the kernel's error
 against its plain version, its device time (calls captured in a CUDA
 graph), the time of one eager call (host issue included), the same with
 the operands as the model hands them ((B, S, H, Dh) tensors seen as (B, H,
@@ -25,13 +26,16 @@ instead, at each shape, the backward of ``flash_attention`` (whatever
 the checkout's autograd Function runs: the backward kernel, or a parent's
 plain-torch recompute) beside the backward of one SDPA call, each with
 its forward outside the timed region (``backward_ms``), and the
-backward's bound. Needs a CUDA device, but for ``--trace``: the peak
+backward's bound; and a digest of one call's dq, dk and dv bytes, which
+two checkouts share where their kernels give the same bits. Needs a CUDA
+device, but for ``--trace``: the peak
 bytes of ``launch/dryrun.Trace`` over one forward and
 ``torch.autograd.grad`` through ``flash_attention`` on fake tensors
 (TRACE_SHAPES; counted from shapes on the CPU, no device time), the
 memory shape of the checkout's gradient.
 """
 import argparse
+import hashlib
 import json
 from pathlib import Path
 import statistics
@@ -56,6 +60,12 @@ SHAPES = [
     ("musicgen prefill", 4, 32, 32, 128, 128, 64, 64, BF16),
     ("mla f32", 2, 8, 8, 100, 100, 192, 128, F32),
     ("zamba2 f32", 2, 8, 4, 100, 150, 80, 80, F32),
+    # f32: the token path's shape, the smoke TinyLlama of
+    # examples/dual_encoder_text.py (a microbatch of 8 sequences of 32),
+    # TinyLlama's heads over 4096 positions
+    ("tinyllama path f32", 8, 32, 4, 128, 128, 64, 64, F32),
+    ("text example f32", 8, 8, 2, 32, 32, 32, 32, F32),
+    ("tinyllama 4k f32", 1, 32, 4, 4096, 4096, 64, 64, F32),
     ("tinyllama 4k", 1, 32, 4, 4096, 4096, 64, 64, BF16),
     ("tinyllama 32k", 1, 32, 4, 32768, 32768, 64, 64, BF16),
 ]
@@ -245,15 +255,26 @@ def time_backward(label, b, h, kvh, sq, skv, dqk, dv, dtype):
     bound = by = None
     if not dense:
         bound, by = flash_bwd_bound_ms(q, k, v)
+    digest = None
+    if ms is not None:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fa.flash_attention(*leaves)
+        do = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+        grads = torch.autograd.grad(out, leaves, do)
+        digest = hashlib.sha256(b"".join(
+            g.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+            for g in grads)).hexdigest()[:16]
+        del leaves, out, do, grads
     row = {"label": label, "b": b, "h": h, "kvh": kvh, "sq": sq, "skv": skv,
            "dqk": dqk, "dv": dv, "dtype": str(dtype).replace("torch.", ""),
            "route": "plain-torch recompute" if dense else "backward kernel",
            "backward_ms": ms, "sdpa_backward_ms": lib_ms, "bound_ms": bound,
-           "bound_by": by}
+           "bound_by": by, "grad_sha256": digest}
     fmt = (lambda x: "none" if x is None else f"{x:.5f}")
     print(f"flash backward {label} B={b} H={h} KVH={kvh} Sq={sq} Skv={skv} "
           f"D=({dqk}, {dv}) {row['dtype']} ({row['route']}): {fmt(ms)} ms, "
-          f"sdpa backward {fmt(lib_ms)}, bound {fmt(bound)} ({by}); "
+          f"sdpa backward {fmt(lib_ms)}, bound {fmt(bound)} ({by}), "
+          f"grads {digest}; "
           f"backward / sdpa "
           f"{fmt(None if ms is None or lib_ms is None else ms / lib_ms)}",
           flush=True)
